@@ -1,0 +1,47 @@
+"""Parameters to and from nested dicts of numpy arrays.
+
+The dicts are keyed by the JAX package's field names (``enc``, ``fc_mu``,
+``fc_std``, ``heads``, ``readout``; ``z2h``, ``dec``, ``out``; ``w_ih``,
+``w_hh``, ``b_ih``, ``b_hh``; ``w``, ``b``), which is what
+``flax.serialization.to_state_dict`` gives for the reference's parameter
+pytrees, and every leaf keeps the reference's layout (torch's).  So weights
+trained by the reference load into the port, and back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import numpy as np
+import torch
+
+from vae_connexe_torch._device import resolve_device
+
+
+def to_numpy(params) -> dict:
+    """A parameter dataclass -> nested dict of float32 numpy arrays."""
+    return {f.name: (to_numpy(v) if dataclasses.is_dataclass(v)
+                     else v.detach().cpu().numpy())
+            for f in dataclasses.fields(params)
+            for v in [getattr(params, f.name)]}
+
+
+def from_numpy(cls, tree: dict, device=None):
+    """Nested dict of arrays -> parameter dataclass ``cls`` on ``device``
+    (default ``cuda``).  Missing or extra keys raise."""
+    dev = resolve_device(device)
+    hints = typing.get_type_hints(cls)
+    names = [f.name for f in dataclasses.fields(cls)]
+    if set(tree) != set(names):
+        raise KeyError(f"{cls.__name__} expects keys {sorted(names)}, got "
+                       f"{sorted(tree)}")
+    kwargs = {}
+    for name in names:
+        kind = hints[name]
+        if dataclasses.is_dataclass(kind):
+            kwargs[name] = from_numpy(kind, tree[name], dev)
+        else:
+            kwargs[name] = torch.tensor(np.asarray(tree[name], np.float32),
+                                        device=dev)
+    return cls(**kwargs)

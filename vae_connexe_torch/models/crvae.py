@@ -1,0 +1,139 @@
+"""CRVAE, generation half (port of ``vae_connexe_tpu/models/crvae.py``).
+
+A GRU encoder maps a short past window to a latent Gaussian; p GRU decoder
+heads, one per variable, predict each variable from all variables' pasts;
+the column norms of each head's input weights are the learned
+Granger-causal graph.  This slice ports the parameters, the parents mask,
+free-running generation and GC extraction.  ``encode``, ``forward`` and
+``conditioned_rollout`` need the whole-sequence recurrence and come with the
+training slice.
+
+Free-running generation runs through the K1 kernel
+(``ops/cuda_rollout.crvae_free_run_fused``) on a CUDA tensor and through its
+plain version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from vae_connexe_torch._device import resolve_device
+from vae_connexe_torch.ops.cuda_rollout import crvae_free_run_fused
+from vae_connexe_torch.ops.gru import GRUParams, init_gru, init_stacked_gru
+from vae_connexe_torch.utils.layers import Dense, init_dense, init_stacked_dense
+
+
+@dataclasses.dataclass(frozen=True)
+class CRVAEParams:
+    enc: GRUParams       # p -> H shared encoder
+    fc_mu: Dense         # H -> H
+    fc_std: Dense        # H -> H
+    heads: GRUParams     # stacked (p, 3H, p) decoder GRUs
+    readout: Dense       # stacked (p, 1, H) per-head output layers
+
+
+def masked_heads(heads: GRUParams, parents: torch.Tensor) -> GRUParams:
+    """Zero the input-weight columns of non-parents.
+
+    ``parents``: (p, p) binary, row i = parent indicator of variable i.
+    """
+    mask = parents.to(device=heads.w_ih.device, dtype=heads.w_ih.dtype)
+    return dataclasses.replace(heads, w_ih=heads.w_ih * mask[:, None, :])
+
+
+def no_reduced_precision(dtype) -> None:
+    """Reduced-precision serving is not ported yet."""
+    if dtype is not None and dtype not in ("float32", torch.float32):
+        raise NotImplementedError(
+            f"serving dtype {dtype!r}: the port serves float32 only; "
+            "bfloat16 serving is not ported yet")
+
+
+class CRVAE:
+    """Functional CRVAE (author variant).  The reference's ``enc_len``
+    belongs to ``encode``/``forward`` and comes with them in the training
+    slice."""
+
+    def __init__(self, p: int, hidden: int = 64, rollout_len: int = 21,
+                 noise_scale: float = 0.1):
+        self.p = p
+        self.hidden = hidden
+        self.rollout_len = rollout_len
+        self.noise_scale = noise_scale
+
+    def init(self, generator: torch.Generator, device=None) -> CRVAEParams:
+        """torch-default init from a CPU ``generator``, placed on ``device``
+        (default ``cuda``; see ``_device.resolve_device``)."""
+        dev = resolve_device(device)
+        g = generator
+        return CRVAEParams(
+            enc=init_gru(g, self.p, self.hidden, dev),
+            fc_mu=init_dense(g, self.hidden, self.hidden, dev),
+            fc_std=init_dense(g, self.hidden, self.hidden, dev),
+            heads=init_stacked_gru(g, self.p, self.p, self.hidden, dev),
+            readout=init_stacked_dense(g, self.p, self.hidden, 1, dev),
+        )
+
+    # ---------------- generation ----------------
+
+    def _free_run(self, params: CRVAEParams, heads: GRUParams,
+                  x0: torch.Tensor, h0: torch.Tensor, noise: torch.Tensor,
+                  steps: Optional[int] = None, dtype=None) -> torch.Tensor:
+        """Shared generation core: every head takes one GRU step per emitted
+        value and ``noise_scale * noise_t`` is added to it (the compensated
+        value feeds the next step).
+
+        x0 (B, p); h0 (B, H), the state every head starts from (the JAX
+        reference takes it broadcast to (p, B, H)); noise (B, T, p).
+        Returns (B, T, p).
+        """
+        no_reduced_precision(dtype)
+        if steps is not None and noise.shape[1] != steps:
+            raise ValueError(
+                f"noise has {noise.shape[1]} steps but the rollout wants "
+                f"{steps}; slice the error-VAE sample to the rollout length")
+        return crvae_free_run_fused(heads, params.readout, x0, h0, noise,
+                                    self.noise_scale)
+
+    def rollout(self, params: CRVAEParams, batch: int,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None,
+                parents: Optional[torch.Tensor] = None,
+                length: Optional[int] = None,
+                h0: Optional[torch.Tensor] = None,
+                dtype=None) -> torch.Tensor:
+        """Free-running generation (the reference's ``mode='test'``).
+
+        Starts from x0 = 0 with one shared random h0 (B, H) for all heads,
+        drawn from ``generator`` or passed as ``h0``.  ``noise``: optional
+        (B, length, p) error sequence added as ``noise_scale * noise_t`` to
+        each emitted step.  Returns (B, length, p).
+        """
+        steps = self.rollout_len if length is None else length
+        heads = params.heads if parents is None else masked_heads(params.heads, parents)
+        dev = heads.w_ih.device
+        if h0 is None:
+            if generator is None:
+                raise ValueError("rollout needs a generator or an h0 draw")
+            h0 = torch.randn((batch, self.hidden), generator=generator,
+                             device=generator.device)
+        x0 = torch.zeros((batch, self.p), device=dev)
+        if noise is None:
+            noise = torch.zeros((batch, steps, self.p), device=dev)
+        return self._free_run(params, heads, x0, h0.to(dev), noise.to(dev),
+                              steps, dtype=dtype)
+
+    # ---------------- causal graph ----------------
+
+    def gc(self, params: CRVAEParams, parents: Optional[torch.Tensor] = None,
+           threshold: bool = True) -> torch.Tensor:
+        """Learned Granger-causal matrix: row i, column j is the L2 norm over
+        gate rows of head i's input-weight column j (or its presence)."""
+        heads = params.heads if parents is None else masked_heads(params.heads, parents)
+        scores = torch.linalg.vector_norm(heads.w_ih, dim=-2)   # (p, p)
+        if threshold:
+            return (scores > 0).to(torch.int32)
+        return scores
