@@ -1,21 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve, time.
+"""Drive the PyTorch port on one NVIDIA GPU: build, check, serve, train, time.
 
     python3 chip_smoke.py
 
 1. Print the card's name and power limit (nvidia-smi).
-2. Build the rollout kernels from ``vae_connexe_torch/csrc/`` with nvcc.
-3. Hold each kernel against its plain PyTorch version on the card at the
-   serving width (p=20, H=64, T=21; B = 1, 8, 37, 3072) and at p=4, H=8 with
-   a random parents mask.  Tolerance: 1e-4 absolute (float32 recurrences of
-   21 steps whose products are summed in another order than cuBLAS's).
-4. The main path: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20,
-   H=64), exported at batch 3072, loaded and served by ``GeneratorServer``,
-   which answers explicit-seed, JSON and coalesced seedless requests.  The
-   kernels' launch counts are set to 0 just before and read just after.
-   The served samples are held against the plain versions on the same draws.
-5. Time each kernel (CUDA events) and the whole compensated generation at
-   B=1 and B=3072, beside the plain versions and the card's bound.
+2. Build the three kernel libraries from ``vae_connexe_torch/csrc/``
+   (rollout, gru, step), one nvcc each, all started together; print
+   ptxas's register and spill lines.
+3. Hold each kernel against its plain PyTorch version on the card:
+   - K1/K2 (rollout) at the serving width (p=20, H=64, T=21; B = 1, 8, 37,
+     3072) and at p=4, H=8 with a random parents mask; 1e-4 absolute
+     (float32 recurrences of 21 steps, products summed in another order).
+   - B1/B2 (GRU recurrence) at the phase-1 decoder shape (P=20, T=10,
+     B=256, D=20, H=64, shared input, h0 broadcast from z), the encoder
+     shape (P=1) and a ragged B=37 with per-head input and a random
+     parents mask: outputs 1e-5 absolute, every gradient from a random
+     douts rtol 1e-3, atol 1e-4 (the order of the JAX package's own
+     kernel tests: each gradient sums B*T products in another order).
+   - B3 (whole phase-1 step) at p=20, H=64, ctx=20, B=256, lam=0.1,
+     lr=5e-2, beta=0.1, random parents: one step and a 5-step trajectory,
+     params and metrics rtol 1e-4, atol 1e-6 (the JAX package's one-step
+     order; an SGD step of lr=5e-2 scales the gradients' rounding down).
+4. The main paths, each with the launch counts set to 0 just before it and
+   read just after:
+   - serving: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20, H=64),
+     exported at batch 3072, loaded and served by ``GeneratorServer``; the
+     served samples are held against the plain versions on the same draws;
+   - training: ``fit_phase1`` on a Lorenz-96 series made on the card (p=20,
+     T=2048, windows of 20) at H=64, B=256 for 300 steps: 2 B1 and 2 B2
+     launches a step, a finite loss that falls;
+   - the whole-step kernel: 200 ``fused_phase1_step`` steps on the same
+     windows: one B3 launch a step, a loss that falls;
+   - graph recovery: ``lorenz96_crvae``'s phase 1 (p=10, H=64, B=256,
+     lam=0.1, lr=5e-2) for 1000 steps; the GC AUROC against the circulant
+     truth must reach the JAX package's at the same configuration and step
+     count (``tools/jax_phase1_auroc.py``) minus a margin.
+5. Time each kernel (CUDA events) beside its plain version, its bound and,
+   where one PyTorch call computes the same function, that call (cuDNN
+   ``nn.GRU`` at the one-head encoder shape for B1/B2); time compensated
+   generation, and phase-1 steps/s through ``make_phase1_step`` (B1/B2)
+   and ``fused_phase1_step`` (B3).
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -27,6 +51,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,6 +65,16 @@ sys.path.insert(0, ROOT)
 TOL = 1e-4
 P, H, T, SERVE_B = 20, 64, 21, 3072
 CHECK_BATCHES = (1, 8, 37, SERVE_B)
+# Phase 1 at bench.py's train width: context 20 = encoder 10 + decoder 10.
+CTX, ENC, TRAIN_B, SERIES_T = 20, 10, 256, 2048
+OUT_TOL = 1e-5                              # B1 outputs, absolute
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)       # B2 gradients
+STEP_TOL = dict(rtol=1e-4, atol=1e-6)       # B3: one step and five
+FIT_STEPS, STEP_STEPS, GC_STEPS = 300, 200, 1000
+# lorenz96_crvae's phase-1 AUROC from the JAX package on a CPU at the same
+# configuration and 1000 steps (tools/jax_phase1_auroc.py), and the margin
+# the port's may fall below it (another series and other draws).
+JAX_AUROC, AUROC_MARGIN = 1.0, 0.05
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -68,6 +103,45 @@ def rollout_cost(b, t, heads, hidden, d, outs, noise: bool, x0: bool):
     elems = (weights + b * hidden + (b * d if x0 else 0)
              + (b * t * d if noise else 0) + b * t * d)
     return flops, 4 * elems
+
+
+def gru_cost(p, b, t, d, hidden, backward: bool):
+    """(flops, bytes) of one B1 (forward) or B2 (backward, no dx) launch.
+
+    Forward: the input and hidden products of every step.  Backward: those
+    again (the gates are rematerialised from the saved states, which is
+    the work these inputs need), d h_prev and the dW_hh and dW_ih outer
+    products.  Bytes: x, the weights and h0 read once and the outputs
+    written once (backward: plus outs and douts read, the weight gradients
+    and dh0 written)."""
+    g = 3 * hidden
+    fwd = 2 * p * b * t * g * (d + hidden)
+    weights = p * (g * d + g * hidden + 2 * g)
+    states = p * b * t * hidden
+    if not backward:
+        return fwd, 4 * (b * t * d + weights + b * hidden + states)
+    flops = fwd + 2 * p * b * t * g * (2 * hidden + d)
+    return flops, 4 * (b * t * d + 2 * weights + p * b * hidden + b * hidden
+                       + 2 * states)
+
+
+def step_cost(p, b, t, e, hidden):
+    """(flops, bytes) of one phase-1 step (B3): the encoder, fc and decoder
+    products forward, their backward (no rematerialisation: one function of
+    the parameters and the batch), the readouts; the batch, eps, mask and
+    parameters read once, the new parameters and metrics written once."""
+    g, td = 3 * hidden, t - e
+    enc = 2 * b * e * g * (p + hidden)
+    dec = 2 * p * b * td * g * (p + hidden)
+    fc = 2 * 2 * b * hidden * hidden
+    ro = 2 * p * b * td * hidden
+    flops = (enc + dec + fc + ro                    # forward
+             + 2 * b * e * g * (2 * hidden + p)     # encoder backward
+             + 2 * p * b * td * g * (2 * hidden + p)  # decoder backward
+             + 2 * fc + 2 * ro)
+    params = (g * p + g * hidden + 2 * g + 2 * (hidden * hidden + hidden)
+              + p * (g * p + g * hidden + 2 * g + hidden + 1))
+    return flops, 4 * (b * t * p + b * hidden + p * p + 2 * params + 5)
 
 
 def bound(flops, nbytes):
@@ -260,7 +334,8 @@ def time_all(dev, card, served_fn):
                 f"[{card}]")
         log(f"time compensated generation B={b}: {gen_ms:.4f} ms, "
             f"{b / gen_ms * 1e3:.1f} samples/s [{card}]")
-        res[b] = row
+        res[b] = {name: {"ms": ms, "plain_ms": plain}
+                  for name, (ms, plain) in row.items()}
     t0 = time.perf_counter()
     n = 5
     for s in range(n):
@@ -270,6 +345,330 @@ def time_all(dev, card, served_fn):
         f"{served_ms:.3f} ms, {SERVE_B / served_ms * 1e3:.1f} samples/s "
         f"[{card}]")
     return res[SERVE_B]
+
+
+def _assert_close(name, got, ref, errors, rtol, atol, what):
+    """Hold ``got`` to ``ref`` with the stated tolerance; record the
+    largest absolute error of kernel ``name``."""
+    import torch
+
+    e = (got - ref).abs().max().item()
+    errors[name] = max(errors.get(name, 0.0), e)
+    ok = bool(torch.isfinite(got).all()) and bool(
+        ((got - ref).abs() <= atol + rtol * ref.abs()).all())
+    log(f"check {name} {what}: max_abs_err={e:.3e} rtol={rtol:g} "
+        f"atol={atol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({what})")
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def check_training_kernels(dev, errors):
+    """Phase 3b: B1/B2 and B3 against their plain versions, on the card."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_gru, cuda_step
+    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+    from vae_connexe_torch.train import Phase1Config
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    td = CTX - ENC
+    cases = [  # (name, heads, batch, per-head input, h0 shape, mask)
+        ("decoder", P, TRAIN_B, False, (1, TRAIN_B, H), False),
+        ("encoder", 1, TRAIN_B, False, (1, TRAIN_B, H), False),
+        ("ragged per-head", P, 37, True, (P, 37, H), True),
+    ]
+    for what, heads, b, per_head, h0_shape, masked in cases:
+        g = torch.Generator().manual_seed(b + heads)
+        params = init_stacked_gru(g, heads, P, H, dev)
+        if masked:
+            mask = (torch.rand((heads, P), generator=g) > 0.3).float().to(dev)
+            params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
+                               params.b_ih, params.b_hh)
+        x = torch.randn((heads, b, td, P) if per_head else (b, td, P),
+                        generator=g).to(dev)
+        h0 = torch.randn(h0_shape, generator=g).to(dev)
+        douts = torch.randn((heads, b, td, H), generator=g).to(dev)
+        res = []
+        for fn in (cuda_gru.gru_scan_heads_fused,
+                   cuda_gru.gru_scan_heads_fused_plain):
+            ins = [v.clone().requires_grad_(True) for v in
+                   (params.w_ih, params.w_hh, params.b_ih, params.b_hh, x, h0)]
+            outs, _ = fn(GRUParams(*ins[:4]), ins[4], ins[5])
+            res.append([outs.detach(), *torch.autograd.grad(
+                (outs * douts).sum(), ins)])
+        torch.cuda.synchronize()
+        (k_outs, *k_grads), (r_outs, *r_grads) = res
+        shape = f"P={heads} B={b} T={td} D={P} H={H}"
+        _assert_close("gru_forward", k_outs, r_outs, errors, 0.0, OUT_TOL,
+                      f"{what} {shape} outs")
+        _assert_close("gru_backward", _flat(k_grads), _flat(r_grads), errors,
+                      **GRAD_TOL, what=f"{what} {shape} dW_ih dW_hh db dx dh0")
+
+    g = torch.Generator().manual_seed(5)
+    model = CRVAE(P, H, ENC)
+    params = model.init(g, dev)
+    cfg = Phase1Config(lam=0.1, lr=5e-2, beta=0.1)
+    parents = (torch.rand((P, P), generator=g) > 0.3).float().to(dev)
+    k_params = r_params = params
+    for step in range(5):
+        batch = torch.randn((TRAIN_B, CTX, P), generator=g).to(dev)
+        eps = torch.randn((TRAIN_B, H), generator=g).to(dev)
+        k_params, k_met = cuda_step.fused_phase1_step(
+            model, cfg, k_params, parents, batch, eps)
+        r_params, r_met = cuda_step.fused_phase1_step_plain(
+            model, cfg, r_params, parents, batch, eps)
+        torch.cuda.synchronize()
+        if step in (0, 4):
+            what = f"p={P} H={H} ctx={CTX} B={TRAIN_B} step {step + 1}"
+            _assert_close("phase1_step", _flat(tree_leaves(k_params)),
+                          _flat(tree_leaves(r_params)), errors, **STEP_TOL,
+                          what=what + " params")
+            _assert_close("phase1_step", torch.stack(list(k_met.values())),
+                          torch.stack(list(r_met.values())), errors,
+                          **STEP_TOL, what=what + " metrics")
+
+
+def lorenz_windows(dev, p, seed):
+    """A Lorenz-96 series of SERIES_T steps made on the card, windowed by
+    ``arrange_input`` into (SERIES_T - CTX, CTX, p)."""
+    import torch
+
+    from vae_connexe_torch.data import arrange_input, lorenz96
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    windows, _ = arrange_input(lorenz96(gen, p=p, t=SERIES_T, device=dev), CTX)
+    return windows
+
+
+def train_main_path(dev, card, windows):
+    """Phase 4b: fit_phase1 at p=20, H=64, B=256; returns its launches."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.train import Phase1Config, fit_phase1
+
+    model = CRVAE(P, H, ENC)
+    params = model.init(torch.Generator().manual_seed(1), dev)
+    cfg = Phase1Config(max_iter=FIT_STEPS, check_every=25,
+                       batch_size=TRAIN_B)
+    losses = []
+    gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    t0 = time.perf_counter()
+    fit_phase1(model, params, windows, torch.ones((P, P), device=dev), cfg,
+               gen, callback=lambda step, st, met: losses.append(met["loss"]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_gru.LAUNCHES)
+    log(f"main path fit_phase1 p={P} H={H} B={TRAIN_B} ctx={CTX}: "
+        f"{FIT_STEPS} steps in {secs:.3f} s ({FIT_STEPS / secs:.1f} steps/s "
+        f"incl. host), loss {losses[0]:.5f} at step 25 -> {losses[-1]:.5f}, "
+        f"launches {launches} [{card}]")
+    want = {"gru_forward": 2 * FIT_STEPS, "gru_backward": 2 * FIT_STEPS}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    return launches
+
+
+def _b3_step(model, cfg, params, windows, parents, gen):
+    """One fused_phase1_step on a batch and eps drawn as a fit draws them
+    (indices first, eps second)."""
+    import torch
+
+    from vae_connexe_torch.ops.cuda_step import fused_phase1_step
+
+    idx = torch.randint(0, windows.shape[0], (TRAIN_B,), generator=gen,
+                        device=gen.device)
+    eps = torch.randn((TRAIN_B, H), generator=gen, device=gen.device)
+    return fused_phase1_step(model, cfg, params, parents, windows[idx], eps)
+
+
+def step_main_path(dev, card, windows):
+    """Phase 4c: STEP_STEPS whole-step launches at p=20, H=64, B=256 on the
+    Lorenz windows; returns its launches."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_step
+    from vae_connexe_torch.train import Phase1Config
+
+    model = CRVAE(P, H, ENC)
+    params = model.init(torch.Generator().manual_seed(1), dev)
+    cfg = Phase1Config(batch_size=TRAIN_B)
+    parents = torch.ones((P, P), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    losses = []
+    torch.cuda.synchronize()
+    cuda_step.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(STEP_STEPS):
+        params, met = _b3_step(model, cfg, params, windows, parents, gen)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_step.LAUNCHES)
+    first, last = float(losses[0]), float(torch.stack(losses[-25:]).mean())
+    log(f"main path fused_phase1_step p={P} H={H} B={TRAIN_B}: {STEP_STEPS} "
+        f"steps in {secs:.3f} s, loss {first:.5f} -> {last:.5f} (mean of "
+        f"the last 25), launches {launches} [{card}]")
+    assert launches == {"phase1_step": STEP_STEPS}, launches
+    assert math.isfinite(last) and last < first, (first, last)
+    return launches
+
+
+def graph_recovery(dev, card):
+    """Phase 4d: lorenz96_crvae's phase 1 recovers the circulant graph."""
+    import torch
+
+    from vae_connexe_torch.data import lorenz96_truth
+    from vae_connexe_torch.evals import gc_metrics
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.train import Phase1Config, fit_phase1
+
+    p = 10
+    windows = lorenz_windows(dev, p, seed=4)
+    model = CRVAE(p, H)
+    params = model.init(torch.Generator().manual_seed(5), dev)
+    cfg = Phase1Config(lam=0.1, lr=5e-2, batch_size=TRAIN_B,
+                       max_iter=GC_STEPS, check_every=500)
+    t0 = time.perf_counter()
+    best, _, metrics = fit_phase1(model, params, windows,
+                                  torch.ones((p, p), device=dev), cfg,
+                                  torch.Generator(device=dev).manual_seed(6))
+    gc = gc_metrics(lorenz96_truth(p, dev), model.gc(best, threshold=False))
+    secs = time.perf_counter() - t0
+    auroc = float(gc["auroc"])
+    log(f"graph recovery lorenz96_crvae p={p} H={H} B={TRAIN_B} "
+        f"{GC_STEPS} steps in {secs:.3f} s: auroc={auroc:.4f} "
+        f"auroc_offdiag={float(gc['auroc_offdiag']):.4f} "
+        f"recall={float(gc['recall']):.4f} mean_loss={metrics['mean_loss']:.5f}; "
+        f"threshold {JAX_AUROC - AUROC_MARGIN:.4f} (JAX {JAX_AUROC} - "
+        f"{AUROC_MARGIN}) [{card}]")
+    assert auroc >= JAX_AUROC - AUROC_MARGIN, auroc
+
+
+def time_training(dev, card, windows):
+    """Phase 5b: device times of B1, B2, B3 beside their plain versions,
+    cuDNN at the encoder shape, and phase-1 steps/s of both step paths."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_gru, cuda_step
+    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+    from vae_connexe_torch.train import Phase1Config, Phase1State, make_phase1_step
+
+    td = CTX - ENC
+    g = torch.Generator().manual_seed(7)
+    res = {}
+    for what, heads in (("encoder", 1), ("heads", P)):
+        params = init_stacked_gru(g, heads, P, H, dev)
+        x = torch.randn((TRAIN_B, td, P), generator=g).to(dev)
+        h0 = torch.randn((1, TRAIN_B, H), generator=g).to(dev)
+        douts = torch.randn((heads, TRAIN_B, td, H), generator=g).to(dev)
+        h0b = h0.expand(heads, TRAIN_B, H)
+        leaves = [v.clone().requires_grad_(True) for v in
+                  (params.w_ih, params.w_hh, params.b_ih, params.b_hh)]
+        p_req = GRUParams(*leaves)
+        outs = cuda_gru._forward_launch(params.w_ih, params.b_ih, params.w_hh,
+                                        params.b_hh, x, h0b)
+        plain_outs, _ = cuda_gru.gru_scan_heads_fused_plain(p_req, x, h0)
+        row = {
+            "ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads(params, x, h0),
+                          100),
+            "plain_ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads_plain(
+                params, x, h0), 100),    # params carry no grad: no graph
+            "bwd_ms": time_ms(lambda: cuda_gru._backward_launch(
+                params.w_ih, params.b_ih, params.w_hh, params.b_hh, x, h0b,
+                outs, douts, need_dx=False), 100),
+            "bwd_plain_ms": time_ms(lambda: torch.autograd.grad(
+                plain_outs, leaves, douts, retain_graph=True), 100),
+        }
+        if heads == 1:
+            # One torch call computes a one-head GRU: cuDNN's nn.GRU.
+            gru = torch.nn.GRU(P, H, batch_first=True).to(dev)
+            with torch.no_grad():
+                for name, v in (("weight_ih_l0", params.w_ih[0]),
+                                ("weight_hh_l0", params.w_hh[0]),
+                                ("bias_ih_l0", params.b_ih[0]),
+                                ("bias_hh_l0", params.b_hh[0])):
+                    getattr(gru, name).copy_(v)
+            with torch.no_grad():
+                ref, _ = gru(x, h0)
+            e = (ref - outs[0]).abs().max().item()
+            lib_out, _ = gru(x, h0)
+            row["library_ms"] = time_ms(lambda: gru(x, h0), 100)
+            row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_out, list(gru.parameters()), douts[0], retain_graph=True),
+                100)
+            log(f"cuDNN nn.GRU vs B1 at the encoder shape: max_abs_err {e:.3e}")
+        res[what] = row
+        log(f"time {what} P={heads} B={TRAIN_B} T={td} D={P} H={H}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" [{card}]")
+
+    model = CRVAE(P, H, ENC)
+    params = model.init(torch.Generator().manual_seed(8), dev)
+    cfg = Phase1Config(batch_size=TRAIN_B)
+    parents = torch.ones((P, P), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    batch = windows[:TRAIN_B].contiguous()
+    eps = torch.randn((TRAIN_B, H), generator=gen, device=dev)
+    b3 = {"ms": time_ms(lambda: cuda_step.fused_phase1_step(
+              model, cfg, params, parents, batch, eps), 50),
+          "plain_ms": time_ms(lambda: cuda_step.fused_phase1_step_plain(
+              model, cfg, params, parents, batch, eps), 50)}
+    log(f"time phase1_step p={P} H={H} ctx={CTX} B={TRAIN_B}: kernel "
+        f"{b3['ms']:.4f} ms, plain {b3['plain_ms']:.4f} ms [{card}]")
+
+    # Steps/s of the two step paths, host clock, draws included.
+    state = Phase1State(params=params, best_params=params,
+                        best_loss=torch.tensor(float("inf"), device=dev),
+                        generator=gen, step=0)
+    step = make_phase1_step(model, cfg, windows, parents)
+    rates = {}
+    for name in ("make_phase1_step", "fused_phase1_step", "make_phase1_step",
+                 "fused_phase1_step"):
+        n, p_fused = 100, params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if name == "make_phase1_step":
+                state, _ = step(state)
+            else:
+                p_fused, _ = _b3_step(model, cfg, p_fused, windows, parents,
+                                      gen)
+        torch.cuda.synchronize()
+        rates.setdefault(name, []).append(n / (time.perf_counter() - t0))
+    for name, r in rates.items():
+        log(f"time phase-1 steps/s p={P} H={H} B={TRAIN_B} via {name}: "
+            f"{r[0]:.1f}, {r[1]:.1f} (two runs, in turns) [{card}]")
+
+    enc, heads = res["encoder"], res["heads"]
+    fwd_bound, _ = bound(*gru_cost(P, TRAIN_B, td, P, H, backward=False))
+    bwd_bound, _ = bound(*gru_cost(P, TRAIN_B, td, P, H, backward=True))
+    return {
+        "gru_forward": {"ms": enc["ms"], "plain_ms": enc["plain_ms"],
+                        "library_ms": enc["library_ms"], "extra": {
+                            "heads_ms": heads["ms"],
+                            "heads_plain_ms": heads["plain_ms"],
+                            "heads_bound_ms": fwd_bound}},
+        "gru_backward": {"ms": enc["bwd_ms"], "plain_ms": enc["bwd_plain_ms"],
+                         "library_ms": enc["bwd_library_ms"], "extra": {
+                             "heads_ms": heads["bwd_ms"],
+                             "heads_plain_ms": heads["bwd_plain_ms"],
+                             "heads_bound_ms": bwd_bound}},
+        "phase1_step": b3,
+    }
 
 
 def main() -> int:
@@ -287,34 +686,53 @@ def main() -> int:
     log(f"card: {card}")
 
     t0 = time.perf_counter()
-    lib_path, report = _build.build("rollout")
-    _build.rollout_library()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    built = _build.build_all(list(_build.SOURCES))
+    _build.rollout_library(), _build.gru_library(), _build.step_library()
+    log(f"build: {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (_, report) in built.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     errors = {}
     check_kernels(dev, errors)
+    check_training_kernels(dev, errors)
     launches, served_fn = serve_main_path(dev)
+    series = lorenz_windows(dev, P, seed=0)
+    launches.update(train_main_path(dev, card, series))
+    launches.update(step_main_path(dev, card, series))
+    graph_recovery(dev, card)
     times = time_all(dev, card, served_fn)
+    times.update(time_training(dev, card, series))
 
-    source = "vae_connexe_torch/csrc/rollout.cu"
+    rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
+                            "vae_connexe_torch/csrc/gru.cu")
+    enc = (1, TRAIN_B, CTX - ENC, P, H)       # B1/B2 timed at the encoder
     costs = {
         "crvae_free_run": (rollout_cost(SERVE_B, T, P, H, P, 1, True, True),
-                           "vae_connexe_tpu/ops/pallas_rollout.py:117"),
+                           rollout_src, "vae_connexe_tpu/ops/pallas_rollout.py:117"),
         "errvae_sample": (rollout_cost(SERVE_B, T, 1, H, P, P, False, False),
-                          "vae_connexe_tpu/ops/pallas_rollout.py:204"),
+                          rollout_src, "vae_connexe_tpu/ops/pallas_rollout.py:204"),
+        "gru_forward": (gru_cost(*enc, backward=False), gru_src,
+                        "vae_connexe_tpu/ops/pallas_gru.py:243"),
+        "gru_backward": (gru_cost(*enc, backward=True), gru_src,
+                         "vae_connexe_tpu/ops/pallas_gru.py:426"),
+        "phase1_step": (step_cost(P, TRAIN_B, CTX, ENC, H),
+                        "vae_connexe_torch/csrc/step.cu",
+                        "vae_connexe_tpu/ops/pallas_step.py:353"),
     }
     kernels = []
-    for name, ((flops, nbytes), replaces) in costs.items():
+    for name, ((flops, nbytes), source, replaces) in costs.items():
         bound_ms, bound_by = bound(flops, nbytes)
-        ms, plain_ms = times[name]
+        row = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": errors[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": row.get("library_ms"),
+            **row.get("extra", {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -14,15 +14,25 @@ import torch
 
 from vae_connexe_torch import _device
 from vae_connexe_torch.models import CRVAE, ErrorVAE, masked_heads
-from vae_connexe_torch.ops import cuda_rollout
+from vae_connexe_torch.ops import cuda_gru, cuda_rollout, cuda_step
+from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+from vae_connexe_torch.train import Phase1Config
+from vae_connexe_torch.utils.tree import tree_leaves
 
 _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.convert",
+            "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.windows",
+            "vae_connexe_torch.evals.gc_metrics", "vae_connexe_torch.losses.kl",
+            "vae_connexe_torch.losses.penalties",
             "vae_connexe_torch.models.crvae", "vae_connexe_torch.models.error_vae",
-            "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_rollout",
-            "vae_connexe_torch.ops.gru", "vae_connexe_torch.server",
-            "vae_connexe_torch.serving", "vae_connexe_torch.train.crvae_trainer",
-            "vae_connexe_torch.utils.layers"]
+            "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
+            "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
+            "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
+            "vae_connexe_torch.optim.prox", "vae_connexe_torch.server",
+            "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
+            "vae_connexe_torch.train.crvae_trainer",
+            "vae_connexe_torch.utils.layers", "vae_connexe_torch.utils.scalers",
+            "vae_connexe_torch.utils.tree"]
 
 
 def test_port_imports_no_jax():
@@ -60,6 +70,27 @@ def test_kernel_build_is_content_addressed():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+@pytest.mark.parametrize("name", ["gru", "step"])
+def test_training_libraries_are_content_addressed(name, tmp_path, monkeypatch):
+    """The gru and step libraries are named by a hash of every source they
+    are built from, the shared header included: the same bytes give the
+    same path, an edit to any one of them another."""
+    from vae_connexe_torch.ops import _build
+
+    path = _build.library_path(name)
+    assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+    assert "gru_tile.cuh" in _build.SOURCES[name]
+    for src in _build.SOURCES[name]:
+        (tmp_path / src).write_bytes((_build.CSRC / src).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path(name) == path
+    for src in _build.SOURCES[name]:
+        orig = (tmp_path / src).read_bytes()
+        (tmp_path / src).write_bytes(orig + b"\n// edited\n")
+        assert _build.library_path(name) != path
+        (tmp_path / src).write_bytes(orig)
+
+
 @pytest.fixture
 def cuda_device():
     """Decided when the test runs, never at import: skip without a card."""
@@ -92,3 +123,80 @@ def test_kernels_match_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(k1, ref1, rtol=0, atol=1e-4)
     torch.testing.assert_close(k2, ref2, rtol=0, atol=1e-4)
+
+
+def _params_on(p, d, hidden, seed, device):
+    return init_stacked_gru(torch.Generator().manual_seed(seed), p, d, hidden,
+                            device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_gru_kernels_match_plain_on_card(cuda_device, per_head):
+    """B1 and B2 against their plain versions on the card: a ragged batch
+    of 37, an h0 broadcast from one (B, H) state or per head, a random
+    parents mask.  Tolerances: outputs 1e-4 absolute; gradients rtol 1e-3,
+    atol 1e-4 (float32, another summation order than autograd's)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    p, b, t, d, hidden = 5, 37, 7, 6, 16
+    params = _params_on(p, d, hidden, 2, cuda_device)
+    mask = (torch.rand((p, d), generator=g) > 0.3).float().to(cuda_device)
+    params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
+                       params.b_ih, params.b_hh)
+    shape = (p, b, t, d) if per_head else (b, t, d)
+    x = torch.randn(shape, generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden) if per_head else (1, b, hidden),
+                     generator=g).to(cuda_device)
+    douts = torch.randn((p, b, t, hidden), generator=g).to(cuda_device)
+    leaves = [params.w_ih, params.w_hh, params.b_ih, params.b_hh]
+    got, ref = [], []
+    for fn, sink in ((cuda_gru.gru_scan_heads_fused, got),
+                     (cuda_gru.gru_scan_heads_fused_plain, ref)):
+        ins = [v.clone().requires_grad_(True) for v in leaves + [x, h0]]
+        outs, h_t = fn(GRUParams(*ins[:4]), ins[4], ins[5])
+        grads = torch.autograd.grad((outs * douts).sum() + h_t.sum(), ins)
+        sink.extend([outs.detach(), *grads])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_phase1_step_kernel_matches_plain_on_card(cuda_device):
+    """B3 against its plain version on the card, ragged batch, random
+    parents mask, lam and ridge > 0.  Tolerance rtol 1e-3, atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    p, hidden, e, t, b = 5, 16, 4, 9, 37
+    model = CRVAE(p, hidden, e)
+    params = model.init(g, cuda_device)
+    cfg = Phase1Config(lam=0.05, lr=0.03, lam_ridge=0.01, beta=0.1)
+    parents = (torch.rand((p, p), generator=g) > 0.4).float().to(cuda_device)
+    batch = torch.randn((b, t, p), generator=g).to(cuda_device)
+    eps = torch.randn((b, hidden), generator=g).to(cuda_device)
+    new, met = cuda_step.fused_phase1_step(model, cfg, params, parents,
+                                           batch, eps)
+    ref, rmet = cuda_step.fused_phase1_step_plain(model, cfg, params, parents,
+                                                  batch, eps)
+    torch.cuda.synchronize()
+    for a, r in zip(tree_leaves(new), tree_leaves(ref)):
+        torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
+    for k in cuda_step.METRICS:
+        torch.testing.assert_close(met[k], rmet[k], rtol=1e-3, atol=1e-4)
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """The training slice's data entry points resolve to ``cuda`` and raise
+    without a card unless the caller names the CPU."""
+    from vae_connexe_torch.data import lorenz96, lorenz96_truth
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lorenz96(g, p=4, t=8, burn_in=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lorenz96_truth(4)
+    assert lorenz96(g, p=4, t=8, burn_in=2, device="cpu").device.type == "cpu"
+    assert lorenz96_truth(4, "cpu").sum() == 16

@@ -1,0 +1,189 @@
+"""The port's GRU recurrences and the plain versions of kernels B1/B2 against
+the JAX package.
+
+The same numpy-seeded inputs go through the JAX function and its port on
+the CPU.  There ``heads_recurrence`` and the kernel wrappers run their plain
+versions (a CPU tensor never reaches the CUDA kernels); the kernels
+themselves are held against those plain versions on the card by
+``test_torch_port_device.py`` and ``chip_smoke.py``.
+
+Tolerances: forward 1e-5 (float32 recurrences of 6 steps summed in another
+order by XLA and PyTorch); gradients rtol 1e-3, atol 1e-4, the order of
+``tests/test_pallas_gru.py``.
+"""
+
+import flax.serialization
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_connexe_torch import convert
+from vae_connexe_torch.ops import cuda_gru, dispatch, gru
+from vae_connexe_tpu.ops import gru as jgru
+from vae_connexe_tpu.ops import pallas_gru
+
+FWD = dict(rtol=1e-5, atol=1e-5)
+GRAD = dict(rtol=1e-3, atol=1e-4)
+P, B, T, D, H = 3, 16, 6, 5, 8          # tests/test_pallas_gru.py's shape
+
+
+def _port(jax_params) -> gru.GRUParams:
+    return convert.from_numpy(gru.GRUParams,
+                              flax.serialization.to_state_dict(jax_params),
+                              "cpu")
+
+
+def _draws(seed, x_shape, h0_shape, out_shape):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in (x_shape, h0_shape, out_shape))
+
+
+def _jax_grads(fn, params, x, h0, douts):
+    """Forward and jax.grad of sum(outs * douts) + 0.3 sum(h_T)."""
+    def loss(p_, x_, h_):
+        outs, h_t = fn(p_, x_, h_)
+        return jnp.sum(outs * douts) + 0.3 * jnp.sum(h_t)
+
+    outs, h_t = fn(params, x, h0)
+    g_p, g_x, g_h = jax.grad(loss, argnums=(0, 1, 2))(params, x, h0)
+    return [np.asarray(v) for v in (outs, h_t, g_p.w_ih, g_p.w_hh, g_p.b_ih,
+                                    g_p.b_hh, g_x, g_h)]
+
+
+def _torch_grads(fn, params, x, h0, douts):
+    leaves = [params.w_ih, params.w_hh, params.b_ih, params.b_hh,
+              torch.tensor(x), torch.tensor(h0)]
+    leaves = [v.clone().requires_grad_(True) for v in leaves]
+    outs, h_t = fn(gru.GRUParams(*leaves[:4]), leaves[4], leaves[5])
+    loss = (outs * torch.tensor(douts)).sum() + 0.3 * h_t.sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return [v.detach().numpy() for v in (outs, h_t, *grads)]
+
+
+def _compare(got, ref):
+    for a, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(a, r, **FWD)
+    for a, r in zip(got[2:], ref[2:]):
+        np.testing.assert_allclose(a, r, **GRAD)
+
+
+def test_gru_scan_matches_jax():
+    """Single GRU: outputs, h_T and every gradient."""
+    params = jgru.init_gru(jax.random.key(0), D, H)
+    x, h0, douts = _draws(0, (B, T, D), (B, H), (B, T, H))
+    ref = _jax_grads(jgru.gru_scan, params, x, h0, douts)
+    got = _torch_grads(gru.gru_scan, _port(params), x, h0, douts)
+    _compare(got, ref)
+
+
+CASES = {"shared": ((B, T, D), (P, B, H)),
+         "per_head": ((P, B, T, D), (P, B, H)),
+         "shared_h0_p1h": ((B, T, D), (P, 1, H))}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gru_scan_heads_matches_jax(case):
+    """Stacked heads with shared and per-head inputs and a broadcast
+    (P, 1, H) h0: outputs, h_T and the gradients of params, x and h0."""
+    x_shape, h0_shape = CASES[case]
+    params = jgru.init_stacked_gru(jax.random.key(1), P, D, H)
+    x, h0, douts = _draws(1, x_shape, h0_shape, (P, B, T, H))
+    ref = _jax_grads(jgru.gru_scan_heads, params, x, h0, douts)
+    got = _torch_grads(gru.gru_scan_heads, _port(params), x, h0, douts)
+    _compare(got, ref)
+
+
+@pytest.fixture
+def interpret():
+    pallas_gru.set_interpret(True)
+    yield
+    pallas_gru.set_interpret(False)
+
+
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_kernel_plain_versions_match_pallas_interpret(interpret, per_head):
+    """B1's plain version against ``pallas_gru.fused_gru_scan_heads`` and
+    B1+B2's against ``gru_scan_heads_fused`` (custom VJP), both in Pallas
+    interpret mode."""
+    params = jgru.init_stacked_gru(jax.random.key(2), P, D, H)
+    x_shape = (P, B, T, D) if per_head else (B, T, D)
+    x, h0, douts = _draws(2, x_shape, (P, B, H), (P, B, T, H))
+    outs, h_t = pallas_gru.fused_gru_scan_heads(params, jnp.asarray(x),
+                                                jnp.asarray(h0),
+                                                interpret=True)
+    got_outs, got_ht = cuda_gru.fused_gru_scan_heads_plain(
+        _port(params), torch.tensor(x), torch.tensor(h0))
+    np.testing.assert_allclose(got_outs.numpy(), np.asarray(outs), **FWD)
+    np.testing.assert_allclose(got_ht.numpy(), np.asarray(h_t), **FWD)
+    ref = _jax_grads(pallas_gru.gru_scan_heads_fused, params, x, h0, douts)
+    got = _torch_grads(cuda_gru.gru_scan_heads_fused_plain, _port(params), x,
+                       h0, douts)
+    _compare(got, ref)
+
+
+def test_cpu_recurrences_never_launch():
+    """On CPU tensors the dispatch runs the plain recurrences and adds
+    nothing to a kernel's launch count."""
+    g = torch.Generator().manual_seed(3)
+    heads = gru.init_stacked_gru(g, P, D, H, torch.device("cpu"))
+    heads = gru.GRUParams(*(v.requires_grad_(True) for v in
+                            (heads.w_ih, heads.w_hh, heads.b_ih, heads.b_hh)))
+    one = gru.init_gru(g, D, H, torch.device("cpu"))
+    x, h0 = torch.randn((B, T, D), generator=g), torch.randn((1, B, H), generator=g)
+    cuda_gru.reset_launches()
+    outs, h_t = dispatch.heads_recurrence(heads, x, h0)
+    ref, ref_t = gru.gru_scan_heads(heads, x, h0)
+    torch.testing.assert_close(outs, ref, rtol=0, atol=0)
+    torch.testing.assert_close(h_t, ref_t, rtol=0, atol=0)
+    outs1, h1 = dispatch.gru_sequence(one, x, h0[0])
+    ref1, ref1_t = gru.gru_scan(one, x, h0[0])
+    torch.testing.assert_close(outs1, ref1, rtol=0, atol=0)
+    torch.testing.assert_close(h1, ref1_t, rtol=0, atol=0)
+    outs.sum().backward()
+    assert heads.w_hh.grad is not None
+    assert cuda_gru.LAUNCHES == {"gru_forward": 0, "gru_backward": 0}
+
+
+H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
+
+
+@pytest.mark.parametrize("batch,heads,backward,want", [
+    (256, 20, False, 16),    # phase-1 decoder forward: one wave of 320 blocks
+    (256, 20, True, 8),      # its backward: one ~143 KB block per SM
+    (256, 1, False, 4),      # the encoder: 64 blocks, one row per thread
+    (256, 1, True, 4),
+    (37, 20, False, 4),
+    (1, 1, True, 1),
+])
+def test_pick_tile(batch, heads, backward, want):
+    fn = cuda_gru.bwd_smem_bytes if backward else cuda_gru.fwd_smem_bytes
+    bt = cuda_gru.pick_tile(batch, heads, 64, lambda n: fn(n, 20, 64), H100)
+    assert bt == want
+    assert fn(bt, 20, 64) <= H100[0]
+
+
+def test_pick_tile_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_gru.pick_tile(8, 1, 256, lambda n: cuda_gru.bwd_smem_bytes(
+            n, 20, 256), H100)
+
+
+def test_gru_kernel_operands_are_validated():
+    """Before a launch every operand must be float32 of the shape the
+    kernel reads it by (checked here on the CPU, where no launch follows);
+    h0 keeps its broadcast strides."""
+    g = torch.Generator().manual_seed(4)
+    p = gru.init_stacked_gru(g, P, D, H, torch.device("cpu"))
+    x = torch.randn((B, T, D), generator=g)
+    h0 = torch.randn((B, H), generator=g).expand(P, B, H)
+    shapes, _, xs, _, hs = cuda_gru._operands(p.w_ih, p.b_ih, p.w_hh, p.b_hh,
+                                              x, h0)
+    assert shapes == (P, B, T, D, H)
+    assert xs == (0, T * D, D) and hs == (0, H)
+    with pytest.raises(ValueError, match="expected"):
+        cuda_gru._operands(p.w_ih, p.b_ih, p.w_hh, p.b_hh, x[:, :, :2], h0)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_gru._operands(p.w_ih.double(), p.b_ih, p.w_hh, p.b_hh, x, h0)

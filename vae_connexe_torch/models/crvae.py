@@ -22,8 +22,14 @@ import torch
 
 from vae_connexe_torch._device import resolve_device
 from vae_connexe_torch.ops.cuda_rollout import crvae_free_run_fused
+from vae_connexe_torch.ops.dispatch import gru_sequence, heads_recurrence
 from vae_connexe_torch.ops.gru import GRUParams, init_gru, init_stacked_gru
-from vae_connexe_torch.utils.layers import Dense, init_dense, init_stacked_dense
+from vae_connexe_torch.utils.layers import (
+    Dense,
+    dense,
+    init_dense,
+    init_stacked_dense,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,14 +59,13 @@ def no_reduced_precision(dtype) -> None:
 
 
 class CRVAE:
-    """Functional CRVAE (author variant).  The reference's ``enc_len``
-    belongs to ``encode``/``forward`` and comes with them in the training
-    slice."""
+    """Functional CRVAE (author variant); the JAX class's signature."""
 
-    def __init__(self, p: int, hidden: int = 64, rollout_len: int = 21,
-                 noise_scale: float = 0.1):
+    def __init__(self, p: int, hidden: int = 64, enc_len: int = 10,
+                 rollout_len: int = 21, noise_scale: float = 0.1):
         self.p = p
         self.hidden = hidden
+        self.enc_len = enc_len
         self.rollout_len = rollout_len
         self.noise_scale = noise_scale
 
@@ -76,6 +81,56 @@ class CRVAE:
             heads=init_stacked_gru(g, self.p, self.p, self.hidden, dev),
             readout=init_stacked_dense(g, self.p, self.hidden, 1, dev),
         )
+
+    # ---------------- encode / forward ----------------
+
+    def encode(self, params: CRVAEParams, x: torch.Tensor,
+               sequence=gru_sequence):
+        """Past window -> (mu, logvar), each (B, H).  x: (B, T, p); the
+        encoder reads the first enc_len steps from h0 = 0.  ``sequence`` is
+        the single-GRU recurrence (``gru_sequence``'s contract)."""
+        h0 = torch.zeros((x.shape[0], self.hidden), device=x.device,
+                         dtype=x.dtype)
+        _, h_t = sequence(params.enc, x[:, : self.enc_len], h0)
+        return dense(params.fc_mu, h_t), dense(params.fc_std, h_t)
+
+    def forward(self, params: CRVAEParams, x: torch.Tensor,
+                eps: Optional[torch.Tensor] = None,
+                parents: Optional[torch.Tensor] = None,
+                deterministic: bool = False, recurrences=None):
+        """Teacher-forced reconstruction of the window's second half.
+
+        x: (B, T, p) window, T > enc_len; eps: (B, H) standard normals of
+        the reparameterisation z = mu + exp(logvar / 2) * eps (ignored when
+        ``deterministic``, which uses z = mu); parents: optional (p, p)
+        binary connection mask.  ``recurrences``: optional (sequence,
+        heads) pair replacing ``gru_sequence`` and ``heads_recurrence``.
+
+        Returns (pred (B, T - enc_len, p), mu (B, H), logvar (B, H)) where
+        ``pred[:, t, i]`` estimates ``x[:, enc_len + t, i]``.
+        """
+        if x.shape[1] <= self.enc_len:
+            raise ValueError(
+                f"window length {x.shape[1]} must exceed enc_len={self.enc_len}: "
+                "the encoder reads the first enc_len steps and the decoder "
+                "predicts the remaining T - enc_len.")
+        sequence, heads_fn = recurrences or (gru_sequence, heads_recurrence)
+        heads = params.heads if parents is None else masked_heads(params.heads, parents)
+        mu, logvar = self.encode(params, x, sequence)
+        if deterministic:
+            z = mu
+        elif eps is None:
+            raise ValueError("forward needs an eps draw or deterministic=True")
+        else:
+            z = mu + torch.exp(0.5 * logvar) * eps
+        # Teacher-forced decoder input: a zero step, then the targets shifted
+        # right by one (= [0, x_enc_len .. x_{T-2}]); z is every head's h0.
+        dec_in = torch.cat([torch.zeros_like(x[:, :1]),
+                            x[:, self.enc_len:-1]], dim=1)
+        outs, _ = heads_fn(heads, dec_in, z[None])          # (p, B, Td, H)
+        pred = (torch.einsum("pbth,poh->pbto", outs, params.readout.w)
+                + params.readout.b[:, None, None, :])
+        return pred[..., 0].permute(1, 2, 0), mu, logvar
 
     # ---------------- generation ----------------
 
@@ -124,6 +179,41 @@ class CRVAE:
         if noise is None:
             noise = torch.zeros((batch, steps, self.p), device=dev)
         return self._free_run(params, heads, x0, h0.to(dev), noise.to(dev),
+                              steps, dtype=dtype)
+
+    def conditioned_rollout(self, params: CRVAEParams, x_context: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            eps: Optional[torch.Tensor] = None,
+                            noise: Optional[torch.Tensor] = None,
+                            parents: Optional[torch.Tensor] = None,
+                            length: Optional[int] = None,
+                            dtype=None) -> torch.Tensor:
+        """Generation conditioned on a real context window.
+
+        Encodes the context's last enc_len steps, samples z = mu +
+        exp(logvar / 2) * eps as every head's initial state (eps (B, H)
+        passed in, or drawn from ``generator``), and continues from the
+        context's last observation.  x_context: (B, T >= enc_len, p).
+        Returns (B, length, p).
+        """
+        if x_context.shape[1] < self.enc_len:
+            raise ValueError(
+                f"context length {x_context.shape[1]} must be >= "
+                f"enc_len={self.enc_len} to condition the latent")
+        steps = self.rollout_len if length is None else length
+        heads = params.heads if parents is None else masked_heads(params.heads, parents)
+        mu, logvar = self.encode(params, x_context[:, -self.enc_len:, :])
+        if eps is None:
+            if generator is None:
+                raise ValueError("conditioned_rollout needs a generator or "
+                                 "an eps draw")
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=generator.device)
+        z = mu + torch.exp(0.5 * logvar) * eps.to(mu.device)
+        x0 = x_context[:, -1, :]
+        if noise is None:
+            noise = torch.zeros((x0.shape[0], steps, self.p), device=x0.device)
+        return self._free_run(params, heads, x0, z, noise.to(x0.device),
                               steps, dtype=dtype)
 
     # ---------------- causal graph ----------------

@@ -1,9 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each source under ``vae_connexe_torch/csrc/`` has a plain C interface; it is
+Three libraries, each from one ``.cu`` file under ``vae_connexe_torch/csrc/``
+with a plain C interface: ``rollout`` (the serving kernels), ``gru`` (the
+recurrence forward and backward) and ``step`` (the whole phase-1 step);
+``gru`` and ``step`` share the block bodies of ``gru_tile.cuh``.  Each is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
 package's ``build/`` directory (listed in ``.gitignore``), named after a
-hash of the source and the flags so that an edited source is rebuilt.
+hash of its sources and the flags so that an edited source is rebuilt.
 Nothing is built or loaded when this module is imported.
 """
 
@@ -40,39 +43,72 @@ def nvcc_path() -> str:
     return str(path)
 
 
+# The files each library is compiled from; the first is the translation
+# unit, the rest are headers it includes.  All of them name the library.
+SOURCES = {
+    "rollout": ("rollout.cu",),
+    "gru": ("gru.cu", "gru_tile.cuh"),
+    "step": ("step.cu", "gru_tile.cuh"),
+}
+
+
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where library ``name`` builds to (content-addressed: a hash of its
+    sources and the flags)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES[name]:
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names) -> dict[str, tuple[pathlib.Path, str]]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` process per library, all started together.
+
+    Returns ``{name: (library path, compiler output)}``; the output holds
+    ptxas's register and shared-memory report when a build ran, else is
+    empty.  Raises if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done, running = {}, {}
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                done[name] = (lib, "")
+                continue
+            # Build under a temporary name and rename: concurrent first
+            # uses in several processes never load a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                 str(CSRC / SOURCES[name][0])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running[name] = (lib, tmp, proc)
+        failed = []
+        for name, (lib, tmp, proc) in running.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on csrc/{SOURCES[name][0]}:\n{out}")
+                continue
+            os.replace(tmp, lib)
+            done[name] = (lib, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for lib, tmp, proc in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
 
 
 def build(name: str) -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-
-    Returns ``(library path, compiler output)``; the output holds ptxas's
-    register and shared-memory report when a build ran, else is empty.
-    """
-    lib = library_path(name)
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename: concurrent first uses in
-    # several processes never load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+    """Compile library ``name`` unless it is built; see ``build_all``."""
+    return build_all([name])[name]
 
 
 _P = ctypes.c_void_p
@@ -90,6 +126,38 @@ def rollout_library() -> ctypes.CDLL:
     lib.vcx_errvae_sample.restype = _I
     lib.vcx_smem_optin.argtypes = [_I]
     lib.vcx_smem_optin.restype = _I
+    lib.vcx_error_string.argtypes = [_I]
+    lib.vcx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_L = ctypes.c_longlong
+
+
+@functools.cache
+def gru_library() -> ctypes.CDLL:
+    """The built ``csrc/gru.cu``, with its C signatures declared."""
+    lib = ctypes.CDLL(str(build("gru")[0]))
+    head = [_P, _L, _L, _L] + [_P] * 5 + [_L, _L]
+    lib.vcx_gru_forward.argtypes = head + [_P] + [_I] * 6 + [_P]
+    lib.vcx_gru_forward.restype = _I
+    lib.vcx_gru_backward.argtypes = head + [_P] * 8 + [_I] * 6 + [_P]
+    lib.vcx_gru_backward.restype = _I
+    lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.vcx_device_limits.restype = _I
+    lib.vcx_error_string.argtypes = [_I]
+    lib.vcx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def step_library() -> ctypes.CDLL:
+    """The built ``csrc/step.cu``, with its C signatures declared."""
+    from vae_connexe_torch.ops.cuda_step import StepArgs
+
+    lib = ctypes.CDLL(str(build("step")[0]))
+    lib.vcx_phase1_step.argtypes = [ctypes.POINTER(StepArgs), _P]
+    lib.vcx_phase1_step.restype = _I
     lib.vcx_error_string.argtypes = [_I]
     lib.vcx_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,12 @@ multiplies the hidden candidate projection, bias included):
     h' = (1 - z) * n + z * h
 
 Initialisation is torch's default U(-1/sqrt(H), 1/sqrt(H)) for every leaf.
-The whole-sequence recurrences (``gru_scan``, ``gru_scan_heads``) belong to
-training and are not ported yet.
+The whole-sequence recurrences ``gru_scan`` and ``gru_scan_heads`` are the
+plain, autograd-differentiable reference; ``ops/dispatch.py`` routes a CUDA
+tensor through the hand-written kernels instead (``ops/cuda_gru.py``).  The
+JAX module's TPU scheduling levers (``UNROLL_MAX_T``, in-cell projection,
+segment remat, bf16 residuals, per-cell checkpointing, batched dispatch)
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -98,3 +102,40 @@ def gru_step_heads(params: GRUParams, x_t: torch.Tensor,
     xp = xp + params.b_ih[:, None, :]
     hp = torch.einsum("pbh,pgh->pbg", h, params.w_hh) + params.b_hh[:, None, :]
     return _gates(xp, hp, h)
+
+
+def gru_scan(params: GRUParams, x: torch.Tensor, h0: torch.Tensor):
+    """Full-sequence GRU.  x: (B, T, D), h0: (B, H) -> (outs (B, T, H), h_T).
+
+    The input projection of every step is one product before the loop; the
+    loop holds the hidden projection and the gate math.
+    """
+    xp = x @ params.w_ih.T + params.b_ih                   # (B, T, 3H)
+    h = h0
+    outs = []
+    for t in range(x.shape[1]):
+        hp = h @ params.w_hh.T + params.b_hh
+        h = _gates(xp[:, t], hp, h)
+        outs.append(h)
+    return torch.stack(outs, dim=1), h
+
+
+def gru_scan_heads(params: GRUParams, x: torch.Tensor, h0: torch.Tensor):
+    """P stacked GRUs over one shared or per-head input sequence.
+
+    params: stacked ``GRUParams`` with leading axis P; x: (B, T, D) shared
+    or (P, B, T, D) per head; h0: (P, B, H) or broadcastable to it, e.g.
+    (P, 1, H).  Returns (outs (P, B, T, H), h_T (P, B, H)).
+    """
+    if x.ndim == 3:
+        xp = torch.einsum("btd,pgd->pbtg", x, params.w_ih)
+    else:
+        xp = torch.einsum("pbtd,pgd->pbtg", x, params.w_ih)
+    xp = xp + params.b_ih[:, None, None, :]
+    h = h0.expand(xp.shape[0], xp.shape[1], params.hidden)
+    outs = []
+    for t in range(xp.shape[2]):
+        hp = torch.einsum("pbh,pgh->pbg", h, params.w_hh) + params.b_hh[:, None, :]
+        h = _gates(xp[:, :, t], hp, h)
+        outs.append(h)
+    return torch.stack(outs, dim=2), h

@@ -1,16 +1,40 @@
-"""Compensated generation (port of ``vae_connexe_tpu/train/crvae_trainer.py:510-588``).
+"""Phase-1 training and compensated generation (port of
+``vae_connexe_tpu/train/crvae_trainer.py:70-357`` and ``:510-588``).
+
+Phase 1, structure learning: each step computes the loss (sum of the
+per-variable MSEs + ridge + beta * KL) and its gradient at the incoming
+parameters, takes a manual SGD step, projects the head input weights onto
+the parents mask and group-soft-thresholds their columns; the surviving
+columns are the learned Granger graph.  The best model is the one with the
+lowest ``mean_loss``, snapshotted at the parameters that achieved it.
+
+PyTorch runs eagerly, so ``fit_phase1`` is a Python loop over steps in
+chunks of ``check_every``; the host reads the metrics once per chunk.  On
+the card the recurrences of every step run through the B1/B2 kernels
+(``ops/dispatch.py``); the whole step in one kernel family (B3) is the
+separate entry point ``ops.cuda_step.fused_phase1_step``, as in the JAX
+package, where ``fit_phase1`` does not call it either.
+
+Random draws come from the ``torch.Generator`` the fit is given: each step
+draws its batch indices first and its reparameterisation epsilon second
+(with a fixed batch, only epsilon).  Both can be passed to a step as
+tensors instead.  The JAX package's threefry keys give other numbers, so
+results match it draw for draw only when the draws are passed in.
 
 Phase-2 sampling: draw an error sequence from the error VAE and inject it,
-scaled by ``model.noise_scale``, into the CRVAE's free run.  The phase-1 and
-phase-2 trainers come with the training slice.
+scaled by ``model.noise_scale``, into the CRVAE's free run.  The phase-2
+trainer is not ported yet (ROADMAP A3).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from vae_connexe_torch.losses.kl import kl_gaussian
+from vae_connexe_torch.losses.penalties import ridge_value
 from vae_connexe_torch.models.crvae import (
     CRVAE,
     CRVAEParams,
@@ -23,9 +47,178 @@ from vae_connexe_torch.ops.cuda_rollout import (
     errvae_sample_fused,
 )
 from vae_connexe_torch.ops.gru import GRUParams
+from vae_connexe_torch.optim.prox import prox_column_groups
+from vae_connexe_torch.train.config import Phase1Config
 from vae_connexe_torch.utils.layers import Dense
+from vae_connexe_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 KERNELS = ("lax", "fused", "auto")
+
+
+@dataclasses.dataclass
+class Phase1State:
+    params: CRVAEParams
+    best_params: CRVAEParams
+    best_loss: torch.Tensor        # 0-d
+    generator: torch.Generator
+    step: int
+
+
+def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
+                eps: torch.Tensor, parents: torch.Tensor, beta: float,
+                recurrences=None):
+    """Smooth loss: sum over variables of each variable's MSE + ridge +
+    beta * KL.  Returns (loss, aux)."""
+    pred, mu, logvar = model.forward(params, batch, eps, parents,
+                                     recurrences=recurrences)
+    target = batch[:, model.enc_len:, :]
+    recon = torch.sum(torch.mean((pred - target) ** 2, dim=(0, 1)))
+    ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge)
+    reg = beta * kl_gaussian(mu, logvar)
+    loss = recon + ridge + reg
+    aux = {"recon": recon, "ridge": ridge, "latent_reg": reg,
+           "mean_loss": (recon + ridge) / model.p, "pred": pred}
+    return loss, aux
+
+
+def _project_and_prox(params: CRVAEParams, parents: torch.Tensor,
+                      lam: float, lr: float) -> CRVAEParams:
+    """Mask-project the head input weights onto the parent support, then
+    group-soft-threshold their columns (the GISTA step).  With lam = 0 the
+    prox is the identity and only the projection remains."""
+    w = params.heads.w_ih * parents[:, None, :].to(params.heads.w_ih)
+    w = prox_column_groups(w, lam, lr)
+    return dataclasses.replace(params,
+                               heads=dataclasses.replace(params.heads, w_ih=w))
+
+
+def _chunk_lengths(max_iter: int, check_every: int) -> list[int]:
+    """Full chunks of ``check_every`` plus one remainder chunk, so exactly
+    ``max_iter`` steps run."""
+    full, rem = divmod(max_iter, check_every)
+    return [check_every] * full + ([rem] if rem else [])
+
+
+def _track_best(state: Phase1State, candidate_params: CRVAEParams,
+                mean_loss: torch.Tensor):
+    """Snapshot ``candidate_params`` when ``mean_loss`` improves.
+
+    ``mean_loss`` is measured at the pre-update parameters, so callers pass
+    those as the candidate.  No host sync: the pick is a ``torch.where``.
+    """
+    improved = mean_loss < state.best_loss
+    best_params = tree_map(lambda new, old: torch.where(improved, new, old),
+                           candidate_params, state.best_params)
+    return best_params, torch.minimum(mean_loss, state.best_loss)
+
+
+def _phase1_update(model: CRVAE, cfg: Phase1Config, params: CRVAEParams,
+                   parents: torch.Tensor, batch: torch.Tensor,
+                   eps: torch.Tensor, recurrences=None):
+    """One phase-1 update on a given batch and epsilon: the loss and its
+    gradient at ``params``, SGD on every leaf, then the mask projection and
+    the prox.  Returns (new params, metrics of 0-d tensors)."""
+    with torch.enable_grad():
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, aux = _crvae_loss(model, cfg, live, batch, eps, parents,
+                                cfg.beta, recurrences)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    with torch.no_grad():
+        new = tree_map(lambda p, g: p - cfg.lr * g, params,
+                       tree_unflatten(params, grads))
+        new = _project_and_prox(new, parents, cfg.lam, cfg.lr)
+        usage = (torch.linalg.vector_norm(new.heads.w_ih, dim=-2) > 0).float().mean()
+    metrics = {"loss": loss.detach(), "recon": aux["recon"].detach(),
+               "latent_reg": aux["latent_reg"].detach(),
+               "mean_loss": aux["mean_loss"].detach(), "variable_usage": usage}
+    return new, metrics
+
+
+def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
+                     parents: torch.Tensor,
+                     fixed_batch: Optional[torch.Tensor] = None):
+    """Build the phase-1 step: ``step(state, batch=None, eps=None)`` ->
+    (new Phase1State, metrics).
+
+    Each call draws from ``state.generator`` the batch indices (unless a
+    fixed batch is set or ``batch`` is given), then epsilon (B, H) (unless
+    ``eps`` is given).  Without a ``fixed_batch`` and with
+    ``cfg.resample_batches`` false, the fixed batch is one random gather
+    drawn here from a generator seeded 0.  The best-model pick sees the
+    pre-update parameters; ``variable_usage`` is read after the update.
+    """
+    n = windows.shape[0]
+    if fixed_batch is None and not cfg.resample_batches:
+        g0 = torch.Generator(device=windows.device).manual_seed(0)
+        idx = torch.randint(0, n, (cfg.batch_size,), generator=g0,
+                            device=windows.device)
+        fixed_batch = windows[idx]
+
+    def step(state: Phase1State, batch: Optional[torch.Tensor] = None,
+             eps: Optional[torch.Tensor] = None):
+        g = state.generator
+        if batch is None:
+            if fixed_batch is not None:
+                batch = fixed_batch
+            else:
+                idx = torch.randint(0, n, (cfg.batch_size,), generator=g,
+                                    device=g.device)
+                batch = windows[idx.to(windows.device)]
+        if eps is None:
+            eps = torch.randn((batch.shape[0], model.hidden), generator=g,
+                              device=g.device)
+        params, metrics = _phase1_update(model, cfg, state.params, parents,
+                                         batch, eps.to(batch.device))
+        best_params, best_loss = _track_best(state, state.params,
+                                             metrics["mean_loss"])
+        return Phase1State(params=params, best_params=best_params,
+                           best_loss=best_loss, generator=g,
+                           step=state.step + 1), metrics
+
+    return step
+
+
+def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
+               parents: torch.Tensor, cfg: Phase1Config,
+               generator: torch.Generator, verbose: bool = False,
+               log_fn=print, callback=None, mesh=None,
+               checkpoint_dir: Optional[str] = None, resume: bool = False):
+    """Run phase 1 for exactly ``cfg.max_iter`` steps; returns (the params
+    of the lowest ``mean_loss``, the final state, the last metrics as
+    floats).
+
+    ``windows`` (N, T, p) lie on the device the fit runs on.  With
+    ``cfg.resample_batches`` false, the one fixed batch is drawn from
+    ``generator`` before the first step.  The host reads the metrics once
+    per chunk of ``cfg.check_every`` steps; ``callback(step, state,
+    metrics)`` fires then.  ``mesh`` (ROADMAP A8) and ``checkpoint_dir`` /
+    ``resume`` (A4) are not ported yet and raise.
+    """
+    if mesh is not None:
+        raise NotImplementedError("meshed phase-1 fits are not ported yet")
+    if checkpoint_dir is not None or resume:
+        raise NotImplementedError("phase-1 checkpoints are not ported yet")
+    fixed_batch = None
+    if not cfg.resample_batches:
+        idx = torch.randint(0, windows.shape[0], (cfg.batch_size,),
+                            generator=generator, device=generator.device)
+        fixed_batch = windows[idx.to(windows.device)]
+    step = make_phase1_step(model, cfg, windows, parents, fixed_batch)
+    state = Phase1State(params=params, best_params=params,
+                        best_loss=torch.tensor(float("inf"),
+                                               device=windows.device),
+                        generator=generator, step=0)
+    metrics = {}
+    for length in _chunk_lengths(cfg.max_iter, cfg.check_every):
+        for _ in range(length):
+            state, last = step(state)
+        metrics = {k: float(v) for k, v in last.items()}
+        if verbose:
+            log_fn(f"[phase1 it={state.step}] "
+                   + " ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
+        if callback is not None:
+            callback(state.step, state, metrics)
+    return state.best_params, state, metrics
 
 
 def generate_from_draws(model: CRVAE, err_model: ErrorVAE, heads: GRUParams,
