@@ -17,6 +17,10 @@
      parents mask: outputs 1e-5 absolute, every gradient from a random
      douts rtol 1e-3, atol 1e-4 (the order of the JAX package's own
      kernel tests: each gradient sums B*T products in another order).
+     B2's two kernels against their plain phases at the same three cases
+     and tolerance: the chain's gate gradients gh and dh0, the
+     weight-gradient kernel's dx, dW and db from the plain gh; and two B2
+     calls on the same inputs must give bitwise-equal gradients.
    - B3 (whole phase-1 step) at p=20, H=64, ctx=20, B=256, lam=0.1,
      lr=5e-2, beta=0.1, random parents: one step and a 5-step trajectory,
      params and metrics rtol 1e-4, atol 1e-6 (the JAX package's one-step
@@ -37,7 +41,9 @@
      count (``tools/jax_phase1_auroc.py``) minus a margin.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
-   ``nn.GRU`` at the one-head encoder shape for B1/B2); time compensated
+   ``nn.GRU`` at the one-head encoder shape for B1/B2), B2's chain and
+   weight-gradient kernels apart (CUDA events through their wrappers, and
+   device time alone from ``torch.profiler``); time compensated
    generation, and phase-1 steps/s through ``make_phase1_step`` (B1/B2)
    and ``fused_phase1_step`` (B3).
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
@@ -164,6 +170,30 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> dict[str, float]:
+    """Device time of ``fn`` by kernel, from ``torch.profiler`` over
+    ``iters`` calls: {kernel name: ms a call}, the host's work left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            out[e.key] = us / iters / 1e3
+    return out
 
 
 def make_models(p, hidden, seed, dev):
@@ -411,6 +441,8 @@ def check_training_kernels(dev, errors):
                       f"{what} {shape} outs")
         _assert_close("gru_backward", _flat(k_grads), _flat(r_grads), errors,
                       **GRAD_TOL, what=f"{what} {shape} dW_ih dW_hh db dx dh0")
+        check_backward_phases(params, x, h0.expand(heads, b, H), k_outs,
+                              douts, errors, f"{what} {shape}")
 
     g = torch.Generator().manual_seed(5)
     model = CRVAE(P, H, ENC)
@@ -434,6 +466,34 @@ def check_training_kernels(dev, errors):
             _assert_close("phase1_step", torch.stack(list(k_met.values())),
                           torch.stack(list(r_met.values())), errors,
                           **STEP_TOL, what=what + " metrics")
+
+
+def check_backward_phases(params, x, h0, outs, douts, errors, what):
+    """B2's two kernels, each against its plain phase on the same inputs:
+    the chain's gate gradients gh and dh0, then the weight-gradient
+    kernel's dx, dW and db from the plain gh; and two whole B2 calls on the
+    same inputs give bitwise-equal gradients."""
+    import torch
+
+    from vae_connexe_torch.ops import cuda_gru
+
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    k_gh, k_dh0 = cuda_gru.bwd_chain(*w, x, h0, outs, douts)
+    r_gh, r_dh0 = cuda_gru.bwd_chain_plain(*w, x, h0, outs, douts)
+    k_w = cuda_gru.bwd_wgrad(*w, x, h0, outs, r_gh, True)
+    r_w = cuda_gru.bwd_wgrad_plain(*w, x, h0, outs, r_gh, True)
+    first = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
+    second = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
+    torch.cuda.synchronize()
+    _assert_close("gru_backward", _flat([k_gh, k_dh0]), _flat([r_gh, r_dh0]),
+                  errors, **GRAD_TOL, what=f"{what} chain kernel: gh dh0")
+    _assert_close("gru_backward", _flat(k_w), _flat(r_w), errors, **GRAD_TOL,
+                  what=f"{what} weight-gradient kernel: dx dW_ih db_ih "
+                       "dW_hh db_hh")
+    same = all(torch.equal(u, v) for u, v in zip(first, second))
+    log(f"check gru_backward {what}: two calls bitwise equal: {same}")
+    if not same:
+        raise AssertionError("B2 is not deterministic")
 
 
 def lorenz_windows(dev, p, seed):
@@ -594,6 +654,20 @@ def time_training(dev, card, windows):
             "bwd_plain_ms": time_ms(lambda: torch.autograd.grad(
                 plain_outs, leaves, douts, retain_graph=True), 100),
         }
+        # B2's two kernels apart, through their wrappers (CUDA events) and
+        # on the device alone (profiler; the host's work left out).
+        w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+        gh, _ = cuda_gru.bwd_chain(*w, x, h0b, outs, douts)
+        row["chain_ms"] = time_ms(
+            lambda: cuda_gru.bwd_chain(*w, x, h0b, outs, douts), 100)
+        row["wgrad_ms"] = time_ms(
+            lambda: cuda_gru.bwd_wgrad(*w, x, h0b, outs, gh, False), 100)
+        dev_ms = device_ms(lambda: cuda_gru._backward_launch(
+            *w, x, h0b, outs, douts, need_dx=False), 50)
+        row["bwd_device_ms"] = sum(dev_ms.values())
+        for key, name in (("chain_device_ms", "gru_chain_kernel"),
+                          ("wgrad_device_ms", "gru_wgrad_kernel")):
+            row[key] = sum(v for k, v in dev_ms.items() if name in k)
         if heads == 1:
             # One torch call computes a one-head GRU: cuDNN's nn.GRU.
             gru = torch.nn.GRU(P, H, batch_first=True).to(dev)
@@ -666,7 +740,12 @@ def time_training(dev, card, windows):
                          "library_ms": enc["bwd_library_ms"], "extra": {
                              "heads_ms": heads["bwd_ms"],
                              "heads_plain_ms": heads["bwd_plain_ms"],
-                             "heads_bound_ms": bwd_bound}},
+                             "heads_bound_ms": bwd_bound,
+                             **{f"{pre}{k}": r[k] for pre, r in
+                                (("", enc), ("heads_", heads))
+                                for k in ("chain_ms", "wgrad_ms",
+                                          "bwd_device_ms", "chain_device_ms",
+                                          "wgrad_device_ms")}}},
         "phase1_step": b3,
     }
 

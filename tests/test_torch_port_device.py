@@ -164,6 +164,35 @@ def test_gru_kernels_match_plain_on_card(cuda_device, per_head):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_gru_backward_phases_match_plain_on_card(cuda_device, per_head):
+    """B2's two kernels against their plain phases on the card (the chain's
+    gh and dh0; the weight-gradient kernel's dx, dW, db from the plain gh),
+    ragged batch of 37; two whole B2 calls give bitwise-equal gradients.
+    Tolerance rtol 1e-3, atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    p, b, t, d, hidden = 5, 37, 7, 6, 16
+    params = _params_on(p, d, hidden, 5, cuda_device)
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    x = torch.randn((p, b, t, d) if per_head else (b, t, d),
+                    generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden), generator=g).to(cuda_device)
+    douts = torch.randn((p, b, t, hidden), generator=g).to(cuda_device)
+    outs = cuda_gru._forward_launch(*w, x, h0)
+    gh, dh0 = cuda_gru.bwd_chain(*w, x, h0, outs, douts)
+    rgh, rdh0 = cuda_gru.bwd_chain_plain(*w, x, h0, outs, douts)
+    got = cuda_gru.bwd_wgrad(*w, x, h0, outs, rgh, True)
+    ref = cuda_gru.bwd_wgrad_plain(*w, x, h0, outs, rgh, True)
+    first = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
+    second = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
+    torch.cuda.synchronize()
+    for a, r in [(gh, rgh), (dh0, rdh0), *zip(got, ref)]:
+        torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
 def test_phase1_step_kernel_matches_plain_on_card(cuda_device):
     """B3 against its plain version on the card, ragged batch, random
     parents mask, lam and ridge > 0.  Tolerance rtol 1e-3, atol 1e-4."""

@@ -124,6 +124,78 @@ def test_kernel_plain_versions_match_pallas_interpret(interpret, per_head):
     _compare(got, ref)
 
 
+def _phases(params, x, h0, douts):
+    """B2's two plain phases after the plain forward, for the loss
+    sum(outs * douts) + 0.3 sum(h_T): (outs, h_T, dW_ih, dW_hh, db_ih,
+    db_hh, dx, dh0) as numpy, dh0 summed back to h0's broadcast shape."""
+    p = params.w_ih.shape[0]
+    x, h0 = torch.tensor(x), torch.tensor(h0)
+    outs, h_t = gru.gru_scan_heads(params, x, h0)
+    d = torch.tensor(douts).clone()
+    d[:, :, -1] += 0.3                   # h_T is outs at the last step
+    h0b = h0.expand(p, x.shape[-3], params.hidden)
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    gh, dh0 = cuda_gru.bwd_chain(*w, x, h0b, outs, d)
+    dx, dwih, dbih, dwhh, dbhh = cuda_gru.bwd_wgrad(*w, x, h0b, outs, gh, True)
+    dh0 = dh0.sum(dim=1, keepdim=True) if h0.shape[1] == 1 else dh0
+    return [v.numpy() for v in (outs, h_t, dwih, dwhh, dbih, dbhh, dx, dh0)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_phases_match_autograd_and_pallas(interpret, case):
+    """B2's plain phases together (the chain: gh and dh0 from outs, x, h0,
+    douts; the weight gradients: dW, db, dx from gh, outs, x, h0), as the
+    CPU wrappers ``bwd_chain`` / ``bwd_wgrad`` run them, against autograd
+    through ``gru_scan_heads`` and against ``pallas_gru.gru_scan_heads_fused``
+    in interpret mode: shared and per-head inputs, a broadcast (P, 1, H) h0,
+    dx.  Tolerance: rtol 1e-3, atol 1e-4 (float32, other summation order)."""
+    x_shape, h0_shape = CASES[case]
+    params = jgru.init_stacked_gru(jax.random.key(5), P, D, H)
+    x, h0, douts = _draws(5, x_shape, h0_shape, (P, B, T, H))
+    got = _phases(_port(params), x, h0, douts)
+    _compare(got, _torch_grads(gru.gru_scan_heads, _port(params), x, h0,
+                               douts))
+    _compare(got, _jax_grads(pallas_gru.gru_scan_heads_fused, params, x, h0,
+                             douts))
+
+
+def test_wgrad_partials_layout():
+    """The weight-gradient kernel's partials (gru.cu ``wgrad_part_floats``:
+    per head and split [dW_hh, dW_ih, db_hh, db_ih]) map back to the
+    gradients: ``_wgrad_sums`` sums the splits and slices each one out."""
+    g = torch.Generator().manual_seed(6)
+    p, splits = 2, 3
+    x = torch.randn((B, T, D), generator=g)
+    dwhh, dwih = (torch.randn((p, splits, 3 * H, n), generator=g)
+                  for n in (H, D))
+    dbhh, dbih = (torch.randn((p, splits, 3 * H), generator=g)
+                  for _ in range(2))
+    part = torch.cat([dwhh.flatten(2), dwih.flatten(2), dbhh, dbih], dim=2)
+    dx = torch.randn((p, B, T, D), generator=g)
+    ops = ((p, B, T, D, H), x)
+    got_dx, got_dwih, got_dbih, got_dwhh, got_dbhh = cuda_gru._wgrad_sums(
+        ops, dx, part)
+    for a, r in ((got_dx, dx.sum(0)), (got_dwih, dwih.sum(1)),
+                 (got_dbih, dbih.sum(1)), (got_dwhh, dwhh.sum(1)),
+                 (got_dbhh, dbhh.sum(1))):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,steps,heads,want", [
+    (256, 10, 20, (4, 640)),   # decoder: 480 blocks, one round of 4 per SM
+    (256, 10, 1, (40, 64)),    # encoder: the 64-row floor
+    (37, 10, 20, (4, 96)),     # a ragged batch: 370 rows in 4 chunks
+    (1, 1, 1, (1, 64)),
+])
+def test_wgrad_splits(batch, steps, heads, want):
+    """The K = B*T rows split into fixed chunks that cover them once and
+    keep the grid within one round of resident blocks on an H100."""
+    splits, chunk = cuda_gru.wgrad_splits(batch, steps, 20, 64, heads, 132)
+    assert (splits, chunk) == want
+    assert chunk % cuda_gru.WGRAD_BK == 0
+    assert (splits - 1) * chunk < batch * steps <= splits * chunk
+
+
 def test_cpu_recurrences_never_launch():
     """On CPU tensors the dispatch runs the plain recurrences and adds
     nothing to a kernel's launch count."""
@@ -157,10 +229,22 @@ H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
     (256, 1, True, 4),
     (37, 20, False, 4),
     (1, 1, True, 1),
+    # B2's chain: waves times the shared-memory loads a thread issues per
+    # step (chain_step_loads), which a tile-width sweep on an H100 follows.
+    (256, 20, "chain", 20),  # 260 blocks of 107 KB, two per SM: one wave
+    (256, 1, "chain", 4),    # one wave at any width: the fewest loads a row
+    (37, 20, "chain", 4),
+    (1, 1, "chain", 1),
+    (3072, 20, "chain", 24),  # ten waves at 24 rows, twelve at 20
 ])
 def test_pick_tile(batch, heads, backward, want):
-    fn = cuda_gru.bwd_smem_bytes if backward else cuda_gru.fwd_smem_bytes
-    bt = cuda_gru.pick_tile(batch, heads, 64, lambda n: fn(n, 20, 64), H100)
+    fn = {False: cuda_gru.fwd_smem_bytes, True: cuda_gru.bwd_smem_bytes,
+          "chain": cuda_gru.chain_smem_bytes}[backward]
+    step, tiles = ((lambda n: cuda_gru.chain_step_loads(n, 20, 64),
+                    cuda_gru.CHAIN_TILES) if backward == "chain"
+                   else (cuda_gru.rows_per_thread, cuda_gru.TILES))
+    bt = cuda_gru.pick_tile(batch, heads, 64, lambda n: fn(n, 20, 64), H100,
+                            step, tiles)
     assert bt == want
     assert fn(bt, 20, 64) <= H100[0]
 

@@ -141,7 +141,12 @@ def gru_library() -> ctypes.CDLL:
     head = [_P, _L, _L, _L] + [_P] * 5 + [_L, _L]
     lib.vcx_gru_forward.argtypes = head + [_P] + [_I] * 6 + [_P]
     lib.vcx_gru_forward.restype = _I
-    lib.vcx_gru_backward.argtypes = head + [_P] * 8 + [_I] * 6 + [_P]
+    lib.vcx_gru_bwd_chain.argtypes = head + [_P] * 4 + [_I] * 6 + [_P]
+    lib.vcx_gru_bwd_chain.restype = _I
+    lib.vcx_gru_bwd_wgrad.argtypes = ([_P, _P, _L, _L, _L, _P, _L, _L]
+                                      + [_P] * 4 + [_I] * 7 + [_P])
+    lib.vcx_gru_bwd_wgrad.restype = _I
+    lib.vcx_gru_backward.argtypes = head + [_P] * 6 + [_I] * 8 + [_P]
     lib.vcx_gru_backward.restype = _I
     lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
     lib.vcx_device_limits.restype = _I
