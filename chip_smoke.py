@@ -25,6 +25,12 @@
      lr=5e-2, beta=0.1, random parents: one step and a 5-step trajectory,
      params and metrics rtol 1e-4, atol 1e-6 (the JAX package's one-step
      order; an SGD step of lr=5e-2 scales the gradients' rounding down).
+     Each of B3's launches against its plain phase on the same inputs (the
+     kernel's own buffers from the launches before it): the encoder and
+     decoder states 1e-5 absolute, as B1's outputs; the readout, both
+     chains, both weight-gradient kernels and the latent phase rtol 1e-3,
+     atol 1e-4, as B2's gradients.  Two B3 calls on the same inputs must
+     give bitwise-equal params and metrics.
 4. The main paths, each with the launch counts set to 0 just before it and
    read just after:
    - serving: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20, H=64),
@@ -43,9 +49,10 @@
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B2's chain and
    weight-gradient kernels apart (CUDA events through their wrappers, and
-   device time alone from ``torch.profiler``); time compensated
-   generation, and phase-1 steps/s through ``make_phase1_step`` (B1/B2)
-   and ``fused_phase1_step`` (B3).
+   device time alone from ``torch.profiler``) and B3's eleven kernels by
+   device time (profiler); time compensated generation, and phase-1
+   steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
+   (B3).
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +66,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -194,6 +202,40 @@ def device_ms(fn, iters: int) -> dict[str, float]:
         if us > 0:
             out[e.key] = us / iters / 1e3
     return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace and arguments:
+    "void (anonymous namespace)::step_readout(vcx::StepArgs)" ->
+    "step_readout"."""
+    m = re.search(r"(\w+(?:<[^>]*>)?)\(", key)
+    return m.group(1) if m else key
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel from ptxas's -v report: its name (demangled by
+    c++filt where there is one), registers and spill bytes."""
+    rows, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+            rows[cur] = ["", ""]
+        elif cur and "spill stores" in line:
+            rows[cur][1] = line.strip()
+        elif cur and "Used" in line and "registers" in line:
+            rows[cur][0] = re.search(r"Used (\d+) registers", line).group(0)
+    names = list(rows)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        shown = out.stdout.splitlines() if out.returncode == 0 else names
+    except OSError:
+        shown = names
+    if len(shown) != len(names):
+        shown = names
+    return [f"{kernel_name(d)}: {rows[n][0]}; {rows[n][1]}"
+            for n, d in zip(names, shown)]
 
 
 def make_models(p, hidden, seed, dev):
@@ -468,6 +510,94 @@ def check_training_kernels(dev, errors):
                           **STEP_TOL, what=what + " metrics")
 
 
+def check_step_phases(dev, errors):
+    """Phase 3c: each of B3's launches against its plain phase on the
+    same inputs, the kernel's own buffers from the launches before it, at
+    p=20, H=64, ctx=20, B=256 with a random parents mask; and two B3 calls
+    on the same inputs give bitwise-equal params and metrics.  The update,
+    prox and metrics launches are held by the whole-step check."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE, masked_heads
+    from vae_connexe_torch.models.crvae import decoder_input
+    from vae_connexe_torch.ops import cuda_gru, cuda_step
+    from vae_connexe_torch.ops.gru import gru_scan, gru_scan_heads
+    from vae_connexe_torch.train import Phase1Config
+    from vae_connexe_torch.utils.layers import dense
+
+    g = torch.Generator().manual_seed(11)
+    model = CRVAE(P, H, ENC)
+    params = model.init(g, dev)
+    cfg = Phase1Config(lam=0.1, lr=5e-2, beta=0.1)
+    parents = (torch.rand((P, P), generator=g) > 0.3).float().to(dev)
+    batch = torch.randn((TRAIN_B, CTX, P), generator=g).to(dev)
+    eps = torch.randn((TRAIN_B, H), generator=g).to(dev)
+    args = (model, cfg, params, parents, batch, eps)
+    outs, flat, shapes = cuda_step._step_launch(*args)
+    s = cuda_step._flat_views(flat, shapes)
+    again, _, _ = cuda_step._step_launch(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(outs[k], again[k]) for k in outs)
+    log(f"check phase1_step p={P} H={H} ctx={CTX} B={TRAIN_B}: two calls "
+        f"bitwise equal (params and metrics): {same}")
+    if not same:
+        raise AssertionError("B3 is not deterministic")
+
+    e, b = ENC, TRAIN_B
+    heads = masked_heads(params.heads, parents)
+    w = (heads.w_ih, heads.b_ih, heads.w_hh, heads.b_hh)
+    x_dec = decoder_input(batch, e)
+    z_p = s["z"].expand(P, b, H)
+    enc = params.enc
+    ew = (enc.w_ih[None], enc.b_ih[None], enc.w_hh[None], enc.b_hh[None])
+    h0 = torch.zeros((1, b, H), device=dev)
+    h_e = s["henc"][:, -1]
+    henc, _ = gru_scan(enc, batch[:, :e], h0[0])
+    mu, lv = dense(params.fc_mu, h_e), dense(params.fc_std, h_e)
+    kl = (-0.5 * (1 + lv - mu * mu - lv.exp())).sum()
+    hdec, _ = gru_scan_heads(heads, x_dec, s["z"][None])
+    ro = cuda_step.readout_plain(params.readout, batch, s["hdec"], e)
+    gh, dz = cuda_gru.bwd_chain_plain(*w, x_dec, z_p, s["hdec"], s["douts"])
+    dwgt = cuda_gru.bwd_wgrad_plain(*w, x_dec, z_p, s["hdec"], s["gh"],
+                                    False)[1:]
+    *fc, dhe = cuda_step.latent_plain(params, s["mu"], s["lv"], s["z"], h_e,
+                                      s["dz_part"].sum(0), cfg.beta)
+    egh, _ = cuda_gru.bwd_chain_plain(*ew, batch[:, :e], h0, s["henc"][None],
+                                      s["douts_enc"][None])
+    ewgt = cuda_gru.bwd_wgrad_plain(*ew, batch[:, :e], h0, s["henc"][None],
+                                    s["gh_enc"][None], False)[1:]
+    torch.cuda.synchronize()
+    sums = lambda *names: [s[n].sum(0) for n in names]   # noqa: E731
+    checks = [  # (launch, what, kernel, plain, (rtol, atol))
+        ("step_encoder_fwd", "henc", [s["henc"]], [henc], (0.0, OUT_TOL)),
+        ("step_encoder_fwd", "mu lv KL sum",
+         [s["mu"], s["lv"], s["kl_part"].sum()], [mu, lv, kl],
+         tuple(GRAD_TOL.values())),
+        ("step_decoder_fwd", "hdec", [s["hdec"]], [hdec], (0.0, OUT_TOL)),
+        ("step_readout", "douts, squared error, g_ro_w, g_ro_b",
+         [s["douts"], s["sq_part"].sum(), s["g_ro_w"].sum(1),
+          s["g_ro_b"].sum(1)], [ro[0], ro[1], ro[2][:, 0], ro[3][:, 0]],
+         tuple(GRAD_TOL.values())),
+        ("step_decoder_chain", "gh dz", [s["gh"], s["dz_part"]], [gh, dz],
+         tuple(GRAD_TOL.values())),
+        ("step_decoder_wgrad", "dW_ih db_ih dW_hh db_hh",
+         list(cuda_gru.wgrad_totals(s["g_hd"], P, H)), list(dwgt),
+         tuple(GRAD_TOL.values())),
+        ("step_latent", "g_mu g_lv douts_enc",
+         [*sums("g_mu_w", "g_mu_b", "g_lv_w", "g_lv_b"), s["douts_enc"]],
+         [*fc, cuda_step.encoder_douts(dhe, e)], tuple(GRAD_TOL.values())),
+        ("step_encoder_chain", "gh", [s["gh_enc"]], [egh[0]],
+         tuple(GRAD_TOL.values())),
+        ("step_encoder_wgrad", "dW_ih db_ih dW_hh db_hh",
+         list(cuda_gru.wgrad_totals(s["g_enc"][None], P, H)), list(ewgt),
+         tuple(GRAD_TOL.values())),
+    ]
+    shape = f"p={P} H={H} ctx={CTX} B={TRAIN_B} parents masked"
+    for launch, what, got, ref, (rtol, atol) in checks:
+        _assert_close(f"phase1_step:{launch}", _flat(got), _flat(ref), errors,
+                      rtol, atol, f"{shape}: {what}")
+
+
 def check_backward_phases(params, x, h0, outs, douts, errors, what):
     """B2's two kernels, each against its plain phase on the same inputs:
     the chain's gate gradients gh and dh0, then the weight-gradient
@@ -701,8 +831,18 @@ def time_training(dev, card, windows):
               model, cfg, params, parents, batch, eps), 50),
           "plain_ms": time_ms(lambda: cuda_step.fused_phase1_step_plain(
               model, cfg, params, parents, batch, eps), 50)}
+    by_kernel = {}
+    for key, ms in device_ms(lambda: cuda_step.fused_phase1_step(
+            model, cfg, params, parents, batch, eps), 50).items():
+        name = kernel_name(key)
+        by_kernel[name] = by_kernel.get(name, 0.0) + ms
+    b3["extra"] = {"device_ms": sum(by_kernel.values()),
+                   "device_ms_by_kernel": by_kernel}
     log(f"time phase1_step p={P} H={H} ctx={CTX} B={TRAIN_B}: kernel "
-        f"{b3['ms']:.4f} ms, plain {b3['plain_ms']:.4f} ms [{card}]")
+        f"{b3['ms']:.4f} ms, plain {b3['plain_ms']:.4f} ms, device "
+        f"{b3['extra']['device_ms']:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+        + f" [{card}]")
 
     # Steps/s of the two step paths, host clock, draws included.
     state = Phase1State(params=params, best_params=params,
@@ -770,13 +910,13 @@ def main() -> int:
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (_, report) in built.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(report):
+            log(f"  ptxas {name}: {line}")
 
     errors = {}
     check_kernels(dev, errors)
     check_training_kernels(dev, errors)
+    check_step_phases(dev, errors)
     launches, served_fn = serve_main_path(dev)
     series = lorenz_windows(dev, P, seed=0)
     launches.update(train_main_path(dev, card, series))
@@ -813,6 +953,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": row.get("library_ms"),
             **row.get("extra", {}),
         })
+    kernels[-1]["phase_max_abs_err"] = {
+        k.split(":", 1)[1]: v for k, v in errors.items()
+        if k.startswith("phase1_step:")}
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -73,13 +73,13 @@ def test_kernel_build_is_content_addressed():
 @pytest.mark.parametrize("name", ["gru", "step"])
 def test_training_libraries_are_content_addressed(name, tmp_path, monkeypatch):
     """The gru and step libraries are named by a hash of every source they
-    are built from, the shared header included: the same bytes give the
+    are built from, the shared headers included: the same bytes give the
     same path, an edit to any one of them another."""
     from vae_connexe_torch.ops import _build
 
     path = _build.library_path(name)
     assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
-    assert "gru_tile.cuh" in _build.SOURCES[name]
+    assert {"gru_tile.cuh", "gru_bwd.cuh"} <= set(_build.SOURCES[name])
     for src in _build.SOURCES[name]:
         (tmp_path / src).write_bytes((_build.CSRC / src).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -195,7 +195,8 @@ def test_gru_backward_phases_match_plain_on_card(cuda_device, per_head):
 @pytest.mark.cuda
 def test_phase1_step_kernel_matches_plain_on_card(cuda_device):
     """B3 against its plain version on the card, ragged batch, random
-    parents mask, lam and ridge > 0.  Tolerance rtol 1e-3, atol 1e-4."""
+    parents mask, lam and ridge > 0; two calls give bitwise-equal params
+    and metrics.  Tolerance rtol 1e-3, atol 1e-4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(3)
     p, hidden, e, t, b = 5, 16, 4, 9, 37
@@ -209,7 +210,12 @@ def test_phase1_step_kernel_matches_plain_on_card(cuda_device):
                                            batch, eps)
     ref, rmet = cuda_step.fused_phase1_step_plain(model, cfg, params, parents,
                                                   batch, eps)
+    again, amet = cuda_step.fused_phase1_step(model, cfg, params, parents,
+                                              batch, eps)
     torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in
+               zip(tree_leaves(new) + list(met.values()),
+                   tree_leaves(again) + list(amet.values())))
     for a, r in zip(tree_leaves(new), tree_leaves(ref)):
         torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
     for k in cuda_step.METRICS:

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from vae_connexe_torch import convert
-from vae_connexe_torch.ops import cuda_gru, dispatch, gru
+from vae_connexe_torch.ops import cuda_gru, cuda_step, dispatch, gru
 from vae_connexe_tpu.ops import gru as jgru
 from vae_connexe_tpu.ops import pallas_gru
 
@@ -222,13 +222,17 @@ def test_cpu_recurrences_never_launch():
 H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
 
 
-@pytest.mark.parametrize("batch,heads,backward,want", [
-    (256, 20, False, 16),    # phase-1 decoder forward: one wave of 320 blocks
-    (256, 20, True, 8),      # its backward: one ~143 KB block per SM
+# kernel: False for B1's forward (the ids of the first cases predate the
+# other kernels), "step_encoder" for B3's encoder forward, "chain" for B2's
+# chain.
+@pytest.mark.parametrize("batch,heads,kernel,want", [
+    (256, 20, False, 16),  # phase-1 decoder forward: one wave of 320 blocks
+    # B3's encoder forward (B1's tile plus a block's reduction scratch):
+    (256, 20, "step_encoder", 16),  # the same wave on 20 heads
     (256, 1, False, 4),      # the encoder: 64 blocks, one row per thread
-    (256, 1, True, 4),
+    (256, 1, "step_encoder", 4),    # B3's encoder: the same 64 blocks
     (37, 20, False, 4),
-    (1, 1, True, 1),
+    (1, 1, "step_encoder", 1),
     # B2's chain: waves times the shared-memory loads a thread issues per
     # step (chain_step_loads), which a tile-width sweep on an H100 follows.
     (256, 20, "chain", 20),  # 260 blocks of 107 KB, two per SM: one wave
@@ -237,11 +241,12 @@ H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
     (1, 1, "chain", 1),
     (3072, 20, "chain", 24),  # ten waves at 24 rows, twelve at 20
 ])
-def test_pick_tile(batch, heads, backward, want):
-    fn = {False: cuda_gru.fwd_smem_bytes, True: cuda_gru.bwd_smem_bytes,
-          "chain": cuda_gru.chain_smem_bytes}[backward]
+def test_pick_tile(batch, heads, kernel, want):
+    fn = {False: cuda_gru.fwd_smem_bytes,
+          "step_encoder": cuda_step.encoder_fwd_smem_bytes,
+          "chain": cuda_gru.chain_smem_bytes}[kernel]
     step, tiles = ((lambda n: cuda_gru.chain_step_loads(n, 20, 64),
-                    cuda_gru.CHAIN_TILES) if backward == "chain"
+                    cuda_gru.CHAIN_TILES) if kernel == "chain"
                    else (cuda_gru.rows_per_thread, cuda_gru.TILES))
     bt = cuda_gru.pick_tile(batch, heads, 64, lambda n: fn(n, 20, 64), H100,
                             step, tiles)
@@ -251,7 +256,7 @@ def test_pick_tile(batch, heads, backward, want):
 
 def test_pick_tile_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_gru.pick_tile(8, 1, 256, lambda n: cuda_gru.bwd_smem_bytes(
+        cuda_gru.pick_tile(8, 1, 256, lambda n: cuda_step.encoder_fwd_smem_bytes(
             n, 20, 256), H100)
 
 

@@ -1,6 +1,6 @@
 """The port's CRVAE training path against the JAX package: encode, forward,
-one phase-1 step, the plain version of the whole-step kernel B3, the fit
-loop, and the conditioned rollout.
+one phase-1 step, the plain version of the whole-step kernel B3 and of its
+launches phase by phase, the fit loop, and the conditioned rollout.
 
 Parameters initialised by the JAX package cross over through ``convert``;
 the draws a JAX function takes from its key (the reparameterisation
@@ -11,6 +11,8 @@ Tolerances: forward 1e-5; one step (params, metrics) rtol 1e-4, atol 1e-6,
 the order of ``tests/test_fused_step.py``.
 """
 
+import dataclasses
+
 import flax.serialization
 import jax
 import jax.numpy as jnp
@@ -19,11 +21,16 @@ import pytest
 import torch
 
 from vae_connexe_torch import convert
-from vae_connexe_torch.models import CRVAE, CRVAEParams
+from vae_connexe_torch.losses import kl_gaussian
+from vae_connexe_torch.models import CRVAE, CRVAEParams, masked_heads
+from vae_connexe_torch.models.crvae import decoder_input
 from vae_connexe_torch.ops import cuda_gru, cuda_step
+from vae_connexe_torch.ops.gru import gru_scan
+from vae_connexe_torch.optim import prox_column_groups
 from vae_connexe_torch.train import Phase1Config, Phase1State, fit_phase1, make_phase1_step
 from vae_connexe_torch.train.crvae_trainer import _chunk_lengths
-from vae_connexe_torch.utils.tree import tree_leaves
+from vae_connexe_torch.utils.layers import dense
+from vae_connexe_torch.utils.tree import tree_leaves, tree_unflatten
 from vae_connexe_tpu.models import CRVAE as JCRVAE
 from vae_connexe_tpu.ops.pallas_step import fused_phase1_step as jax_fused_step
 from vae_connexe_tpu.train import Phase1Config as JPhase1Config
@@ -154,6 +161,96 @@ def test_step_kernel_plain_matches_pallas_interpret(setup, masked):
     for k in cuda_step.METRICS:
         np.testing.assert_allclose(float(got[k]), float(ref_metrics[k]),
                                    **STEP, err_msg=k)
+
+
+def _step_by_phases(m, cfg, params, parents, batch, eps):
+    """B3's launches, each through its plain phase: the encoder forward,
+    ``decoder_readout_plain``, B2's two plain phases on the decoder (parents
+    mask, teacher-forced input, h0 = z), ``latent_plain``, B2's phases on
+    the encoder, then the update as step.cu's ``step_update`` writes it
+    (w m - lr (g + 2 lam_ridge w on the ridge leaves)) m, the prox and the
+    metrics.  Returns (new params, metrics)."""
+    e, p, b = m.enc_len, m.p, batch.shape[0]
+    henc, h_e = gru_scan(params.enc, batch[:, :e], torch.zeros((b, m.hidden)))
+    mu, lv = dense(params.fc_mu, h_e), dense(params.fc_std, h_e)
+    z = mu + torch.exp(0.5 * lv) * eps
+    hdec, douts, sq, g_ro_w, g_ro_b = cuda_step.decoder_readout_plain(
+        params, parents, batch, z, e)
+    heads = masked_heads(params.heads, parents)
+    w = (heads.w_ih, heads.b_ih, heads.w_hh, heads.b_hh)
+    x_dec, z_p = decoder_input(batch, e), z.expand(p, b, m.hidden)
+    gh, dz = cuda_gru.bwd_chain_plain(*w, x_dec, z_p, hdec, douts)
+    _, dwih, dbih, dwhh, dbhh = cuda_gru.bwd_wgrad_plain(*w, x_dec, z_p, hdec,
+                                                         gh, False)
+    *g_fc, dhe = cuda_step.latent_plain(params, mu, lv, z, h_e, dz.sum(0),
+                                        cfg.beta)
+    enc = params.enc
+    ew = (enc.w_ih[None], enc.b_ih[None], enc.w_hh[None], enc.b_hh[None])
+    h0 = torch.zeros((1, b, m.hidden))
+    egh, _ = cuda_gru.bwd_chain_plain(*ew, batch[:, :e], h0, henc[None],
+                                      cuda_step.encoder_douts(dhe, e)[None])
+    _, ewih, ebih, ewhh, ebhh = cuda_gru.bwd_wgrad_plain(
+        *ew, batch[:, :e], h0, henc[None], egh, False)
+    grads = [ewih[0], ewhh[0], ebih[0], ebhh[0], *g_fc, dwih, dwhh, dbih,
+             dbhh, g_ro_w, g_ro_b]
+    ridge_leaves = {"hd_whh", "ro_w"}
+    new = []
+    for name, v, g in zip(cuda_step.LEAVES, tree_leaves(params), grads):
+        mask = parents[:, None, :] if name == "hd_wih" else 1.0
+        r2 = 2 * cfg.lam_ridge if name in ridge_leaves else 0.0
+        new.append((v * mask - cfg.lr * (g + r2 * v)) * mask)
+    new = tree_unflatten(params, new)
+    w_ih = prox_column_groups(new.heads.w_ih, cfg.lam, cfg.lr)
+    recon = sq / (b * (batch.shape[1] - e))
+    ridge = cfg.lam_ridge * (params.readout.w.square().sum()
+                             + params.heads.w_hh.square().sum())
+    reg = cfg.beta * kl_gaussian(mu, lv)
+    metrics = {"loss": recon + ridge + reg, "recon": recon, "latent_reg": reg,
+               "mean_loss": (recon + ridge) / p,
+               "variable_usage": (torch.linalg.vector_norm(w_ih, dim=-2) > 0)
+               .float().mean()}
+    heads = dataclasses.replace(new.heads, w_ih=w_ih)
+    return dataclasses.replace(new, heads=heads), metrics
+
+
+def _phase_inputs(setup, masked):
+    jm, jp, m, tp, batch, parents = setup
+    parents = parents if masked else np.ones((P, P), np.float32)
+    eps = np.random.default_rng(5).normal(size=(B, H)).astype(np.float32)
+    return m, tp, parents, batch, eps
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_step_phases_compose_to_the_plain_step(setup, masked):
+    """B3's launches, each through its plain phase, reproduce B3's plain
+    version (one ``make_phase1_step`` body under autograd)."""
+    m, tp, parents, batch, eps = _phase_inputs(setup, masked)
+    cfg = Phase1Config(**CFG)
+    args = (m, cfg, tp, _t(parents), _t(batch), _t(eps))
+    got_params, got = _step_by_phases(*args)
+    ref_params, ref = cuda_step.fused_phase1_step_plain(*args)
+    for a, r in zip(tree_leaves(got_params), tree_leaves(ref_params)):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), **STEP)
+    for k in cuda_step.METRICS:
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), **STEP,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_step_phases_compose_to_pallas_interpret(setup, masked):
+    """B3's launches, each through its plain phase, against the TPU
+    megakernel in Pallas interpret mode."""
+    jm, jp = setup[:2]
+    m, tp, parents, batch, eps = _phase_inputs(setup, masked)
+    ref_params, ref = jax_fused_step(
+        jm, JPhase1Config(**CFG), jp, jnp.asarray(parents), jnp.asarray(batch),
+        jnp.asarray(eps), interpret=True)
+    got_params, got = _step_by_phases(m, Phase1Config(**CFG), tp, _t(parents),
+                                      _t(batch), _t(eps))
+    _assert_tree_close(got_params, ref_params, STEP)
+    for k in cuda_step.METRICS:
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), **STEP,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("max_iter,check_every,want", [

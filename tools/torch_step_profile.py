@@ -3,8 +3,8 @@
     python3 tools/torch_step_profile.py
 
 Traces 20 steps of each step path at p=20, H=64, ctx=20, B=256 with
-``torch.profiler`` (CPU and CUDA activity): ``fused_phase1_step`` (the six
-kernels of csrc/step.cu) and ``make_phase1_step`` (B1/B2 plus eager
+``torch.profiler`` (CPU and CUDA activity): ``fused_phase1_step`` (the
+eleven kernels of csrc/step.cu) and ``make_phase1_step`` (B1/B2 plus eager
 PyTorch).  Prints, per path, the wall time per step, the device time per
 step summed over kernels (host operators are left out: they carry their
 kernels' time too), their ratio (the device's busy share; idle is the

@@ -1,5 +1,6 @@
-// One GRU head over one batch tile, forward and backward: the block bodies
-// shared by the recurrence kernels (gru.cu) and the phase-1 step (step.cu).
+// One GRU head over one batch tile, forward: the block body shared by the
+// recurrence kernels (gru.cu) and the phase-1 step (step.cu), with the
+// staging helpers the backward chain (gru_bwd.cuh) reuses.
 //
 // A block owns one (head, batch tile) pair for every time step, with the
 // time loop inside the block.  Heads never feed each other and batch rows
@@ -9,25 +10,16 @@
 //
 // Layout in shared memory (floats):
 //   wih [D][G1]  W_ih^T, G1 = 3H + 1: the pad makes both a walk along the
-//                gate axis (forward: 32 units of a warp) and a walk along
-//                the input axis (backward: dh_prev, dx) bank-conflict free.
+//                gate axis (32 units of a warp) and a walk along the input
+//                axis (the backward chain's d h_prev) bank-conflict free.
 //   whh [H][G1]  W_hh^T, same padding.
 //   bih, bhh [3H]
-//   h   [bt][H]  forward: the current state; backward: h_prev of the step.
+//   h   [bt][H]  the current state.
 //   x   [bt][D]  the step's input.
-// The backward adds the gradient accumulators of this (head, tile) and the
-// step's gate gradients:
-//   dwhh [3H][H], dwih [3H][D], dbhh [3H], dbih [3H],
-//   ghid [bt][3H] (d loss / d hidden projection: [dbr, dz, da * r]),
-//   gxn  [bt][H]  (the n slice of d loss / d input projection, da; its r
-//                  and z slices equal ghid's).
 //
 // Threads: blockDim.x = H * (bt / RPT).  Thread (j, rg) = (tid % H, tid / H)
 // computes unit j of the RPT rows rg*RPT ... rg*RPT + RPT - 1, so each
-// weight it reads from shared memory serves RPT rows.  Element-wise phases
-// (gradient accumulation, dx) stride over the block instead.  Every
-// accumulator element belongs to one thread and is summed in a fixed
-// order: the result does not depend on scheduling.
+// weight it reads from shared memory serves RPT rows.
 //
 // Gate math is torch nn.GRU's (r, z, n; the hidden bias of n inside the
 // reset product), as vae_connexe_tpu/ops/gru.py and pallas_gru.py.
@@ -77,24 +69,16 @@ struct GruTile {
 
 struct GruSmem {
   float *wih, *whh, *bih, *bhh, *h, *x;
-  // backward only
-  float *dwhh, *dwih, *dbhh, *dbih, *ghid, *gxn;
 };
 
-// Floats of shared memory of a forward tile and of a backward tile.
+// Floats of shared memory of a forward tile.
 __host__ __device__ inline i64 fwd_smem_floats(int bt, int D, int H) {
   const i64 g1 = 3 * H + 1;
   return (i64)D * g1 + (i64)H * g1 + 6 * H + (i64)bt * H + (i64)bt * D;
 }
 
-__host__ __device__ inline i64 bwd_smem_floats(int bt, int D, int H) {
-  return fwd_smem_floats(bt, D, H) + 3LL * H * H + 3LL * H * D + 6 * H +
-         3LL * bt * H + (i64)bt * H;
-}
-
-// Carve the regions out of `base` (fwd_smem_floats or bwd_smem_floats).
-__device__ inline GruSmem carve(float* base, int bt, int D, int H,
-                                bool backward) {
+// Carve the regions out of `base` (fwd_smem_floats).
+__device__ inline GruSmem carve(float* base, int bt, int D, int H) {
   const int g1 = 3 * H + 1;
   GruSmem s;
   s.wih = base;
@@ -103,17 +87,6 @@ __device__ inline GruSmem carve(float* base, int bt, int D, int H,
   s.bhh = s.bih + 3 * H;
   s.h = s.bhh + 3 * H;
   s.x = s.h + bt * H;
-  float* end = s.x + bt * D;
-  if (backward) {
-    s.dwhh = end;
-    s.dwih = s.dwhh + 3 * H * H;
-    s.dbhh = s.dwih + 3 * H * D;
-    s.dbih = s.dbhh + 3 * H;
-    s.ghid = s.dbih + 3 * H;
-    s.gxn = s.ghid + bt * 3 * H;
-  } else {
-    s.dwhh = s.dwih = s.dbhh = s.dbih = s.ghid = s.gxn = nullptr;
-  }
   return s;
 }
 
@@ -151,19 +124,12 @@ __device__ inline void stage_x(float* xs, const GruInput& in,
   }
 }
 
-// h_prev of step t: h0 for t == 0, else the forward's output at t - 1.
-__device__ inline void stage_hprev(float* hs, const GruTile& tl, int t,
-                                   int H) {
+// The initial state of every tile row (zeros without h0 or past B).
+__device__ inline void stage_h0(float* hs, const GruTile& tl, int H) {
   for (int e = threadIdx.x; e < tl.bt * H; e += blockDim.x) {
     const int b = e / H, k = e % H, row = tl.row0 + b;
-    float v = 0.0f;
-    if (row < tl.B) {
-      if (t > 0)
-        v = tl.outs[((i64)row * tl.T + (t - 1)) * H + k];
-      else if (tl.h0 != nullptr)
-        v = tl.h0[(i64)row * tl.sh0b + k];
-    }
-    hs[e] = v;
+    hs[e] = row < tl.B && tl.h0 != nullptr ? tl.h0[(i64)row * tl.sh0b + k]
+                                           : 0.0f;
   }
 }
 
@@ -220,7 +186,7 @@ __device__ void gru_forward_tile(const GruHead& w, const GruInput& in,
   const int H = w.H, D = w.D;
   const int j = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
   if (!staged) stage_weights(w, s);
-  stage_hprev(s.h, tl, 0, H);
+  stage_h0(s.h, tl, H);
   stage_x(s.x, in, tl, 0, D);
   __syncthreads();
   for (int t = 0; t < tl.T; ++t) {
@@ -242,137 +208,6 @@ __device__ void gru_forward_tile(const GruHead& w, const GruInput& in,
     if (t + 1 < tl.T) stage_x(s.x, in, tl, t + 1, D);
     __syncthreads();
   }
-}
-
-// What feeds the backward besides the forward's outputs.
-struct GruBwdIO {
-  const float* douts;    // this head's (B, T, H) d loss / d outs, or nullptr
-  const float* dpred;    // shared [T][bt] d loss / d readout, or nullptr ...
-  const float* ro_w;     // ... with the head's readout row (H)
-  const float* dh_init;  // [bt][H] d loss / d h_T beyond douts, or nullptr
-  float* dx;             // this head's (B, T, D) d loss / d x, or nullptr
-  float* dh0;            // this head's (B, H) d loss / d h0, or nullptr
-};
-
-// Input-projection gradient of tile row b, gate row g.
-__device__ __forceinline__ float gx_at(const GruSmem& s, int H, int b, int g) {
-  return g < 2 * H ? s.ghid[b * 3 * H + g] : s.gxn[b * H + g - 2 * H];
-}
-
-// Reverse-time replay: rematerialises each step's gates from h_prev (the
-// forward's outs[t-1], or h0) and the re-staged input, accumulates dW/db
-// in s.dwhh, s.dwih, s.dbhh, s.dbih, writes dx per step and dh0 at the end.
-// Stages the weights unless `staged`.  Rows past B carry zero gradients.
-template <int RPT>
-__device__ void gru_backward_tile(const GruHead& w, const GruInput& in,
-                                  const GruTile& tl, const GruSmem& s,
-                                  const GruBwdIO& io, bool staged) {
-  const int H = w.H, D = w.D, G = 3 * H, g1 = G + 1;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int j = tid % H, r0 = (tid / H) * RPT;
-  if (!staged) stage_weights(w, s);
-  for (int e = tid; e < G * H; e += nth) s.dwhh[e] = 0.0f;
-  for (int e = tid; e < G * D; e += nth) s.dwih[e] = 0.0f;
-  for (int e = tid; e < G; e += nth) s.dbhh[e] = s.dbih[e] = 0.0f;
-  float dh[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    dh[r] = (io.dh_init != nullptr && tl.row0 + r0 + r < tl.B)
-                ? io.dh_init[(r0 + r) * H + j]
-                : 0.0f;
-  stage_hprev(s.h, tl, tl.T - 1, H);
-  stage_x(s.x, in, tl, tl.T - 1, D);
-  __syncthreads();
-
-  for (int t = tl.T - 1; t >= 0; --t) {
-    // Gates of step t, and the gradients with respect to its projections.
-    float ar[RPT], az[RPT], axn[RPT], ahn[RPT];
-    preacts<RPT>(s, D, H, j, r0, ar, az, axn, ahn);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int b = r0 + r, row = tl.row0 + b;
-      float d = dh[r];
-      if (row < tl.B) {
-        if (io.douts != nullptr)
-          d += io.douts[((i64)row * tl.T + t) * H + j];
-        if (io.dpred != nullptr) d += io.dpred[t * tl.bt + b] * io.ro_w[j];
-      }
-      const float rr = sigmoid_f(ar[r]), zz = sigmoid_f(az[r]);
-      const float nn = tanhf(axn[r] + rr * ahn[r]);
-      const float hp = s.h[b * H + j];
-      const float dz = d * (hp - nn) * zz * (1.0f - zz);
-      const float da = d * (1.0f - zz) * (1.0f - nn * nn);
-      const float dbr = da * ahn[r] * rr * (1.0f - rr);
-      s.ghid[b * G + j] = dbr;
-      s.ghid[b * G + H + j] = dz;
-      s.ghid[b * G + 2 * H + j] = da * rr;
-      s.gxn[b * H + j] = da;
-      dh[r] = d * zz;
-    }
-    __syncthreads();
-
-    // dh_prev = dh * z + ghid @ W_hh  (W_hh[g][j] = whh[j * g1 + g]).
-    for (int g = 0; g < G; ++g) {
-      const float wv = s.whh[j * g1 + g];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        dh[r] = fmaf(s.ghid[(r0 + r) * G + g], wv, dh[r]);
-    }
-    // dW_hh += ghid^T h_prev, db_hh += sum ghid.
-    for (int e = tid; e < G * H; e += nth) {
-      const int g = e / H, k = e % H;
-      float acc = 0.0f;
-      for (int b = 0; b < tl.bt; ++b)
-        acc = fmaf(s.ghid[b * G + g], s.h[b * H + k], acc);
-      s.dwhh[e] += acc;
-    }
-    // dW_ih += gx^T x_t, db_ih += sum gx.
-    for (int e = tid; e < G * D; e += nth) {
-      const int g = e / D, k = e % D;
-      float acc = 0.0f;
-      for (int b = 0; b < tl.bt; ++b)
-        acc = fmaf(gx_at(s, H, b, g), s.x[b * D + k], acc);
-      s.dwih[e] += acc;
-    }
-    for (int g = tid; g < G; g += nth) {
-      float ah = 0.0f, ax = 0.0f;
-      for (int b = 0; b < tl.bt; ++b) {
-        ah += s.ghid[b * G + g];
-        ax += gx_at(s, H, b, g);
-      }
-      s.dbhh[g] += ah;
-      s.dbih[g] += ax;
-    }
-    // dx_t = gx @ W_ih  (W_ih[g][k] = wih[k * g1 + g]).
-    if (io.dx != nullptr) {
-      for (int e = tid; e < tl.bt * D; e += nth) {
-        const int b = e / D, k = e % D, row = tl.row0 + b;
-        if (row >= tl.B) continue;
-        float acc = 0.0f;
-        for (int g = 0; g < G; ++g)
-          acc = fmaf(gx_at(s, H, b, g), s.wih[k * g1 + g], acc);
-        io.dx[((i64)row * tl.T + t) * D + k] = acc;
-      }
-    }
-    __syncthreads();                 // every read of this step's smem is done
-    if (t > 0) {
-      stage_hprev(s.h, tl, t - 1, H);
-      stage_x(s.x, in, tl, t - 1, D);
-      __syncthreads();
-    }
-  }
-  if (io.dh0 != nullptr) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = tl.row0 + r0 + r;
-      if (row < tl.B) io.dh0[(i64)row * H + j] = dh[r];
-    }
-  }
-}
-
-// Copy n floats from shared memory to dst.
-__device__ inline void store_block(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
 // Deterministic block sum of one value per thread; every thread gets it.

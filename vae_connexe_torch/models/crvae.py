@@ -50,6 +50,12 @@ def masked_heads(heads: GRUParams, parents: torch.Tensor) -> GRUParams:
     return dataclasses.replace(heads, w_ih=heads.w_ih * mask[:, None, :])
 
 
+def decoder_input(x: torch.Tensor, enc_len: int) -> torch.Tensor:
+    """The decoder's teacher-forced input (B, T - enc_len, p): a zero step,
+    then the targets shifted right by one (= [0, x_enc_len .. x_{T-2}])."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, enc_len:-1]], dim=1)
+
+
 def no_reduced_precision(dtype) -> None:
     """Reduced-precision serving is not ported yet."""
     if dtype is not None and dtype not in ("float32", torch.float32):
@@ -123,11 +129,8 @@ class CRVAE:
             raise ValueError("forward needs an eps draw or deterministic=True")
         else:
             z = mu + torch.exp(0.5 * logvar) * eps
-        # Teacher-forced decoder input: a zero step, then the targets shifted
-        # right by one (= [0, x_enc_len .. x_{T-2}]); z is every head's h0.
-        dec_in = torch.cat([torch.zeros_like(x[:, :1]),
-                            x[:, self.enc_len:-1]], dim=1)
-        outs, _ = heads_fn(heads, dec_in, z[None])          # (p, B, Td, H)
+        # z is every head's h0.
+        outs, _ = heads_fn(heads, decoder_input(x, self.enc_len), z[None])
         pred = (torch.einsum("pbth,poh->pbto", outs, params.readout.w)
                 + params.readout.b[:, None, None, :])
         return pred[..., 0].permute(1, 2, 0), mu, logvar

@@ -3,7 +3,8 @@
 Three libraries, each from one ``.cu`` file under ``vae_connexe_torch/csrc/``
 with a plain C interface: ``rollout`` (the serving kernels), ``gru`` (the
 recurrence forward and backward) and ``step`` (the whole phase-1 step);
-``gru`` and ``step`` share the block bodies of ``gru_tile.cuh``.  Each is
+``gru`` and ``step`` share the forward block body of ``gru_tile.cuh`` and
+the backward phases of ``gru_bwd.cuh``.  Each is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
 package's ``build/`` directory (listed in ``.gitignore``), named after a
 hash of its sources and the flags so that an edited source is rebuilt.
@@ -47,8 +48,8 @@ def nvcc_path() -> str:
 # unit, the rest are headers it includes.  All of them name the library.
 SOURCES = {
     "rollout": ("rollout.cu",),
-    "gru": ("gru.cu", "gru_tile.cuh"),
-    "step": ("step.cu", "gru_tile.cuh"),
+    "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh"),
+    "step": ("step.cu", "gru_tile.cuh", "gru_bwd.cuh"),
 }
 
 
@@ -157,12 +158,21 @@ def gru_library() -> ctypes.CDLL:
 
 @functools.cache
 def step_library() -> ctypes.CDLL:
-    """The built ``csrc/step.cu``, with its C signatures declared."""
-    from vae_connexe_torch.ops.cuda_step import StepArgs
+    """The built ``csrc/step.cu``, with its C signatures declared.  Raises
+    if the library's buffer constants differ from ``cuda_step``'s, which
+    sizes the buffers the kernels write."""
+    from vae_connexe_torch.ops.cuda_step import READOUT_ROWS, RIDGE_PARTS, StepArgs
 
     lib = ctypes.CDLL(str(build("step")[0]))
     lib.vcx_phase1_step.argtypes = [ctypes.POINTER(StepArgs), _P]
     lib.vcx_phase1_step.restype = _I
+    lib.vcx_step_constants.argtypes = [ctypes.POINTER(_I)]
+    lib.vcx_step_constants.restype = _I
+    got = (_I * 2)()
+    lib.vcx_step_constants(got)
+    if tuple(got) != (READOUT_ROWS, RIDGE_PARTS):
+        raise RuntimeError(f"csrc/step.cu's constants {tuple(got)} differ "
+                           f"from cuda_step's {(READOUT_ROWS, RIDGE_PARTS)}")
     lib.vcx_error_string.argtypes = [_I]
     lib.vcx_error_string.restype = ctypes.c_char_p
     return lib

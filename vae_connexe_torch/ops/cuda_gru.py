@@ -37,8 +37,9 @@ from vae_connexe_torch.ops.gru import GRUParams, gru_scan_heads
 # Kernel launches per wrapper, counted where the kernel is launched.
 LAUNCHES = {"gru_forward": 0, "gru_backward": 0}
 
-# Batch tiles the kernels are instantiated for (csrc/gru.cu, launch()): the
-# forward's, and the backward chain's, which adds the other multiples of 4.
+# Batch tiles the kernels are instantiated for: the forward's (csrc/gru.cu,
+# launch_forward()), and the backward chain's (csrc/gru_bwd.cuh,
+# launch_chain()), which adds the other multiples of 4.
 TILES = (32, 16, 8, 4, 2, 1)
 CHAIN_TILES = (32, 28, 24, 20, 16, 12, 8, 4, 2, 1)
 MAX_THREADS = 512         # gru_tile.cuh kMaxThreads
@@ -67,20 +68,12 @@ def fwd_smem_bytes(bt: int, d: int, hidden: int) -> int:
     return 4 * (d * g1 + hidden * g1 + 6 * hidden + bt * hidden + bt * d)
 
 
-def bwd_smem_bytes(bt: int, d: int, hidden: int) -> int:
-    """Shared memory of a backward block: the forward's plus the dW/db
-    accumulators and the step's gate gradients (``bwd_smem_floats``)."""
-    extra = (3 * hidden * hidden + 3 * hidden * d + 6 * hidden
-             + 4 * bt * hidden)
-    return fwd_smem_bytes(bt, d, hidden) + 4 * extra
-
-
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
 def chain_smem_bytes(bt: int, d: int, hidden: int) -> int:
-    """Shared memory of a backward chain block (gru.cu
+    """Shared memory of a backward chain block (gru_bwd.cuh
     ``chain_smem_floats``): both weights transposed, padded to rows of a
     multiple of 4, both biases, two buffers of the step's h_prev and x rows
     (padded likewise), the step's gate gradients and two buffers of douts
@@ -92,7 +85,7 @@ def chain_smem_bytes(bt: int, d: int, hidden: int) -> int:
 
 
 def chain_step_loads(bt: int, d: int, hidden: int) -> float:
-    """Shared-memory loads a chain thread issues per step (gru.cu
+    """Shared-memory loads a chain thread issues per step (gru_bwd.cuh
     ``chain_preacts`` and the d h_prev walk): per k of x and h_prev three
     weights and a quarter of a float4 per row; per gate one weight and a
     quarter of a float4 per row.  The chain is bound by these loads, so a
@@ -138,7 +131,7 @@ def pick_tile(batch: int, heads: int, hidden: int, smem_fn, limits,
     return best[1]
 
 
-# gru.cu's weight-gradient block tile: 64 gate rows, 32 rows of K a stage;
+# gru_bwd.cuh's weight-gradient block tile: 64 gate rows, 32 rows of K a stage;
 # dW_hh tiles are 64 columns wide, dW_ih tiles 32.
 WGRAD_BM, WGRAD_BK, WGRAD_MIN_CHUNK = 64, 32, 64
 # Blocks of 128 threads at 79 registers (ptxas, sm_90a) and 32 KB of
@@ -355,17 +348,24 @@ def _wgrad_buffers(ops, need_dx: bool, splits: int):
     return dx, torch.empty((p, splits, 3 * hidden * (hidden + d + 2)), **f32)
 
 
+def wgrad_totals(part, d: int, hidden: int):
+    """(dW_ih, db_ih, dW_hh, db_hh) from the weight-gradient kernel's
+    partials (P, splits, 3H * (H + D + 2)), summed over the splits in a
+    fixed order."""
+    p, g = part.shape[0], 3 * hidden
+    tot = part.sum(dim=1)
+    o1, o2, o3 = g * hidden, g * (hidden + d), g * (hidden + d + 1)
+    return (tot[:, o1:o2].view(p, g, d), tot[:, o3:],
+            tot[:, :o1].view(p, g, hidden), tot[:, o2:o3])
+
+
 def _wgrad_sums(ops, dx, part):
     """(dx, dW_ih, db_ih, dW_hh, db_hh) from the kernel's outputs: the
     partials summed over the splits, dx over heads for a shared input."""
     (p, _, _, d, hidden), x = ops[0], ops[1]
-    g = 3 * hidden
     if dx is not None and x.ndim == 3:
         dx = dx.sum(dim=0) if p > 1 else dx[0]
-    tot = part.sum(dim=1)                    # fixed order over the splits
-    o1, o2, o3 = g * hidden, g * (hidden + d), g * (hidden + d + 1)
-    return (dx, tot[:, o1:o2].view(p, g, d), tot[:, o3:],
-            tot[:, :o1].view(p, g, hidden), tot[:, o2:o3])
+    return (dx, *wgrad_totals(part, d, hidden))
 
 
 def bwd_chain(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts):

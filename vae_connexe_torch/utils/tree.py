@@ -3,25 +3,35 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
+
+
+@functools.cache
+def _fields(cls) -> tuple[str, ...] | None:
+    """The field names of a dataclass type, None for a leaf's type; looked
+    up once per type (the step wrappers walk a tree on every call)."""
+    if not dataclasses.is_dataclass(cls):
+        return None
+    return tuple(f.name for f in dataclasses.fields(cls))
 
 
 def tree_leaves(tree) -> list:
     """The tensors of a nested dataclass, in field order."""
-    if dataclasses.is_dataclass(tree):
-        return [leaf for f in dataclasses.fields(tree)
-                for leaf in tree_leaves(getattr(tree, f.name))]
-    return [tree]
+    names = _fields(type(tree))
+    if names is None:
+        return [tree]
+    return [leaf for n in names for leaf in tree_leaves(getattr(tree, n))]
 
 
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf to ``tree`` and the same-shaped ``rest``;
     returns a tree of the same classes."""
-    if dataclasses.is_dataclass(tree):
-        return type(tree)(**{
-            f.name: tree_map(fn, getattr(tree, f.name),
-                             *(getattr(r, f.name) for r in rest))
-            for f in dataclasses.fields(tree)})
-    return fn(tree, *rest)
+    names = _fields(type(tree))
+    if names is None:
+        return fn(tree, *rest)
+    return type(tree)(**{
+        n: tree_map(fn, getattr(tree, n), *(getattr(r, n) for r in rest))
+        for n in names})
 
 
 def tree_unflatten(tree, leaves):
