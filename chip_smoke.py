@@ -16,11 +16,19 @@
      shape (P=1) and a ragged B=37 with per-head input and a random
      parents mask: outputs 1e-5 absolute, every gradient from a random
      douts rtol 1e-3, atol 1e-4 (the order of the JAX package's own
-     kernel tests: each gradient sums B*T products in another order).
+     kernel tests: each gradient sums B*T products in another order); two
+     B1 calls on the same inputs must give bitwise-equal outputs.
      B2's two kernels against their plain phases at the same three cases
      and tolerance: the chain's gate gradients gh and dh0, the
      weight-gradient kernel's dx, dW and db from the plain gh; and two B2
-     calls on the same inputs must give bitwise-equal gradients.
+     calls on the same inputs must give bitwise-equal gradients.  The same
+     checks of the wide variants (W_ih^T read from global memory) at
+     ``lorenz96_scaled``'s decoder (P=40, B=512, T=30, D=40, H=128, a
+     random parents mask) and encoder (P=1, T=10) shapes; there the
+     chain's outputs keep GRAD_TOL and each summed gradient is held to
+     1e-5 of its largest magnitude (``LONG_SUM_TOL``: at B*T = 15,360 the
+     float32 plain version itself is off a float64 one by more than
+     GRAD_TOL).
    - B3 (whole phase-1 step) at p=20, H=64, ctx=20, B=256, lam=0.1,
      lr=5e-2, beta=0.1, random parents: one step and a 5-step trajectory,
      params and metrics rtol 1e-4, atol 1e-6 (the JAX package's one-step
@@ -38,7 +46,14 @@
      served samples are held against the plain versions on the same draws;
    - training: ``fit_phase1`` on a Lorenz-96 series made on the card (p=20,
      T=2048, windows of 20) at H=64, B=256 for 300 steps: 2 B1 and 2 B2
-     launches a step, a finite loss that falls;
+     launches a step, every recurrence on the kernel route, a finite loss
+     that falls;
+   - training at ``lorenz96_scaled``'s shape (p=40, H=128, B=512, windows
+     of 40 from a series of 4096 steps made on the card) for 30 steps:
+     2 launches a step of each of B1's and B2's wide variants
+     (``cuda_gru.recurrence_route``: the two weights do not fit a block
+     together at hidden 128) and none of the others, a finite loss that
+     falls;
    - the whole-step kernel: 200 ``fused_phase1_step`` steps on the same
      windows: one B3 launch a step, a loss that falls;
    - graph recovery: ``lorenz96_crvae``'s phase 1 (p=10, H=64, B=256,
@@ -47,12 +62,13 @@
      count (``tools/jax_phase1_auroc.py``) minus a margin.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
-   ``nn.GRU`` at the one-head encoder shape for B1/B2), B2's chain and
+   ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
+   device time alone from ``torch.profiler``, B2's chain and
    weight-gradient kernels apart (CUDA events through their wrappers, and
-   device time alone from ``torch.profiler``) and B3's eleven kernels by
+   by the profiler) and B3's eleven kernels by
    device time (profiler); time compensated generation, and phase-1
    steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
-   (B3).
+   (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes.
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -83,8 +99,18 @@ CHECK_BATCHES = (1, 8, 37, SERVE_B)
 CTX, ENC, TRAIN_B, SERIES_T = 20, 10, 256, 2048
 OUT_TOL = 1e-5                              # B1 outputs, absolute
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)       # B2 gradients
+# B2's weight gradients at lorenz96_scaled's shapes sum B*T = 15,360 rows
+# of values up to ~470: there the float32 plain version itself departs from
+# a float64 one by more than GRAD_TOL (5.3e-4 on dW_ih), so each gradient
+# is held to this fraction of its largest magnitude instead (float32 sums
+# in another order; the plain version's own departure is ~2e-6 of it).
+LONG_SUM_TOL = 1e-5
 STEP_TOL = dict(rtol=1e-4, atol=1e-6)       # B3: one step and five
 FIT_STEPS, STEP_STEPS, GC_STEPS = 300, 200, 1000
+# lorenz96_scaled (vae_connexe_tpu/configs/experiments.py): p=40, T=4096,
+# context 40, H=128, B=512; cut to 30 steps.
+SCALED_P, SCALED_H, SCALED_B, SCALED_CTX, SCALED_T = 40, 128, 512, 40, 4096
+SCALED_STEPS = 30
 # lorenz96_crvae's phase-1 AUROC from the JAX package on a CPU at the same
 # configuration and 1000 steps (tools/jax_phase1_auroc.py), and the margin
 # the port's may fall below it (another series and other draws).
@@ -435,6 +461,19 @@ def _assert_close(name, got, ref, errors, rtol, atol, what):
                              f"({what})")
 
 
+def _assert_grads(name, got, ref, errors, long_sums, what):
+    """Hold gradients to GRAD_TOL, or each to LONG_SUM_TOL of its largest
+    magnitude (``long_sums``: lorenz96_scaled's shapes)."""
+    if not long_sums:
+        _assert_close(name, _flat(got), _flat(ref), errors, **GRAD_TOL,
+                      what=what)
+        return
+    for i, (g, r) in enumerate(zip(got, ref)):
+        top = r.abs().max().item()
+        _assert_close(name, g, r, errors, 0.0, LONG_SUM_TOL * top,
+                      f"{what} [{i}] (|ref| <= {top:.3e})")
+
+
 def _flat(tensors):
     import torch
 
@@ -452,22 +491,33 @@ def check_training_kernels(dev, errors):
     from vae_connexe_torch.utils.tree import tree_leaves
 
     td = CTX - ENC
-    cases = [  # (name, heads, batch, per-head input, h0 shape, mask)
-        ("decoder", P, TRAIN_B, False, (1, TRAIN_B, H), False),
-        ("encoder", 1, TRAIN_B, False, (1, TRAIN_B, H), False),
-        ("ragged per-head", P, 37, True, (P, 37, H), True),
+    sd, sh, sb = SCALED_P, SCALED_H, SCALED_B
+    cases = [  # (name, heads, batch, steps, D, H, per-head input, h0, mask)
+        ("decoder", P, TRAIN_B, td, P, H, False, (1, TRAIN_B, H), False),
+        ("encoder", 1, TRAIN_B, td, P, H, False, (1, TRAIN_B, H), False),
+        ("ragged per-head", P, 37, td, P, H, True, (P, 37, H), True),
+        # lorenz96_scaled's decoder heads and encoder: the wide variants.
+        ("scaled decoder", sd, sb, SCALED_CTX - ENC, sd, sh, False,
+         (1, sb, sh), True),
+        ("scaled encoder", 1, sb, ENC, sd, sh, False, (1, sb, sh), False),
     ]
-    for what, heads, b, per_head, h0_shape, masked in cases:
+    limits = cuda_gru.device_limits(dev)
+    for what, heads, b, td, d, hid, per_head, h0_shape, masked in cases:
+        wide = cuda_gru.recurrence_route(heads, b, d, hid, limits) == "wide"
+        if wide != what.startswith("scaled"):
+            raise AssertionError(f"{what}: route {'wide' if wide else 'kernel'}")
+        fwd, bwd = (("gru_forward_wide", "gru_backward_wide") if wide else
+                    ("gru_forward", "gru_backward"))
         g = torch.Generator().manual_seed(b + heads)
-        params = init_stacked_gru(g, heads, P, H, dev)
+        params = init_stacked_gru(g, heads, d, hid, dev)
         if masked:
-            mask = (torch.rand((heads, P), generator=g) > 0.3).float().to(dev)
+            mask = (torch.rand((heads, d), generator=g) > 0.3).float().to(dev)
             params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
                                params.b_ih, params.b_hh)
-        x = torch.randn((heads, b, td, P) if per_head else (b, td, P),
+        x = torch.randn((heads, b, td, d) if per_head else (b, td, d),
                         generator=g).to(dev)
         h0 = torch.randn(h0_shape, generator=g).to(dev)
-        douts = torch.randn((heads, b, td, H), generator=g).to(dev)
+        douts = torch.randn((heads, b, td, hid), generator=g).to(dev)
         res = []
         for fn in (cuda_gru.gru_scan_heads_fused,
                    cuda_gru.gru_scan_heads_fused_plain):
@@ -476,15 +526,20 @@ def check_training_kernels(dev, errors):
             outs, _ = fn(GRUParams(*ins[:4]), ins[4], ins[5])
             res.append([outs.detach(), *torch.autograd.grad(
                 (outs * douts).sum(), ins)])
+        again, _ = cuda_gru.fused_gru_scan_heads(params, x, h0)
         torch.cuda.synchronize()
         (k_outs, *k_grads), (r_outs, *r_grads) = res
-        shape = f"P={heads} B={b} T={td} D={P} H={H}"
-        _assert_close("gru_forward", k_outs, r_outs, errors, 0.0, OUT_TOL,
+        shape = f"P={heads} B={b} T={td} D={d} H={hid}"
+        _assert_close(fwd, k_outs, r_outs, errors, 0.0, OUT_TOL,
                       f"{what} {shape} outs")
-        _assert_close("gru_backward", _flat(k_grads), _flat(r_grads), errors,
-                      **GRAD_TOL, what=f"{what} {shape} dW_ih dW_hh db dx dh0")
-        check_backward_phases(params, x, h0.expand(heads, b, H), k_outs,
-                              douts, errors, f"{what} {shape}")
+        same = torch.equal(k_outs, again)
+        log(f"check {fwd} {what} {shape}: two calls bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{fwd} is not deterministic")
+        _assert_grads(bwd, k_grads, r_grads, errors, wide,
+                      f"{what} {shape} dW_ih dW_hh db_ih db_hh dx dh0")
+        check_backward_phases(params, x, h0.expand(heads, b, hid), k_outs,
+                              douts, errors, f"{what} {shape}", bwd, wide)
 
     g = torch.Generator().manual_seed(5)
     model = CRVAE(P, H, ENC)
@@ -598,7 +653,8 @@ def check_step_phases(dev, errors):
                       rtol, atol, f"{shape}: {what}")
 
 
-def check_backward_phases(params, x, h0, outs, douts, errors, what):
+def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
+                          long_sums=False):
     """B2's two kernels, each against its plain phase on the same inputs:
     the chain's gate gradients gh and dh0, then the weight-gradient
     kernel's dx, dW and db from the plain gh; and two whole B2 calls on the
@@ -615,26 +671,26 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what):
     first = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
     second = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
     torch.cuda.synchronize()
-    _assert_close("gru_backward", _flat([k_gh, k_dh0]), _flat([r_gh, r_dh0]),
+    _assert_close(name, _flat([k_gh, k_dh0]), _flat([r_gh, r_dh0]),
                   errors, **GRAD_TOL, what=f"{what} chain kernel: gh dh0")
-    _assert_close("gru_backward", _flat(k_w), _flat(r_w), errors, **GRAD_TOL,
-                  what=f"{what} weight-gradient kernel: dx dW_ih db_ih "
-                       "dW_hh db_hh")
+    _assert_grads(name, k_w, r_w, errors, long_sums,
+                  f"{what} weight-gradient kernel: dx dW_ih db_ih dW_hh "
+                  "db_hh")
     same = all(torch.equal(u, v) for u, v in zip(first, second))
-    log(f"check gru_backward {what}: two calls bitwise equal: {same}")
+    log(f"check {name} {what}: two calls bitwise equal: {same}")
     if not same:
-        raise AssertionError("B2 is not deterministic")
+        raise AssertionError(f"{name} is not deterministic")
 
 
-def lorenz_windows(dev, p, seed):
-    """A Lorenz-96 series of SERIES_T steps made on the card, windowed by
-    ``arrange_input`` into (SERIES_T - CTX, CTX, p)."""
+def lorenz_windows(dev, p, seed, ctx=CTX, t=SERIES_T):
+    """A Lorenz-96 series of ``t`` steps made on the card, windowed by
+    ``arrange_input`` into (t - ctx, ctx, p)."""
     import torch
 
     from vae_connexe_torch.data import arrange_input, lorenz96
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    windows, _ = arrange_input(lorenz96(gen, p=p, t=SERIES_T, device=dev), CTX)
+    windows, _ = arrange_input(lorenz96(gen, p=p, t=t, device=dev), ctx)
     return windows
 
 
@@ -664,11 +720,52 @@ def train_main_path(dev, card, windows):
         f"{FIT_STEPS} steps in {secs:.3f} s ({FIT_STEPS / secs:.1f} steps/s "
         f"incl. host), loss {losses[0]:.5f} at step 25 -> {losses[-1]:.5f}, "
         f"launches {launches} [{card}]")
-    want = {"gru_forward": 2 * FIT_STEPS, "gru_backward": 2 * FIT_STEPS}
+    want = {"gru_forward": 2 * FIT_STEPS, "gru_backward": 2 * FIT_STEPS,
+            "gru_forward_wide": 0, "gru_backward_wide": 0}
     assert launches == want, (launches, want)
     assert all(math.isfinite(v) for v in losses), losses
     assert losses[-1] < losses[0], losses
     return launches
+
+
+def scaled_main_path(dev, card):
+    """Phase 4b': fit_phase1 at lorenz96_scaled's shape (p=40, H=128,
+    B=512, context 40): every recurrence runs B1's and B2's wide variants,
+    and the loss is finite and falls; returns the wide launches."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.train import Phase1Config, fit_phase1
+
+    p, hidden = SCALED_P, SCALED_H
+    windows = lorenz_windows(dev, p, seed=12, ctx=SCALED_CTX, t=SCALED_T)
+    model = CRVAE(p, hidden)
+    params = model.init(torch.Generator().manual_seed(13), dev)
+    cfg = Phase1Config(lam=0.1, lr=5e-2, max_iter=SCALED_STEPS,
+                       check_every=5, batch_size=SCALED_B)
+    losses = []
+    gen = torch.Generator(device=dev).manual_seed(14)
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    t0 = time.perf_counter()
+    fit_phase1(model, params, windows, torch.ones((p, p), device=dev), cfg,
+               gen, callback=lambda step, st, met: losses.append(met["loss"]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_gru.LAUNCHES)
+    log(f"main path fit_phase1 lorenz96_scaled p={p} H={hidden} "
+        f"B={SCALED_B} ctx={SCALED_CTX}: {SCALED_STEPS} steps in {secs:.3f} s "
+        f"({SCALED_STEPS / secs:.1f} steps/s incl. host), loss "
+        f"{losses[0]:.5f} at step 5 -> {losses[-1]:.5f}, launches {launches} "
+        f"[{card}]")
+    want = {"gru_forward": 0, "gru_backward": 0,
+            "gru_forward_wide": 2 * SCALED_STEPS,
+            "gru_backward_wide": 2 * SCALED_STEPS}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    return {k: launches[k] for k in ("gru_forward_wide", "gru_backward_wide")}
 
 
 def _b3_step(model, cfg, params, windows, parents, gen):
@@ -748,77 +845,127 @@ def graph_recovery(dev, card):
     assert auroc >= JAX_AUROC - AUROC_MARGIN, auroc
 
 
+def time_recurrence(dev, card, g, heads, b, td, d, hid):
+    """Device times of B1 and B2 (whichever variant the shapes take) at one
+    shape beside their plain versions: by CUDA events and by the profiler,
+    B2's chain and weight-gradient kernels apart, and at one head cuDNN's
+    nn.GRU, the one torch call that computes the same function."""
+    import torch
+
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+
+    params = init_stacked_gru(g, heads, d, hid, dev)
+    x = torch.randn((b, td, d), generator=g).to(dev)
+    h0 = torch.randn((1, b, hid), generator=g).to(dev)
+    douts = torch.randn((heads, b, td, hid), generator=g).to(dev)
+    h0b = h0.expand(heads, b, hid)
+    leaves = [v.clone().requires_grad_(True) for v in
+              (params.w_ih, params.w_hh, params.b_ih, params.b_hh)]
+    p_req = GRUParams(*leaves)
+    outs = cuda_gru._forward_launch(params.w_ih, params.b_ih, params.w_hh,
+                                    params.b_hh, x, h0b)
+    plain_outs, _ = cuda_gru.gru_scan_heads_fused_plain(p_req, x, h0)
+    row = {
+        "ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads(params, x, h0),
+                      100),
+        "fwd_device_ms": sum(device_ms(
+            lambda: cuda_gru.fused_gru_scan_heads(params, x, h0),
+            50).values()),
+        "plain_ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads_plain(
+            params, x, h0), 100),    # params carry no grad: no graph
+        "bwd_ms": time_ms(lambda: cuda_gru._backward_launch(
+            params.w_ih, params.b_ih, params.w_hh, params.b_hh, x, h0b,
+            outs, douts, need_dx=False), 100),
+        "bwd_plain_ms": time_ms(lambda: torch.autograd.grad(
+            plain_outs, leaves, douts, retain_graph=True), 100),
+    }
+    # B2's two kernels apart, through their wrappers (CUDA events) and on
+    # the device alone (profiler; the host's work left out).
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    gh, _ = cuda_gru.bwd_chain(*w, x, h0b, outs, douts)
+    row["chain_ms"] = time_ms(
+        lambda: cuda_gru.bwd_chain(*w, x, h0b, outs, douts), 100)
+    row["wgrad_ms"] = time_ms(
+        lambda: cuda_gru.bwd_wgrad(*w, x, h0b, outs, gh, False), 100)
+    dev_ms = device_ms(lambda: cuda_gru._backward_launch(
+        *w, x, h0b, outs, douts, need_dx=False), 50)
+    row["bwd_device_ms"] = sum(dev_ms.values())
+    for key, name in (("chain_device_ms", "gru_chain"),
+                      ("wgrad_device_ms", "gru_wgrad_kernel")):
+        row[key] = sum(v for k, v in dev_ms.items() if name in k)
+    if heads == 1:
+        gru = torch.nn.GRU(d, hid, batch_first=True).to(dev)
+        with torch.no_grad():
+            for name, v in (("weight_ih_l0", params.w_ih[0]),
+                            ("weight_hh_l0", params.w_hh[0]),
+                            ("bias_ih_l0", params.b_ih[0]),
+                            ("bias_hh_l0", params.b_hh[0])):
+                getattr(gru, name).copy_(v)
+        with torch.no_grad():
+            ref, _ = gru(x, h0)
+        e = (ref - outs[0]).abs().max().item()
+        lib_out, _ = gru(x, h0)
+        row["library_ms"] = time_ms(lambda: gru(x, h0), 100)
+        row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, list(gru.parameters()), douts[0], retain_graph=True),
+            100)
+        log(f"cuDNN nn.GRU vs B1 at B={b} T={td} D={d} H={hid}: "
+            f"max_abs_err {e:.3e}")
+    log(f"time recurrence P={heads} B={b} T={td} D={d} H={hid}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" [{card}]")
+    return row
+
+
+def recurrence_rows(fwd, bwd, enc, heads, heads_shape):
+    """The JSON rows of B1 and B2 (one variant): times at the one-head
+    encoder shape, the heads' in ``extra``."""
+    fwd_bound, _ = bound(*gru_cost(*heads_shape, backward=False))
+    bwd_bound, _ = bound(*gru_cost(*heads_shape, backward=True))
+    return {
+        fwd: {"ms": enc["ms"], "plain_ms": enc["plain_ms"],
+              "library_ms": enc["library_ms"], "extra": {
+                  "device_ms": enc["fwd_device_ms"],
+                  "heads_device_ms": heads["fwd_device_ms"],
+                  "heads_ms": heads["ms"],
+                  "heads_plain_ms": heads["plain_ms"],
+                  "heads_bound_ms": fwd_bound}},
+        bwd: {"ms": enc["bwd_ms"], "plain_ms": enc["bwd_plain_ms"],
+              "library_ms": enc["bwd_library_ms"], "extra": {
+                  "heads_ms": heads["bwd_ms"],
+                  "heads_plain_ms": heads["bwd_plain_ms"],
+                  "heads_bound_ms": bwd_bound,
+                  **{f"{pre}{k}": r[k] for pre, r in
+                     (("", enc), ("heads_", heads))
+                     for k in ("chain_ms", "wgrad_ms", "bwd_device_ms",
+                               "chain_device_ms", "wgrad_device_ms")}}},
+    }
+
+
 def time_training(dev, card, windows):
-    """Phase 5b: device times of B1, B2, B3 beside their plain versions,
-    cuDNN at the encoder shape, and phase-1 steps/s of both step paths."""
+    """Phase 5b: device times of B1, B2 (both variants), B3 beside their
+    plain versions, cuDNN at the encoder shapes, and phase-1 steps/s of
+    both step paths."""
     import torch
 
     from vae_connexe_torch.models import CRVAE
-    from vae_connexe_torch.ops import cuda_gru, cuda_step
-    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+    from vae_connexe_torch.ops import cuda_step
     from vae_connexe_torch.train import Phase1Config, Phase1State, make_phase1_step
 
     td = CTX - ENC
     g = torch.Generator().manual_seed(7)
-    res = {}
-    for what, heads in (("encoder", 1), ("heads", P)):
-        params = init_stacked_gru(g, heads, P, H, dev)
-        x = torch.randn((TRAIN_B, td, P), generator=g).to(dev)
-        h0 = torch.randn((1, TRAIN_B, H), generator=g).to(dev)
-        douts = torch.randn((heads, TRAIN_B, td, H), generator=g).to(dev)
-        h0b = h0.expand(heads, TRAIN_B, H)
-        leaves = [v.clone().requires_grad_(True) for v in
-                  (params.w_ih, params.w_hh, params.b_ih, params.b_hh)]
-        p_req = GRUParams(*leaves)
-        outs = cuda_gru._forward_launch(params.w_ih, params.b_ih, params.w_hh,
-                                        params.b_hh, x, h0b)
-        plain_outs, _ = cuda_gru.gru_scan_heads_fused_plain(p_req, x, h0)
-        row = {
-            "ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads(params, x, h0),
-                          100),
-            "plain_ms": time_ms(lambda: cuda_gru.fused_gru_scan_heads_plain(
-                params, x, h0), 100),    # params carry no grad: no graph
-            "bwd_ms": time_ms(lambda: cuda_gru._backward_launch(
-                params.w_ih, params.b_ih, params.w_hh, params.b_hh, x, h0b,
-                outs, douts, need_dx=False), 100),
-            "bwd_plain_ms": time_ms(lambda: torch.autograd.grad(
-                plain_outs, leaves, douts, retain_graph=True), 100),
-        }
-        # B2's two kernels apart, through their wrappers (CUDA events) and
-        # on the device alone (profiler; the host's work left out).
-        w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
-        gh, _ = cuda_gru.bwd_chain(*w, x, h0b, outs, douts)
-        row["chain_ms"] = time_ms(
-            lambda: cuda_gru.bwd_chain(*w, x, h0b, outs, douts), 100)
-        row["wgrad_ms"] = time_ms(
-            lambda: cuda_gru.bwd_wgrad(*w, x, h0b, outs, gh, False), 100)
-        dev_ms = device_ms(lambda: cuda_gru._backward_launch(
-            *w, x, h0b, outs, douts, need_dx=False), 50)
-        row["bwd_device_ms"] = sum(dev_ms.values())
-        for key, name in (("chain_device_ms", "gru_chain_kernel"),
-                          ("wgrad_device_ms", "gru_wgrad_kernel")):
-            row[key] = sum(v for k, v in dev_ms.items() if name in k)
-        if heads == 1:
-            # One torch call computes a one-head GRU: cuDNN's nn.GRU.
-            gru = torch.nn.GRU(P, H, batch_first=True).to(dev)
-            with torch.no_grad():
-                for name, v in (("weight_ih_l0", params.w_ih[0]),
-                                ("weight_hh_l0", params.w_hh[0]),
-                                ("bias_ih_l0", params.b_ih[0]),
-                                ("bias_hh_l0", params.b_hh[0])):
-                    getattr(gru, name).copy_(v)
-            with torch.no_grad():
-                ref, _ = gru(x, h0)
-            e = (ref - outs[0]).abs().max().item()
-            lib_out, _ = gru(x, h0)
-            row["library_ms"] = time_ms(lambda: gru(x, h0), 100)
-            row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
-                lib_out, list(gru.parameters()), douts[0], retain_graph=True),
-                100)
-            log(f"cuDNN nn.GRU vs B1 at the encoder shape: max_abs_err {e:.3e}")
-        res[what] = row
-        log(f"time {what} P={heads} B={TRAIN_B} T={td} D={P} H={H}: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" [{card}]")
+    res = recurrence_rows(
+        "gru_forward", "gru_backward",
+        time_recurrence(dev, card, g, 1, TRAIN_B, td, P, H),
+        time_recurrence(dev, card, g, P, TRAIN_B, td, P, H),
+        (P, TRAIN_B, td, P, H))
+    std = SCALED_CTX - ENC
+    res.update(recurrence_rows(
+        "gru_forward_wide", "gru_backward_wide",
+        time_recurrence(dev, card, g, 1, SCALED_B, ENC, SCALED_P, SCALED_H),
+        time_recurrence(dev, card, g, SCALED_P, SCALED_B, std, SCALED_P,
+                        SCALED_H),
+        (SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)))
 
     model = CRVAE(P, H, ENC)
     params = model.init(torch.Generator().manual_seed(8), dev)
@@ -867,27 +1014,8 @@ def time_training(dev, card, windows):
         log(f"time phase-1 steps/s p={P} H={H} B={TRAIN_B} via {name}: "
             f"{r[0]:.1f}, {r[1]:.1f} (two runs, in turns) [{card}]")
 
-    enc, heads = res["encoder"], res["heads"]
-    fwd_bound, _ = bound(*gru_cost(P, TRAIN_B, td, P, H, backward=False))
-    bwd_bound, _ = bound(*gru_cost(P, TRAIN_B, td, P, H, backward=True))
-    return {
-        "gru_forward": {"ms": enc["ms"], "plain_ms": enc["plain_ms"],
-                        "library_ms": enc["library_ms"], "extra": {
-                            "heads_ms": heads["ms"],
-                            "heads_plain_ms": heads["plain_ms"],
-                            "heads_bound_ms": fwd_bound}},
-        "gru_backward": {"ms": enc["bwd_ms"], "plain_ms": enc["bwd_plain_ms"],
-                         "library_ms": enc["bwd_library_ms"], "extra": {
-                             "heads_ms": heads["bwd_ms"],
-                             "heads_plain_ms": heads["bwd_plain_ms"],
-                             "heads_bound_ms": bwd_bound,
-                             **{f"{pre}{k}": r[k] for pre, r in
-                                (("", enc), ("heads_", heads))
-                                for k in ("chain_ms", "wgrad_ms",
-                                          "bwd_device_ms", "chain_device_ms",
-                                          "wgrad_device_ms")}}},
-        "phase1_step": b3,
-    }
+    res["phase1_step"] = b3
+    return res
 
 
 def main() -> int:
@@ -920,6 +1048,7 @@ def main() -> int:
     launches, served_fn = serve_main_path(dev)
     series = lorenz_windows(dev, P, seed=0)
     launches.update(train_main_path(dev, card, series))
+    launches.update(scaled_main_path(dev, card))
     launches.update(step_main_path(dev, card, series))
     graph_recovery(dev, card)
     times = time_all(dev, card, served_fn)
@@ -928,6 +1057,7 @@ def main() -> int:
     rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
                             "vae_connexe_torch/csrc/gru.cu")
     enc = (1, TRAIN_B, CTX - ENC, P, H)       # B1/B2 timed at the encoder
+    wide_enc = (1, SCALED_B, ENC, SCALED_P, SCALED_H)
     costs = {
         "crvae_free_run": (rollout_cost(SERVE_B, T, P, H, P, 1, True, True),
                            rollout_src, "vae_connexe_tpu/ops/pallas_rollout.py:117"),
@@ -937,6 +1067,10 @@ def main() -> int:
                         "vae_connexe_tpu/ops/pallas_gru.py:243"),
         "gru_backward": (gru_cost(*enc, backward=True), gru_src,
                          "vae_connexe_tpu/ops/pallas_gru.py:426"),
+        "gru_forward_wide": (gru_cost(*wide_enc, backward=False), gru_src,
+                             "vae_connexe_tpu/ops/pallas_gru.py:243"),
+        "gru_backward_wide": (gru_cost(*wide_enc, backward=True), gru_src,
+                              "vae_connexe_tpu/ops/pallas_gru.py:426"),
         "phase1_step": (step_cost(P, TRAIN_B, CTX, ENC, H),
                         "vae_connexe_torch/csrc/step.cu",
                         "vae_connexe_tpu/ops/pallas_step.py:353"),

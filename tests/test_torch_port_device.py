@@ -164,6 +164,86 @@ def test_gru_kernels_match_plain_on_card(cuda_device, per_head):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [15, 16, 64])
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_gru_forward_matches_plain_on_card(cuda_device, per_head, hidden):
+    """B1 (csrc/gru_fwd.cuh) against its plain version on the card: a
+    ragged batch of 37, shared or per-head input and h0, a random parents
+    mask, at a hidden width whose unit pairs come in sixteens (64), one
+    whose do not (16) and an odd one (15, one pad unit).  Outputs 1e-5
+    absolute (float32, another summation order); two calls bitwise
+    equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    p, b, t, d = 5, 37, 9, 20
+    params = _params_on(p, d, hidden, 7, cuda_device)
+    mask = (torch.rand((p, d), generator=g) > 0.3).float().to(cuda_device)
+    params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
+                       params.b_ih, params.b_hh)
+    x = torch.randn((p, b, t, d) if per_head else (b, t, d),
+                    generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden) if per_head else (1, b, hidden),
+                     generator=g).to(cuda_device)
+    first, h_t = cuda_gru.fused_gru_scan_heads(params, x, h0)
+    second, _ = cuda_gru.fused_gru_scan_heads(params, x, h0)
+    ref, ref_t = cuda_gru.fused_gru_scan_heads_plain(params, x, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(h_t, ref_t, rtol=0, atol=1e-5)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 128])
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_gru_wide_matches_plain_on_card(cuda_device, per_head, d):
+    """The wide variants of B1 and B2's chain (W_ih^T read from global
+    memory) at hidden 128 with lorenz96_scaled's D=40 and lorenz96_xl's
+    D=128, where the two weights do not fit a block together: outputs
+    1e-5 absolute, gradients rtol 1e-3, atol 1e-4, the chain's gate
+    gradients against its plain phase, two calls bitwise equal, and only
+    the wide kernels launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(8)
+    p, b, t, hidden = 3, 37, 5, 128
+    limits = cuda_gru.device_limits(cuda_device)
+    assert cuda_gru.recurrence_route(p, b, d, hidden, limits) == "wide"
+    params = _params_on(p, d, hidden, 9, cuda_device)
+    x = torch.randn((p, b, t, d) if per_head else (b, t, d),
+                    generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden) if per_head else (1, b, hidden),
+                     generator=g).to(cuda_device)
+    douts = torch.randn((p, b, t, hidden), generator=g).to(cuda_device)
+    leaves = [params.w_ih, params.w_hh, params.b_ih, params.b_hh]
+    cuda_gru.reset_launches()
+    got, ref = [], []
+    for fn, sink in ((cuda_gru.gru_scan_heads_fused, got),
+                     (cuda_gru.gru_scan_heads_fused_plain, ref)):
+        ins = [v.clone().requires_grad_(True) for v in leaves + [x, h0]]
+        outs, _ = fn(GRUParams(*ins[:4]), ins[4], ins[5])
+        grads = torch.autograd.grad((outs * douts).sum(), ins)
+        sink.extend([outs.detach(), *grads])
+    assert cuda_gru.LAUNCHES == {"gru_forward": 0, "gru_backward": 0,
+                                 "gru_forward_wide": 1,
+                                 "gru_backward_wide": 1}
+    again, _ = cuda_gru.fused_gru_scan_heads(params, x, h0)
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    h0b = h0.expand(p, b, hidden)
+    k_gh, k_dh0 = cuda_gru.bwd_chain(*w, x, h0b, got[0], douts)
+    r_gh, r_dh0 = cuda_gru.bwd_chain_plain(*w, x, h0b, got[0], douts)
+    first = cuda_gru._backward_launch(*w, x, h0b, got[0], douts, True)
+    second = cuda_gru._backward_launch(*w, x, h0b, got[0], douts, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+    assert torch.equal(got[0], again)
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(k_gh, r_gh, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(k_dh0, r_dh0, rtol=1e-3, atol=1e-4)
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
 def test_gru_backward_phases_match_plain_on_card(cuda_device, per_head):
     """B2's two kernels against their plain phases on the card (the chain's

@@ -198,7 +198,7 @@ def test_wgrad_splits(batch, steps, heads, want):
 
 def test_cpu_recurrences_never_launch():
     """On CPU tensors the dispatch runs the plain recurrences and adds
-    nothing to a kernel's launch count."""
+    nothing to any kernel's launch count."""
     g = torch.Generator().manual_seed(3)
     heads = gru.init_stacked_gru(g, P, D, H, torch.device("cpu"))
     heads = gru.GRUParams(*(v.requires_grad_(True) for v in
@@ -216,7 +216,9 @@ def test_cpu_recurrences_never_launch():
     torch.testing.assert_close(h1, ref1_t, rtol=0, atol=0)
     outs.sum().backward()
     assert heads.w_hh.grad is not None
-    assert cuda_gru.LAUNCHES == {"gru_forward": 0, "gru_backward": 0}
+    assert set(cuda_gru.LAUNCHES) == {"gru_forward", "gru_backward",
+                                      "gru_forward_wide", "gru_backward_wide"}
+    assert not any(cuda_gru.LAUNCHES.values()), cuda_gru.LAUNCHES
 
 
 H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
@@ -226,12 +228,17 @@ H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
 # other kernels), "step_encoder" for B3's encoder forward, "chain" for B2's
 # chain.
 @pytest.mark.parametrize("batch,heads,kernel,want", [
-    (256, 20, False, 16),  # phase-1 decoder forward: one wave of 320 blocks
-    # B3's encoder forward (B1's tile plus a block's reduction scratch):
-    (256, 20, "step_encoder", 16),  # the same wave on 20 heads
-    (256, 1, False, 4),      # the encoder: 64 blocks, one row per thread
-    (256, 1, "step_encoder", 4),    # B3's encoder: the same 64 blocks
-    (37, 20, False, 4),
+    # B1 (gru_fwd.cuh): fwd_step_cost, the warps each scheduler of the
+    # busiest SM holds, over FWD_TILES.
+    (256, 20, False, 20),  # phase-1 decoder: 260 blocks, two an SM
+    # B3's decoder forward (gru_tile.cuh's body, pick_tile's default rule):
+    (256, 20, "step_decoder", 16),  # one wave of 320 blocks on 20 heads
+    # B3's encoder forward (that tile plus a block's reduction scratch):
+    (256, 20, "step_encoder", 16),  # the same wave
+    (256, 1, False, 8),      # the encoder: 32 blocks of 4 warps, one warp
+                             # a scheduler; 4 rows tie, 8 is wider
+    (256, 1, "step_encoder", 4),    # B3's encoder: 64 blocks
+    (37, 20, False, 8),
     (1, 1, "step_encoder", 1),
     # B2's chain: waves times the shared-memory loads a thread issues per
     # step (chain_step_loads), which a tile-width sweep on an H100 follows.
@@ -242,7 +249,12 @@ H100 = (232448, 233472, 132, 2048)     # opt-in smem, smem per SM, SMs, threads
     (3072, 20, "chain", 24),  # ten waves at 24 rows, twelve at 20
 ])
 def test_pick_tile(batch, heads, kernel, want):
-    fn = {False: cuda_gru.fwd_smem_bytes,
+    if kernel is False:
+        bt = cuda_gru.fwd_tile(batch, heads, 20, 64, H100)
+        assert bt == want
+        assert cuda_gru.fwd_tile_smem_bytes(bt, 20, 64) <= H100[0]
+        return
+    fn = {"step_decoder": cuda_gru.fwd_smem_bytes,
           "step_encoder": cuda_step.encoder_fwd_smem_bytes,
           "chain": cuda_gru.chain_smem_bytes}[kernel]
     step, tiles = ((lambda n: cuda_gru.chain_step_loads(n, 20, 64),
@@ -252,6 +264,51 @@ def test_pick_tile(batch, heads, kernel, want):
                             step, tiles)
     assert bt == want
     assert fn(bt, 20, 64) <= H100[0]
+
+
+# (heads, batch, d, hidden) -> route at the H100's limits, with B1's and
+# B2's chain tiles on it.
+@pytest.mark.parametrize("heads,batch,d,hidden,want,fwd_bt,chain_bt", [
+    (20, 256, 20, 64, "kernel", 20, 20),   # the main path's decoder heads
+    (1, 256, 20, 64, "kernel", 8, 4),      # ... and its encoder
+    (40, 512, 40, 128, "wide", 16, 8),     # lorenz96_scaled's heads
+    (1, 512, 40, 128, "wide", 4, 4),       # ... and its encoder
+    (128, 64, 128, 128, "wide", 12, 4),    # lorenz96_xl's heads
+], ids=["main-heads", "main-encoder", "scaled-heads", "scaled-encoder",
+        "xl-heads"])
+def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
+    """The kernels' variant is chosen from shapes and the card's limits
+    alone: both weights in shared memory where B1's tile and B2's chain
+    tile fit so, else the wide variants, which stage W_hh^T alone (at
+    hidden 128 the two weights need more than an H100 block's 232,448
+    bytes)."""
+    route = cuda_gru.recurrence_route(heads, batch, d, hidden, H100)
+    assert route == want
+    wide = route == "wide"
+    assert (cuda_gru.fwd_tile(batch, heads, d, hidden, H100) is None) == wide
+    assert (cuda_gru.chain_tile(batch, heads, d, hidden, H100) is None) == wide
+    assert cuda_gru.fwd_tile(batch, heads, d, hidden, H100, wide) == fwd_bt
+    assert cuda_gru.chain_tile(batch, heads, d, hidden, H100, wide) == chain_bt
+    assert cuda_gru.fwd_tile_smem_bytes(fwd_bt, d, hidden, wide) <= H100[0]
+    smem = cuda_gru.chain_wide_smem_bytes if wide else cuda_gru.chain_smem_bytes
+    assert smem(chain_bt, d, hidden) <= H100[0]
+
+
+def test_recurrence_route_raises_when_nothing_fits():
+    """At hidden 256 not even W_hh^T alone fits a block: the wrappers raise
+    before any launch, as they did before the wide variants."""
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_gru.recurrence_route(1, 256, 20, 256, H100)
+
+
+def test_fwd_tile_needs_an_even_hidden_width():
+    """B1's threads own unit pairs: an odd width runs with one pad unit, at
+    the tile and threads of the next even width."""
+    assert (cuda_gru.fwd_tile(256, 20, 20, 63, H100)
+            == cuda_gru.fwd_tile(256, 20, 20, 64, H100) == 20)
+    assert cuda_gru.fwd_units(63) == 64 and cuda_gru.fwd_units(64) == 64
+    assert cuda_gru.fwd_tile_threads(20, 63) == cuda_gru.fwd_tile_threads(20, 64)
+    assert cuda_gru.recurrence_route(20, 256, 20, 63, H100) == "kernel"
 
 
 def test_pick_tile_raises_when_nothing_fits():

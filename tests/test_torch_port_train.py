@@ -72,6 +72,18 @@ def test_crvae_positional_signature_matches_jax(args):
         assert getattr(m, name) == getattr(jm, name), name
 
 
+def test_phase1_config_fields_match_jax():
+    """Phase1Config's fields in JAX's names, order and defaults; the CS
+    keywords construct, and latent_reg='cs' still raises."""
+    got = [(f.name, f.default) for f in dataclasses.fields(Phase1Config)]
+    want = [(f.name, f.default) for f in dataclasses.fields(JPhase1Config)]
+    assert got == want
+    assert Phase1Config(lambda_cs=0.1, gmm_components=10,
+                        cs_variant="symmetric").lambda_cs == 0.1
+    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
+        Phase1Config(latent_reg="cs", lambda_cs=0.1)
+
+
 def test_encode_matches_jax(setup):
     jm, jp, m, tp, batch, _ = setup
     mu, lv = jm.encode(jp, jnp.asarray(batch))
@@ -280,7 +292,9 @@ def test_fit_phase1_runs_max_iter_and_keeps_the_best():
         callback=lambda step, st, met: seen.append(step))
     assert seen == [3, 6, 7] and state.step == 7
     assert set(metrics) == set(cuda_step.METRICS)
-    assert cuda_gru.LAUNCHES == {"gru_forward": 0, "gru_backward": 0}
+    assert cuda_gru.LAUNCHES == {"gru_forward": 0, "gru_backward": 0,
+                                 "gru_forward_wide": 0,
+                                 "gru_backward_wide": 0}
 
     step = make_phase1_step(m, cfg, windows, parents)
     replay = Phase1State(params=params, best_params=params,

@@ -89,11 +89,11 @@ def main() -> None:
         # Kernel launches alone, into buffers allocated once.
         ops, outs_c, douts_c = cuda_gru._bwd_operands(*w, x, h0, outs, douts,
                                                       "douts")
-        picked, splits, chunk = cuda_gru._bwd_plan(ops[0], dev)
+        picked, splits, chunk, _ = cuda_gru._bwd_plan(ops[0], dev)
         row = []
         for bt in cuda_gru.CHAIN_TILES:
             ms = time_ms(lambda: cuda_gru._chain_kernel(
-                ops, w, outs_c, douts_c, gh, dh0, bt))
+                ops, w, outs_c, douts_c, gh, dh0, bt, False))
             torch.testing.assert_close(gh, rgh, **TOL)   # every tile is right
             torch.testing.assert_close(dh0, rdh0, **TOL)
             row.append(f"bt={bt}: {ms:.4f} ms")

@@ -1,16 +1,17 @@
-"""CRVAE, generation half (port of ``vae_connexe_tpu/models/crvae.py``).
+"""CRVAE (port of ``vae_connexe_tpu/models/crvae.py``).
 
 A GRU encoder maps a short past window to a latent Gaussian; p GRU decoder
 heads, one per variable, predict each variable from all variables' pasts;
 the column norms of each head's input weights are the learned
-Granger-causal graph.  This slice ports the parameters, the parents mask,
-free-running generation and GC extraction.  ``encode``, ``forward`` and
-``conditioned_rollout`` need the whole-sequence recurrence and come with the
-training slice.
+Granger-causal graph.  Ported: the parameters, the parents mask, ``encode``
+and ``forward`` (training), ``conditioned_rollout``, free-running
+generation and GC extraction.
 
-Free-running generation runs through the K1 kernel
-(``ops/cuda_rollout.crvae_free_run_fused``) on a CUDA tensor and through its
-plain version on a CPU tensor.
+``encode`` and ``forward`` run their recurrences through
+``ops/dispatch.py`` (the B1/B2 kernels, or the plain recurrence where their
+tiles do not fit); free-running generation runs through the K1 kernel
+(``ops/cuda_rollout.crvae_free_run_fused``) on a CUDA tensor and through
+its plain version on a CPU tensor.
 """
 
 from __future__ import annotations

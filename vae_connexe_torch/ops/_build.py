@@ -3,8 +3,9 @@
 Three libraries, each from one ``.cu`` file under ``vae_connexe_torch/csrc/``
 with a plain C interface: ``rollout`` (the serving kernels), ``gru`` (the
 recurrence forward and backward) and ``step`` (the whole phase-1 step);
-``gru`` and ``step`` share the forward block body of ``gru_tile.cuh`` and
-the backward phases of ``gru_bwd.cuh``.  Each is
+``gru`` and ``step`` share the backward phases of ``gru_bwd.cuh`` and the
+staging helpers of ``gru_tile.cuh``, whose forward block body only ``step``
+runs (``gru``'s forward is ``gru_fwd.cuh``).  Each is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
 package's ``build/`` directory (listed in ``.gitignore``), named after a
 hash of its sources and the flags so that an edited source is rebuilt.
@@ -48,7 +49,7 @@ def nvcc_path() -> str:
 # unit, the rest are headers it includes.  All of them name the library.
 SOURCES = {
     "rollout": ("rollout.cu",),
-    "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh"),
+    "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh"),
     "step": ("step.cu", "gru_tile.cuh", "gru_bwd.cuh"),
 }
 
@@ -140,14 +141,14 @@ def gru_library() -> ctypes.CDLL:
     """The built ``csrc/gru.cu``, with its C signatures declared."""
     lib = ctypes.CDLL(str(build("gru")[0]))
     head = [_P, _L, _L, _L] + [_P] * 5 + [_L, _L]
-    lib.vcx_gru_forward.argtypes = head + [_P] + [_I] * 6 + [_P]
+    lib.vcx_gru_forward.argtypes = head + [_P] * 2 + [_I] * 6 + [_P]
     lib.vcx_gru_forward.restype = _I
-    lib.vcx_gru_bwd_chain.argtypes = head + [_P] * 4 + [_I] * 6 + [_P]
+    lib.vcx_gru_bwd_chain.argtypes = head + [_P] * 5 + [_I] * 6 + [_P]
     lib.vcx_gru_bwd_chain.restype = _I
     lib.vcx_gru_bwd_wgrad.argtypes = ([_P, _P, _L, _L, _L, _P, _L, _L]
                                       + [_P] * 4 + [_I] * 7 + [_P])
     lib.vcx_gru_bwd_wgrad.restype = _I
-    lib.vcx_gru_backward.argtypes = head + [_P] * 6 + [_I] * 8 + [_P]
+    lib.vcx_gru_backward.argtypes = head + [_P] * 7 + [_I] * 8 + [_P]
     lib.vcx_gru_backward.restype = _I
     lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
     lib.vcx_device_limits.restype = _I

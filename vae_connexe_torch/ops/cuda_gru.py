@@ -10,7 +10,14 @@ On a CUDA tensor the forward launches B1 and the backward B2, both from
 ``csrc/gru.cu`` (built at first use, see ``_build.py``), and each adds one to
 its count in ``LAUNCHES``.  On a CPU tensor they run their plain versions,
 ``gru_scan_heads`` under autograd.  There is no fallback from a kernel to
-its plain version: a CUDA input launches or raises.
+its plain version: a CUDA input launches or raises.  ``recurrence_route``
+picks, from the shapes and the card's limits before any launch, the kernels
+that stage both weights in shared memory or, where they do not fit a block
+together (hidden 128 on an H100), their wide variants, which stage W_hh^T
+alone and read W_ih^T from global memory; each variant has its own count.
+Shapes that neither fits raise.  Each kernel's plan (variant and batch
+tile) is chosen once per (shapes, device) and cached (``_fwd_plan``,
+``_bwd_plan``).
 
 The backward is a ``torch.autograd.Function`` whose forward is B1.  h0 is
 broadcast to (P, B, H) outside it, so autograd sums dh0 over a broadcast
@@ -34,15 +41,19 @@ import torch
 
 from vae_connexe_torch.ops.gru import GRUParams, gru_scan_heads
 
-# Kernel launches per wrapper, counted where the kernel is launched.
-LAUNCHES = {"gru_forward": 0, "gru_backward": 0}
+# Kernel launches per wrapper and variant, counted where the kernel is
+# launched.
+LAUNCHES = {"gru_forward": 0, "gru_backward": 0, "gru_forward_wide": 0,
+            "gru_backward_wide": 0}
 
-# Batch tiles the kernels are instantiated for: the forward's (csrc/gru.cu,
-# launch_forward()), and the backward chain's (csrc/gru_bwd.cuh,
-# launch_chain()), which adds the other multiples of 4.
+# Batch tiles: B1's (csrc/gru_fwd.cuh: any multiple of 4 rows up to 32);
+# the forward body that B3 runs (csrc/gru_tile.cuh, ``cuda_step``); and the
+# backward chain's (csrc/gru_bwd.cuh, launch_chain()), which adds the other
+# multiples of 4 to the latter.
+FWD_TILES = (32, 28, 24, 20, 16, 12, 8, 4)
 TILES = (32, 16, 8, 4, 2, 1)
 CHAIN_TILES = (32, 28, 24, 20, 16, 12, 8, 4, 2, 1)
-MAX_THREADS = 512         # gru_tile.cuh kMaxThreads
+MAX_THREADS = 512         # gru_tile.cuh kMaxThreads, gru_fwd.cuh kFwdMaxThreads
 BLOCK_RESERVED = 1024     # shared memory the runtime keeps per block
 
 
@@ -61,9 +72,9 @@ def block_threads(bt: int, hidden: int) -> int:
 
 
 def fwd_smem_bytes(bt: int, d: int, hidden: int) -> int:
-    """Shared memory of a forward block (gru_tile.cuh ``fwd_smem_floats``):
-    W_ih^T and W_hh^T padded to 3H + 1, both biases, the state and input of
-    the tile."""
+    """Shared memory of a block of gru_tile.cuh's forward body, which B3's
+    forward launches run (``fwd_smem_floats``): W_ih^T and W_hh^T padded to
+    3H + 1, both biases, the state and input of the tile."""
     g1 = 3 * hidden + 1
     return 4 * (d * g1 + hidden * g1 + 6 * hidden + bt * hidden + bt * d)
 
@@ -95,40 +106,158 @@ def chain_step_loads(bt: int, d: int, hidden: int) -> float:
             + _round4(3 * hidden) * (1 + rpt / 4))
 
 
-def pick_tile(batch: int, heads: int, hidden: int, smem_fn, limits,
-              step_fn=rows_per_thread, tiles=TILES) -> int:
-    """Batch tile of a (head, tile) grid, one of ``tiles``.
+def chain_wide_smem_bytes(bt: int, d: int, hidden: int) -> int:
+    """Shared memory of a wide chain block (gru.cu ``chain_wide_smem_floats``):
+    ``chain_smem_bytes`` without W_ih^T, which the wide chain reads from
+    global memory."""
+    return chain_smem_bytes(bt, d, hidden) - 4 * _round4(d) * (3 * hidden + 1)
 
-    ``smem_fn(bt)`` gives a block's shared memory; ``limits`` is (opt-in
-    shared memory of a block, shared memory of an SM, SM count, threads of
-    an SM).  For each tile that fits, the estimated time is the number of
-    waves of blocks times ``step_fn(bt)``, a block's cost per step: by
-    default the rows each thread computes (a thread's work per step does
-    not shrink below one row, so tiles of 1 to 4 rows cost the same per
-    block); the backward chain passes ``chain_step_loads`` and
-    ``CHAIN_TILES``.  The cheapest wins, the widest on a tie (fewer blocks
-    stage the weights).  A tile of twice the batch or more only idles
-    threads and is not taken.  Raises when no tile fits.
+
+def fwd_units(hidden: int) -> int:
+    """Units of B1's thread tiles (gru_fwd.cuh ``fwd_units``): H rounded up
+    to even."""
+    return hidden + hidden % 2
+
+
+def fwd_weight_stride(hidden: int) -> int:
+    """Row stride of B1's staged weights (gru_fwd.cuh
+    ``fwd_weight_stride``): 3 ``fwd_units`` padded to 16 past a multiple of
+    32 floats."""
+    g = 3 * fwd_units(hidden)
+    return g + (48 - g % 32) % 32
+
+
+def fwd_tile_smem_bytes(bt: int, d: int, hidden: int,
+                        wide: bool = False) -> int:
+    """Shared memory of a B1 block (gru_fwd.cuh ``fwd_tile_smem_floats``):
+    W_ih^T (unless wide) and W_hh^T at ``fwd_weight_stride``, then two
+    buffers each of the step's input and state rows."""
+    rows = hidden + (0 if wide else d)
+    return 4 * (_round4(rows * fwd_weight_stride(hidden))
+                + 2 * bt * (d + fwd_units(hidden)))
+
+
+def fwd_tile_threads(bt: int, hidden: int) -> int:
+    """Threads of a B1 block: two per 4 rows x 2 units (k split over two
+    lanes)."""
+    return fwd_units(hidden) // 2 * (bt // 4) * 2
+
+
+def fwd_step_cost(bt: int, d: int, hidden: int, blocks: int, per_sm: int,
+                  n_sm: int) -> float:
+    """B1's issue cycles a step on the busiest SM.  For each round of blocks
+    resident at once: a warp's instructions of a step (about 15 for each of
+    the D + H inputs, which the k split halves, and 150 of gate math) times
+    the warps each of the SM's four schedulers holds, plus two warps'
+    worth for the latency that a scheduler with few warps cannot hide.
+    Fitted to the tile sweep of ``tools/torch_gru_fwd_tiles.py`` on an
+    H100: 20 rows on 20 heads, 8 on one."""
+    on_sm = math.ceil(blocks / n_sm)
+    warps = math.ceil(fwd_tile_threads(bt, hidden) / 32)
+    per_warp = 15 * (d + hidden) + 150
+    cost = 0
+    while on_sm > 0:
+        now = min(on_sm, per_sm)
+        cost += (math.ceil(now * warps / 4) + 2) * per_warp
+        on_sm -= now
+    return cost
+
+
+def fit_tile(batch: int, heads: int, hidden: int, tiles, smem_fn, threads_fn,
+             cost_fn, limits) -> int | None:
+    """Batch tile of a (head, tile) grid, one of ``tiles``, or None when no
+    tile fits.
+
+    ``smem_fn(bt)`` gives a block's shared memory and ``threads_fn(bt,
+    hidden)`` its threads; ``limits`` is (opt-in shared memory of a block,
+    shared memory of an SM, SM count, threads of an SM).  Each tile that
+    fits costs ``cost_fn(bt, blocks, blocks an SM holds, SMs)``.  The
+    cheapest wins, the widest on a tie (fewer blocks stage the weights).
+    A tile of twice the batch or more only idles threads and is not taken,
+    unless it is the narrowest.
     """
     optin, smem_sm, n_sm, threads_sm = limits
     best = None
     for bt in tiles:
-        need, threads = smem_fn(bt), block_threads(bt, hidden)
-        if need > optin or threads > MAX_THREADS or (bt > 1 and bt >= 2 * batch):
+        need, threads = smem_fn(bt), threads_fn(bt, hidden)
+        if (need > optin or threads > MAX_THREADS
+                or (bt > min(tiles) and bt >= 2 * batch)):
             continue
         per_sm = min(smem_sm // (need + BLOCK_RESERVED), threads_sm // threads)
         if per_sm < 1:
             continue
         blocks = heads * math.ceil(batch / bt)
-        cost = math.ceil(blocks / (n_sm * per_sm)) * step_fn(bt)
+        cost = cost_fn(bt, blocks, per_sm, n_sm)
         if best is None or cost < best[0]:
             best = (cost, bt)
-    if best is None:
+    return None if best is None else best[1]
+
+
+def _waves_cost(step_fn):
+    """A tile's cost as the number of waves of blocks times ``step_fn(bt)``,
+    a block's cost per step."""
+    return lambda bt, blocks, per_sm, n_sm: (
+        math.ceil(blocks / (n_sm * per_sm)) * step_fn(bt))
+
+
+def pick_tile(batch: int, heads: int, hidden: int, smem_fn, limits,
+              step_fn=rows_per_thread, tiles=TILES) -> int:
+    """Batch tile of a (head, tile) grid of gru_tile.cuh's or gru_bwd.cuh's
+    bodies: ``fit_tile`` at ``block_threads``, costing a tile as its waves
+    of blocks times ``step_fn(bt)``, by default the rows each thread
+    computes (a thread's work per step does not shrink below one row, so
+    tiles of 1 to 4 rows cost the same per block); the backward chain
+    passes ``chain_step_loads`` and ``CHAIN_TILES``.  Raises when no tile
+    fits."""
+    bt = fit_tile(batch, heads, hidden, tiles, smem_fn, block_threads,
+                  _waves_cost(step_fn), limits)
+    if bt is None:
         raise ValueError(
             f"GRU kernel: one row of hidden {hidden} needs {smem_fn(1)} bytes "
             f"of shared memory and {block_threads(1, hidden)} threads, over "
-            f"the device's {optin} bytes / {MAX_THREADS} threads")
-    return best[1]
+            f"the device's {limits[0]} bytes / {MAX_THREADS} threads")
+    return bt
+
+
+def fwd_tile(batch: int, heads: int, d: int, hidden: int, limits,
+             wide: bool = False) -> int | None:
+    """B1's batch tile (``fwd_step_cost`` over ``FWD_TILES``), or None when
+    no tile fits; ``wide``: the variant that stages W_hh^T alone."""
+    return fit_tile(batch, heads, hidden, FWD_TILES,
+                    lambda n: fwd_tile_smem_bytes(n, d, hidden, wide),
+                    fwd_tile_threads,
+                    lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
+                    limits)
+
+
+def chain_tile(batch: int, heads: int, d: int, hidden: int, limits,
+               wide: bool = False) -> int | None:
+    """The batch tile of B2's chain (or of its wide variant), or None when
+    no tile fits."""
+    smem = chain_wide_smem_bytes if wide else chain_smem_bytes
+    return fit_tile(batch, heads, hidden, CHAIN_TILES,
+                    lambda n: smem(n, d, hidden), block_threads,
+                    _waves_cost(lambda n: chain_step_loads(n, d, hidden)),
+                    limits)
+
+
+@functools.cache
+def recurrence_route(heads: int, batch: int, d: int, hidden: int,
+                     limits) -> str:
+    """The kernels a recurrence of these shapes runs on a card of
+    ``limits``, chosen before any launch: ``"kernel"`` when B1's tile and
+    B2's chain tile both fit a block with W_ih^T and W_hh^T in shared
+    memory, else ``"wide"`` when they fit with W_hh^T alone (hidden 128 on
+    an H100).  Raises ValueError when neither fits."""
+    for route, wide in (("kernel", False), ("wide", True)):
+        if (fwd_tile(batch, heads, d, hidden, limits, wide) is not None
+                and chain_tile(batch, heads, d, hidden, limits, wide)
+                is not None):
+            return route
+    raise ValueError(
+        f"GRU kernel: no tile of B1 or B2's chain fits the device's shared "
+        f"memory ({limits[0]} bytes a block) at {heads} heads, batch "
+        f"{batch}, D={d}, H={hidden}, even with W_ih^T in global memory")
 
 
 # gru_bwd.cuh's weight-gradient block tile: 64 gate rows, 32 rows of K a stage;
@@ -215,20 +344,45 @@ def _operands(w_ih, b_ih, w_hh, b_hh, x, h0):
     return (p, b, t, d, hidden), x, xs, h0, (h0.stride(0), h0.stride(1))
 
 
-def _forward_launch(w_ih, b_ih, w_hh, b_hh, x, h0) -> torch.Tensor:
-    """B1: outs (P, B, T, H)."""
+@functools.cache
+def _fwd_plan(shapes, dev: torch.device) -> tuple[int, bool]:
+    """(batch tile, wide) of B1 at ``shapes`` on ``dev``."""
+    p, b, _, d, hidden = shapes
+    limits = device_limits(dev)
+    wide = recurrence_route(p, b, d, hidden, limits) == "wide"
+    return fwd_tile(b, p, d, hidden, limits, wide), wide
+
+
+def _wih_t(ops, rows: int, ld: int, wide: bool):
+    """Scratch for the copy of W_ih^T that a wide kernel reads, (P, rows,
+    ld) floats, or None."""
+    (p, *_), x = ops[0], ops[1]
+    return (torch.empty((p, rows, ld), device=x.device, dtype=torch.float32)
+            if wide else None)
+
+
+def _forward_kernel(ops, w, outs, bt: int, wide: bool) -> None:
+    """Launch ``gru_forward_kernel`` (its wide variant if ``wide``) into
+    outs (validated operands) on tiles of ``bt`` rows."""
     from vae_connexe_torch.ops._build import gru_library
 
-    (p, b, t, d, hidden), x, xs, h0, hs = _operands(w_ih, b_ih, w_hh, b_hh,
-                                                    x, h0)
-    dev = x.device
-    bt = pick_tile(b, p, hidden, lambda n: fwd_smem_bytes(n, d, hidden),
-                   device_limits(dev))
-    outs = torch.empty((p, b, t, hidden), device=dev, dtype=torch.float32)
-    _launch(gru_library(), "vcx_gru_forward", dev,
-            (x, *xs, w_ih.contiguous(), w_hh.contiguous(), b_ih.contiguous(),
-             b_hh.contiguous(), h0, *hs, outs, p, b, t, d, hidden, bt))
-    LAUNCHES["gru_forward"] += 1
+    (p, b, t, d, hidden), x, xs, h0, hs = ops
+    w_ih, b_ih, w_hh, b_hh = (v.contiguous() for v in w)
+    wih_t = _wih_t(ops, d, fwd_weight_stride(hidden), wide)
+    _launch(gru_library(), "vcx_gru_forward", x.device,
+            (x, *xs, w_ih, w_hh, b_ih, b_hh, h0, *hs, outs, wih_t, p, b, t,
+             d, hidden, bt))
+
+
+def _forward_launch(w_ih, b_ih, w_hh, b_hh, x, h0) -> torch.Tensor:
+    """B1: outs (P, B, T, H)."""
+    ops = _operands(w_ih, b_ih, w_hh, b_hh, x, h0)
+    shapes, x = ops[0], ops[1]
+    outs = torch.empty((shapes[0], shapes[1], shapes[2], shapes[4]),
+                       device=x.device, dtype=torch.float32)
+    bt, wide = _fwd_plan(shapes, x.device)
+    _forward_kernel(ops, (w_ih, b_ih, w_hh, b_hh), outs, bt, wide)
+    LAUNCHES["gru_forward_wide" if wide else "gru_forward"] += 1
     return outs
 
 
@@ -286,14 +440,13 @@ def bwd_wgrad_plain(w_ih, b_ih, w_hh, b_hh, x, h0, outs, gh, need_dx: bool):
 
 
 @functools.cache
-def _bwd_plan(shapes, dev: torch.device) -> tuple[int, int, int]:
-    """(chain tile, splits, chunk) of B2 at ``shapes`` on ``dev``."""
+def _bwd_plan(shapes, dev: torch.device) -> tuple[int, int, int, bool]:
+    """(chain tile, splits, chunk, wide) of B2 at ``shapes`` on ``dev``."""
     p, b, t, d, hidden = shapes
     limits = device_limits(dev)
-    bt = pick_tile(b, p, hidden, lambda n: chain_smem_bytes(n, d, hidden),
-                   limits, lambda n: chain_step_loads(n, d, hidden),
-                   CHAIN_TILES)
-    return (bt, *wgrad_splits(b, t, d, hidden, p, limits[2]))
+    wide = recurrence_route(p, b, d, hidden, limits) == "wide"
+    return (chain_tile(b, p, d, hidden, limits, wide),
+            *wgrad_splits(b, t, d, hidden, p, limits[2]), wide)
 
 
 def _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs, extra, name):
@@ -309,15 +462,22 @@ def _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs, extra, name):
     return ops, outs.contiguous(), extra.contiguous()
 
 
-def _chain_kernel(ops, w, outs, douts, gh, dh0, bt: int) -> None:
-    """Launch ``gru_chain_kernel`` into gh and dh0 (validated operands)."""
+def _chain_wih_t(ops, wide: bool):
+    """Scratch for the wide chain's copy of W_ih^T, or None."""
+    d, hidden = ops[0][3], ops[0][4]
+    return _wih_t(ops, _round4(d), 3 * hidden + 1, wide)
+
+
+def _chain_kernel(ops, w, outs, douts, gh, dh0, bt: int, wide: bool) -> None:
+    """Launch ``gru_chain_kernel`` (``gru_chain_wide_kernel`` if ``wide``)
+    into gh and dh0 (validated operands)."""
     from vae_connexe_torch.ops._build import gru_library
 
     (p, b, t, d, hidden), x, xs, h0, hs = ops
     w_ih, b_ih, w_hh, b_hh = (v.contiguous() for v in w)
     _launch(gru_library(), "vcx_gru_bwd_chain", x.device,
             (x, *xs, w_ih, w_hh, b_ih, b_hh, h0, *hs, outs, douts, gh, dh0,
-             p, b, t, d, hidden, bt))
+             _chain_wih_t(ops, wide), p, b, t, d, hidden, bt))
 
 
 def _wgrad_kernel(ops, w_ih, outs, gh, dx, part, splits: int,
@@ -376,8 +536,9 @@ def bwd_chain(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts):
     ops, outs, douts = _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs,
                                      douts, "douts")
     gh, dh0 = _chain_buffers(ops)
-    _chain_kernel(ops, (w_ih, b_ih, w_hh, b_hh), outs, douts, gh, dh0,
-                  _bwd_plan(ops[0], x.device)[0])
+    bt, _, _, wide = _bwd_plan(ops[0], x.device)
+    _chain_kernel(ops, (w_ih, b_ih, w_hh, b_hh), outs, douts, gh, dh0, bt,
+                  wide)
     return gh, dh0
 
 
@@ -392,7 +553,7 @@ def bwd_wgrad(w_ih, b_ih, w_hh, b_hh, x, h0, outs, gh, need_dx: bool):
                                need_dx)
     ops, outs, gh = _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs, gh,
                                   "gh")
-    _, splits, chunk = _bwd_plan(ops[0], x.device)
+    _, splits, chunk, _ = _bwd_plan(ops[0], x.device)
     dx, part = _wgrad_buffers(ops, need_dx, splits)
     _wgrad_kernel(ops, w_ih, outs, gh, dx, part, splits, chunk)
     return _wgrad_sums(ops, dx, part)
@@ -407,14 +568,14 @@ def _backward_launch(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts,
     ops, outs, douts = _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs,
                                      douts, "douts")
     (p, b, t, d, hidden), xc, xs, h0c, hs = ops
-    bt, splits, chunk = _bwd_plan(ops[0], x.device)
+    bt, splits, chunk, wide = _bwd_plan(ops[0], x.device)
     gh, dh0 = _chain_buffers(ops)
     dx, part = _wgrad_buffers(ops, need_dx, splits)
     _launch(gru_library(), "vcx_gru_backward", x.device,
             (xc, *xs, w_ih.contiguous(), w_hh.contiguous(), b_ih.contiguous(),
-             b_hh.contiguous(), h0c, *hs, outs, douts, gh, dh0, dx, part, p,
-             b, t, d, hidden, bt, splits, chunk))
-    LAUNCHES["gru_backward"] += 1
+             b_hh.contiguous(), h0c, *hs, outs, douts, gh, dh0, dx, part,
+             _chain_wih_t(ops, wide), p, b, t, d, hidden, bt, splits, chunk))
+    LAUNCHES["gru_backward_wide" if wide else "gru_backward"] += 1
     return (*_wgrad_sums(ops, dx, part), dh0)
 
 

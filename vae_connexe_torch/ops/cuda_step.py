@@ -39,11 +39,12 @@ from vae_connexe_torch.models.crvae import (
     masked_heads,
 )
 from vae_connexe_torch.ops.cuda_gru import (
-    _bwd_plan,
     _launch,
+    chain_tile,
     device_limits,
     fwd_smem_bytes,
     pick_tile,
+    wgrad_splits,
 )
 from vae_connexe_torch.ops.gru import gru_scan, gru_scan_heads
 from vae_connexe_torch.utils.tree import tree_leaves, tree_unflatten
@@ -172,15 +173,24 @@ def _plan(b: int, t: int, p: int, hidden: int, e: int, dev: torch.device):
     float32 buffer, their offsets in it (floats) and its length.  The
     encoder and the decoder forward take B1's tile rule, each with its own
     shared memory; both chains and weight-gradient kernels take B2's
-    (``_bwd_plan``)."""
+    (``chain_tile``, ``wgrad_splits``), with both weights in shared memory:
+    B3 has no wide variant."""
     limits = device_limits(dev)
     td = t - e
     bt_enc = pick_tile(b, 1, hidden,
                        lambda n: encoder_fwd_smem_bytes(n, p, hidden), limits)
     bt_dec = pick_tile(b, p, hidden, lambda n: fwd_smem_bytes(n, p, hidden),
                        limits)
-    chain_dec, splits_dec, chunk_dec = _bwd_plan((p, b, td, p, hidden), dev)
-    chain_enc, splits_enc, chunk_enc = _bwd_plan((1, b, e, p, hidden), dev)
+
+    def chain_plan(heads: int, steps: int):
+        bt = chain_tile(b, heads, p, hidden, limits)
+        if bt is None:
+            raise ValueError(f"B3: no chain tile fits the device's shared "
+                             f"memory at p={p}, H={hidden}")
+        return (bt, *wgrad_splits(b, steps, p, hidden, heads, limits[2]))
+
+    chain_dec, splits_dec, chunk_dec = chain_plan(p, td)
+    chain_enc, splits_enc, chunk_enc = chain_plan(1, e)
     plan = dict(B=b, T=t, P=p, H=hidden, E=e, bt_enc=bt_enc, bt_dec=bt_dec,
                 bt_chain_dec=chain_dec, bt_chain_enc=chain_enc,
                 splits_dec=splits_dec, chunk_dec=chunk_dec,

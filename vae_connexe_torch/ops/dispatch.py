@@ -3,12 +3,13 @@
 A CUDA tensor goes through the hand-written kernels (B1 forward, B2
 backward, ``ops/cuda_gru.py``); a CPU tensor goes through the plain
 recurrence of ``ops/gru.py``.  The decision is the tensor's device and
-nothing else.
+nothing else; on the card, ``cuda_gru.recurrence_route`` picks the
+kernels' variant from the shapes, and shapes no kernel fits raise.
 
 Not ported: the JAX module's ``use_fused``/``set_fused`` switch, the
 ``VAE_CONNEXE_FUSED_GRU`` variable and its short-sequence cutoffs, which
 were crossovers measured on a TPU, and the sequence-parallel routing
-(``set_seq_parallel``), which belongs with ``parallel/`` (ROADMAP A8).
+(``set_seq_parallel``), which belongs with ``parallel/`` (ROADMAP A7).
 """
 
 from __future__ import annotations

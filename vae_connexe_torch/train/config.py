@@ -13,9 +13,10 @@ class Phase1Config:
     Defaults follow the reference's Lorenz-96 script: lam=0.1 group lasso,
     lr=5e-2 manual SGD, beta=0.1 KL weight, batch 256, 5000 iterations.
     ``resample_batches=False`` trains on one fixed random batch, as the
-    author scripts do.  ``latent_reg='cs'`` (the CS-divergence hybrid, with
-    its ``lambda_cs``, ``gmm_components`` and ``cs_variant``) is not ported
-    yet and raises.
+    author scripts do.  ``latent_reg='cs'`` (the CS-divergence hybrid) is
+    not ported yet and raises; its ``lambda_cs``, ``gmm_components`` and
+    ``cs_variant`` are taken, with the reference's names, order and
+    defaults, so that every crvae configuration of the reference builds.
     """
 
     lam: float = 0.1
@@ -27,6 +28,9 @@ class Phase1Config:
     check_every: int = 50
     resample_batches: bool = True
     latent_reg: str = "kl"
+    lambda_cs: float = 0.1
+    gmm_components: int = 10
+    cs_variant: str = "symmetric"
 
     def __post_init__(self):
         if self.latent_reg == "cs":
