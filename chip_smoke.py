@@ -8,9 +8,16 @@
    (rollout, gru, step), one nvcc each, all started together; print
    ptxas's register and spill lines.
 3. Hold each kernel against its plain PyTorch version on the card:
-   - K1/K2 (rollout) at the serving width (p=20, H=64, T=21; B = 1, 8, 37,
-     3072) and at p=4, H=8 with a random parents mask; 1e-4 absolute
-     (float32 recurrences of 21 steps, products summed in another order).
+   - K1/K2 (rollout) on the resident route (``cuda_rollout.rollout_route``:
+     every weight in shared memory, K1's heads over a thread-block
+     cluster) at the serving width (p=20, H=64, T=21; B = 1, 8, 37, 3072),
+     at p=4, H=8 with a random parents mask and at lorenz96_crvae's p=10;
+     on the streamed route at lorenz96_scaled's p=40, H=128 (B = 37, 512),
+     with the ErrorVAE at the same width; 1e-4 absolute (float32
+     recurrences of 21 steps, products summed in another order); two
+     calls on the same inputs give bitwise-equal outputs; each case's plan
+     (cluster, heads a block, tile, k split, clusters launched, shared
+     memory) and the card's cudaOccupancyMaxActiveClusters are printed.
    - B1/B2 (GRU recurrence) at the phase-1 decoder shape (P=20, T=10,
      B=256, D=20, H=64, shared input, h0 broadcast from z), the encoder
      shape (P=1) and a ragged B=37 with per-head input and a random
@@ -44,6 +51,10 @@
    - serving: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20, H=64),
      exported at batch 3072, loaded and served by ``GeneratorServer``; the
      served samples are held against the plain versions on the same draws;
+     every launch on the resident route;
+   - serving at lorenz96_scaled's width (p=40, H=128, batch 512): three
+     generations through the loaded artifact, every launch on the streamed
+     route, held against the plain versions;
    - training: ``fit_phase1`` on a Lorenz-96 series made on the card (p=20,
      T=2048, windows of 20) at H=64, B=256 for 300 steps: 2 B1 and 2 B2
      launches a step, every recurrence on the kernel route, a finite loss
@@ -66,7 +77,9 @@
    device time alone from ``torch.profiler``, B2's chain and
    weight-gradient kernels apart (CUDA events through their wrappers, and
    by the profiler) and B3's eleven kernels by
-   device time (profiler); time compensated generation, and phase-1
+   device time (profiler); time K1, K2 and compensated generation at
+   B=1 and B=3072 on both routes (resident at p=20, H=64; streamed at
+   p=40, H=128), and phase-1
    steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
    (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes.
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
@@ -274,39 +287,78 @@ def make_models(p, hidden, seed, dev):
     return model, err, model.init(g, dev), err.init(g, dev), g
 
 
+def rollout_plan_line(kind, p, b, d, hidden, dev) -> str:
+    """The plan a rollout of these shapes takes on ``dev``, with the
+    card's cudaOccupancyMaxActiveClusters for a resident K1."""
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    plan, n_clusters = cr._plan(kind, p, b, d, hidden, dev)
+    line = (f"plan {kind} p={p} H={hidden} B={b}: route={plan.route} "
+            f"cluster={plan.cluster} heads_per_block={plan.heads_per_block} "
+            f"bt={plan.bt} split={plan.split} threads={plan.threads} "
+            f"smem={plan.smem}")
+    if kind == "crvae" and plan.route == "resident":
+        line += (f" n_clusters={n_clusters} cudaOccupancyMaxActiveClusters="
+                 f"{cr.max_active_clusters(dev, plan, p, hidden)}")
+    return line
+
+
+# (p, H, batches, random parents mask, route) of the rollout checks.
+ROLLOUT_CASES = [
+    (P, H, CHECK_BATCHES, False, "resident"),
+    (4, 8, (1, 37), True, "resident"),
+    (10, H, (37, SERVE_B), False, "resident"),          # lorenz96_crvae
+    (SCALED_P, SCALED_H, (37, SCALED_B), False, "streamed"),
+]
+
+
 def check_kernels(dev, errors):
-    """Phase 3: each kernel against its plain version, on the card."""
+    """Phase 3: each rollout kernel against its plain version on the card,
+    on the route its shapes take; two calls bitwise equal."""
     import torch
 
     from vae_connexe_torch.models import masked_heads
     from vae_connexe_torch.ops import cuda_rollout as cr
 
-    cases = [(P, H, b, False) for b in CHECK_BATCHES] + \
-        [(4, 8, b, True) for b in (1, 37)]
-    for p, hidden, b, with_parents in cases:
-        model, err, params, eparams, g = make_models(p, hidden, b, dev)
-        heads = params.heads
-        if with_parents:
-            heads = masked_heads(heads, (torch.rand((p, p), generator=g)
-                                         > 0.3).float())
-        h0 = torch.randn((b, hidden), generator=g).to(dev)
-        noise = torch.randn((b, T, p), generator=g).to(dev)
-        x0 = torch.zeros((b, p), device=dev)
-        k1 = cr.crvae_free_run_fused(heads, params.readout, x0, h0, noise, 0.1)
-        r1 = cr.crvae_free_run_plain(heads, params.readout, x0, h0, noise, 0.1)
-        k2 = cr.errvae_sample_fused(eparams.dec, eparams.out, h0, p, T)
-        r2 = cr.errvae_sample_plain(eparams.dec, eparams.out, h0, p, T)
-        torch.cuda.synchronize()
-        for name, k, r in (("crvae_free_run", k1, r1),
-                           ("errvae_sample", k2, r2)):
-            e = (k - r).abs().max().item()
-            ok = bool(torch.isfinite(k).all()) and e <= TOL
-            errors[name] = max(errors.get(name, 0.0), e)
-            log(f"check {name} p={p} H={hidden} B={b} T={T} "
-                f"parents={with_parents}: max_abs_err={e:.3e} tol={TOL:g} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain version")
+    for p, hidden, batches, with_parents, route in ROLLOUT_CASES:
+        for b in batches:
+            model, err, params, eparams, g = make_models(p, hidden, b, dev)
+            heads = params.heads
+            if with_parents:
+                heads = masked_heads(heads, (torch.rand((p, p), generator=g)
+                                             > 0.3).float())
+            h0 = torch.randn((b, hidden), generator=g).to(dev)
+            noise = torch.randn((b, T, p), generator=g).to(dev)
+            x0 = torch.zeros((b, p), device=dev)
+            log(rollout_plan_line("crvae", p, b, p, hidden, dev))
+            log(rollout_plan_line("errvae", 1, b, p, hidden, dev))
+            cr.reset_launches()
+            k1, k1b = (cr.crvae_free_run_fused(heads, params.readout, x0, h0,
+                                               noise, 0.1) for _ in range(2))
+            k2, k2b = (cr.errvae_sample_fused(eparams.dec, eparams.out, h0,
+                                              p, T) for _ in range(2))
+            taken = dict(cr.ROUTE_LAUNCHES)
+            r1 = cr.crvae_free_run_plain(heads, params.readout, x0, h0, noise,
+                                         0.1)
+            r2 = cr.errvae_sample_plain(eparams.dec, eparams.out, h0, p, T)
+            torch.cuda.synchronize()
+            for name, k, again, r in (("crvae_free_run", k1, k1b, r1),
+                                      ("errvae_sample", k2, k2b, r2)):
+                e = (k - r).abs().max().item()
+                same = torch.equal(k, again)
+                on_route = taken[f"{name}_{route}"] == 2
+                ok = (bool(torch.isfinite(k).all()) and e <= TOL and same
+                      and on_route)
+                key = name if route == "resident" else f"{name}_streamed"
+                errors[key] = max(errors.get(key, 0.0), e)
+                log(f"check {name} {route} p={p} H={hidden} B={b} T={T} "
+                    f"parents={with_parents}: max_abs_err={e:.3e} "
+                    f"tol={TOL:g}, two calls bitwise equal: {same}, route "
+                    f"launches {taken} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} ({route}) disagrees with "
+                                         "its plain version, is not "
+                                         "deterministic or took another route")
 
 
 def post(srv, body):
@@ -326,13 +378,8 @@ def serve_main_path(dev):
     """Phase 4: export, load and serve at the serving width; returns the
     launch counts of this phase."""
     import numpy as np
-    import torch
 
     from vae_connexe_torch.ops import cuda_rollout as cr
-    from vae_connexe_torch.ops.cuda_rollout import (
-        crvae_free_run_plain,
-        errvae_sample_plain,
-    )
     from vae_connexe_torch.server import GeneratorServer
     from vae_connexe_torch.serving import export_generator, load_generator
 
@@ -369,6 +416,7 @@ def serve_main_path(dev):
     finally:
         srv.shutdown()
     launches = dict(cr.LAUNCHES)
+    routes = dict(cr.ROUTE_LAUNCHES)
 
     assert a.shape == (SERVE_B, T, P) and np.isfinite(a).all(), a.shape
     assert np.array_equal(a, b), "same seed gave different samples"
@@ -379,61 +427,123 @@ def serve_main_path(dev):
     assert meta["device_calls"] == 5 and meta["errors"] == 0, meta
     # 1 warm-up call + 5 dispatches, one launch of each kernel apiece.
     assert launches == {"crvae_free_run": 6, "errvae_sample": 6}, launches
+    # ... all of them on the resident route at the serving width.
+    assert routes == {"crvae_free_run_resident": 6, "errvae_sample_resident": 6,
+                      "crvae_free_run_streamed": 0,
+                      "errvae_sample_streamed": 0}, routes
 
     # The served samples against the plain versions on the seed's draws.
-    gen = torch.Generator(device=dev).manual_seed(7)
-    h0_err = torch.randn((SERVE_B, H), generator=gen, device=dev)
-    h0 = torch.randn((SERVE_B, H), generator=gen, device=dev)
-    errs = errvae_sample_plain(eparams.dec, eparams.out, h0_err, P, T)
-    noise = torch.cat([torch.zeros((SERVE_B, 1, P), device=dev), errs],
-                      dim=1)[:, :T]
-    ref = crvae_free_run_plain(params.heads, params.readout,
-                               torch.zeros((SERVE_B, P), device=dev), h0,
-                               noise, model.noise_scale).cpu().numpy()
+    ref = plain_generation(model, err, params, eparams, 7, SERVE_B, dev)
     e2e = float(np.abs(a - ref).max())
     log(f"main path: {meta['requests']} requests, {meta['device_calls']} "
         f"dispatches, {meta['coalesced_requests']} coalesced, launches "
-        f"{launches}, served vs plain max_abs_err={e2e:.3e} tol={TOL:g}, "
+        f"{launches}, by route {routes}, served vs plain "
+        f"max_abs_err={e2e:.3e} tol={TOL:g}, "
         f"generate_ms {meta['generate_ms']}")
     assert e2e <= TOL, "served samples disagree with the plain path"
     fn, _ = load_generator(blob, dev)
     return launches, fn
 
 
+def plain_generation(model, err, params, eparams, seed, batch, dev):
+    """The plain versions of K2 then K1 on the draws ``fn(seed)`` of a
+    loaded artifact makes (the ErrorVAE's h0 first, the rollout's second)."""
+    import torch
+
+    from vae_connexe_torch.ops.cuda_rollout import (
+        crvae_free_run_plain,
+        errvae_sample_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h0_err = torch.randn((batch, err.hidden), generator=gen, device=dev)
+    h0 = torch.randn((batch, model.hidden), generator=gen, device=dev)
+    errs = errvae_sample_plain(eparams.dec, eparams.out, h0_err, model.p, T)
+    noise = torch.cat([torch.zeros((batch, 1, model.p), device=dev), errs],
+                      dim=1)[:, :T]
+    return crvae_free_run_plain(params.heads, params.readout,
+                                torch.zeros((batch, model.p), device=dev), h0,
+                                noise, model.noise_scale).cpu().numpy()
+
+
+def serve_scaled_path(dev, card):
+    """Phase 4a': three generations through a loaded artifact at
+    lorenz96_scaled's width (p=40, H=128, batch 512), whose weights do not
+    fit a block: every launch on the streamed route; returns its launches
+    by route."""
+    import numpy as np
+
+    from vae_connexe_torch.ops import cuda_rollout as cr
+    from vae_connexe_torch.serving import export_generator, load_generator
+
+    model, err, params, eparams, _ = make_models(SCALED_P, SCALED_H, 3, dev)
+    fn, _ = load_generator(export_generator(model, err, params, eparams,
+                                            batch=SCALED_B), dev)
+    cr.reset_launches()
+    outs = [fn(s) for s in (21, 22, 23)]
+    routes = dict(cr.ROUTE_LAUNCHES)
+    ref = plain_generation(model, err, params, eparams, 21, SCALED_B, dev)
+    e2e = float(np.abs(outs[0] - ref).max())
+    log(f"main path lorenz96_scaled serving p={SCALED_P} H={SCALED_H} "
+        f"B={SCALED_B}: 3 generations, launches by route {routes}, vs plain "
+        f"max_abs_err={e2e:.3e} tol={TOL:g} [{card}]")
+    assert all(o.shape == (SCALED_B, T, SCALED_P) and np.isfinite(o).all()
+               for o in outs)
+    assert routes == {"crvae_free_run_resident": 0, "errvae_sample_resident": 0,
+                      "crvae_free_run_streamed": 3,
+                      "errvae_sample_streamed": 3}, routes
+    assert e2e <= TOL, "scaled generation disagrees with the plain path"
+    return {k: routes[k] for k in ("crvae_free_run_streamed",
+                                   "errvae_sample_streamed")}
+
+
 def time_all(dev, card, served_fn):
-    """Phase 5: device times of kernels, plain versions and the whole
-    generation; returns the per-kernel timings at B=3072."""
+    """Phase 5: device times of both rollout kernels and their plain
+    versions, and of the whole generation, at B=1 and B=3072 on both
+    routes; returns the per-kernel rows (B=3072, B=1 in ``extra``)."""
     import torch
 
     from vae_connexe_torch.ops import cuda_rollout as cr
     from vae_connexe_torch.train import generate_from_draws
 
-    model, err, params, eparams, g = make_models(P, H, 1, dev)
     res = {}
-    for b in (1, SERVE_B):
-        iters = 200 if b == 1 else 20
-        h0 = torch.randn((b, H), generator=g).to(dev)
-        h0_err = torch.randn((b, H), generator=g).to(dev)
-        noise = torch.randn((b, T, P), generator=g).to(dev)
-        x0 = torch.zeros((b, P), device=dev)
-        k1 = (params.heads, params.readout, x0, h0, noise, 0.1)
-        k2 = (eparams.dec, eparams.out, h0, P, T)
-        row = {
-            "crvae_free_run": (time_ms(lambda: cr.crvae_free_run_fused(*k1), iters),
-                               time_ms(lambda: cr.crvae_free_run_plain(*k1), iters)),
-            "errvae_sample": (time_ms(lambda: cr.errvae_sample_fused(*k2), iters),
-                              time_ms(lambda: cr.errvae_sample_plain(*k2), iters)),
-        }
-        gen_ms = time_ms(lambda: generate_from_draws(
-            model, err, params.heads, params.readout, eparams.dec,
-            eparams.out, h0_err, h0), iters)
-        for name, (ms, plain) in row.items():
-            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
+    for suffix, p, hidden in (("", P, H), ("_streamed", SCALED_P, SCALED_H)):
+        model, err, params, eparams, g = make_models(p, hidden, 1, dev)
+        for b in (1, SERVE_B):
+            iters = 200 if b == 1 else 20
+            h0 = torch.randn((b, hidden), generator=g).to(dev)
+            h0_err = torch.randn((b, hidden), generator=g).to(dev)
+            noise = torch.randn((b, T, p), generator=g).to(dev)
+            x0 = torch.zeros((b, p), device=dev)
+            k1 = (params.heads, params.readout, x0, h0, noise, 0.1)
+            k2 = (eparams.dec, eparams.out, h0, p, T)
+            row = {
+                "crvae_free_run": (
+                    time_ms(lambda: cr.crvae_free_run_fused(*k1), iters),
+                    time_ms(lambda: cr.crvae_free_run_plain(*k1), iters)),
+                "errvae_sample": (
+                    time_ms(lambda: cr.errvae_sample_fused(*k2), iters),
+                    time_ms(lambda: cr.errvae_sample_plain(*k2), iters)),
+            }
+            gen_ms = time_ms(lambda: generate_from_draws(
+                model, err, params.heads, params.readout, eparams.dec,
+                eparams.out, h0_err, h0), iters)
+            route = cr._plan("crvae", p, b, p, hidden, dev)[0].route
+            for name, (ms, plain) in row.items():
+                log(f"time {name} {route} p={p} H={hidden} B={b}: kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+            log(f"time compensated generation {route} p={p} H={hidden} "
+                f"B={b}: {gen_ms:.4f} ms, {b / gen_ms * 1e3:.1f} samples/s "
                 f"[{card}]")
-        log(f"time compensated generation B={b}: {gen_ms:.4f} ms, "
-            f"{b / gen_ms * 1e3:.1f} samples/s [{card}]")
-        res[b] = {name: {"ms": ms, "plain_ms": plain}
-                  for name, (ms, plain) in row.items()}
+            for name, (ms, plain) in row.items():
+                key = name + suffix
+                if b == SERVE_B:
+                    res.setdefault(key, {"extra": {}}).update(
+                        ms=ms, plain_ms=plain)
+                    res[key]["extra"]["generation_ms"] = gen_ms
+                else:
+                    res.setdefault(key, {"extra": {}})["extra"].update(
+                        b1_ms=ms, b1_plain_ms=plain, b1_generation_ms=gen_ms)
     t0 = time.perf_counter()
     n = 5
     for s in range(n):
@@ -442,7 +552,7 @@ def time_all(dev, card, served_fn):
     log(f"time served fn(seed) B={SERVE_B} incl. copy to host: "
         f"{served_ms:.3f} ms, {SERVE_B / served_ms * 1e3:.1f} samples/s "
         f"[{card}]")
-    return res[SERVE_B]
+    return res
 
 
 def _assert_close(name, got, ref, errors, rtol, atol, what):
@@ -1018,6 +1128,15 @@ def time_training(dev, card, windows):
     return res
 
 
+def cr_plan(kind, p, hidden, dev) -> dict:
+    """The plan (at B=3072) of a rollout as a dict for the JSON line."""
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    heads = p if kind == "crvae" else 1
+    plan, n_clusters = cr._plan(kind, heads, SERVE_B, p, hidden, dev)
+    return {**plan._asdict(), "n_clusters": n_clusters}
+
+
 def main() -> int:
     import torch
 
@@ -1046,6 +1165,7 @@ def main() -> int:
     check_training_kernels(dev, errors)
     check_step_phases(dev, errors)
     launches, served_fn = serve_main_path(dev)
+    launches.update(serve_scaled_path(dev, card))
     series = lorenz_windows(dev, P, seed=0)
     launches.update(train_main_path(dev, card, series))
     launches.update(scaled_main_path(dev, card))
@@ -1058,11 +1178,20 @@ def main() -> int:
                             "vae_connexe_torch/csrc/gru.cu")
     enc = (1, TRAIN_B, CTX - ENC, P, H)       # B1/B2 timed at the encoder
     wide_enc = (1, SCALED_B, ENC, SCALED_P, SCALED_H)
+    k1_src = "vae_connexe_tpu/ops/pallas_rollout.py:117"
+    k2_src = "vae_connexe_tpu/ops/pallas_rollout.py:204"
+    sp, sh = SCALED_P, SCALED_H
     costs = {
         "crvae_free_run": (rollout_cost(SERVE_B, T, P, H, P, 1, True, True),
-                           rollout_src, "vae_connexe_tpu/ops/pallas_rollout.py:117"),
+                           rollout_src, k1_src),
         "errvae_sample": (rollout_cost(SERVE_B, T, 1, H, P, P, False, False),
-                          rollout_src, "vae_connexe_tpu/ops/pallas_rollout.py:204"),
+                          rollout_src, k2_src),
+        "crvae_free_run_streamed": (
+            rollout_cost(SERVE_B, T, sp, sh, sp, 1, True, True), rollout_src,
+            k1_src),
+        "errvae_sample_streamed": (
+            rollout_cost(SERVE_B, T, 1, sh, sp, sp, False, False),
+            rollout_src, k2_src),
         "gru_forward": (gru_cost(*enc, backward=False), gru_src,
                         "vae_connexe_tpu/ops/pallas_gru.py:243"),
         "gru_backward": (gru_cost(*enc, backward=True), gru_src,
@@ -1075,6 +1204,19 @@ def main() -> int:
                         "vae_connexe_torch/csrc/step.cu",
                         "vae_connexe_tpu/ops/pallas_step.py:353"),
     }
+    # B=1 bounds of the rollouts, beside their B=1 times, and their plans.
+    for name, (b1_cost, p, hidden) in {
+            "crvae_free_run": (rollout_cost(1, T, P, H, P, 1, True, True), P, H),
+            "errvae_sample": (rollout_cost(1, T, 1, H, P, P, False, False), P,
+                              H),
+            "crvae_free_run_streamed": (
+                rollout_cost(1, T, sp, sh, sp, 1, True, True), sp, sh),
+            "errvae_sample_streamed": (
+                rollout_cost(1, T, 1, sh, sp, sp, False, False), sp, sh),
+    }.items():
+        times[name]["extra"]["b1_bound_ms"] = bound(*b1_cost)[0]
+        kind = "crvae" if name.startswith("crvae") else "errvae"
+        times[name]["extra"]["plan"] = cr_plan(kind, p, hidden, dev)
     kernels = []
     for name, ((flops, nbytes), source, replaces) in costs.items():
         bound_ms, bound_by = bound(flops, nbytes)

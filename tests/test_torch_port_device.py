@@ -70,11 +70,12 @@ def test_kernel_build_is_content_addressed():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-@pytest.mark.parametrize("name", ["gru", "step"])
+@pytest.mark.parametrize("name", ["gru", "step", "rollout"])
 def test_training_libraries_are_content_addressed(name, tmp_path, monkeypatch):
-    """The gru and step libraries are named by a hash of every source they
-    are built from, the shared headers included: the same bytes give the
-    same path, an edit to any one of them another."""
+    """The libraries that share headers (gru and step; rollout, which
+    reuses B1's helpers) are named by a hash of every source they are
+    built from, the shared headers included: the same bytes give the same
+    path, an edit to any one of them another."""
     from vae_connexe_torch.ops import _build
 
     path = _build.library_path(name)
@@ -100,29 +101,43 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device):
-    """Both kernels against their plain versions on the card, ragged batch,
-    random parents mask.  Tolerance 1e-4 absolute: 21 float32 steps, FMA
-    order differs from cuBLAS's."""
+@pytest.mark.parametrize("route,p,hidden,b,parents", [
+    ("resident", 6, 16, 37, True),       # one head a block, cluster of 6
+    ("resident", 20, 64, 37, False),     # the serving width, cluster of 7
+    ("streamed", 40, 128, 8, False),     # lorenz96_scaled's width
+], ids=["resident-p6", "resident-p20", "streamed-p40"])
+def test_kernels_match_plain_on_card(cuda_device, route, p, hidden, b,
+                                     parents):
+    """Both kernels against their plain versions on the card, on each
+    route, ragged batch, a random parents mask where marked, the ErrorVAE
+    at the same width; two calls give bitwise-equal outputs.  Tolerance
+    1e-4 absolute: 21 float32 steps, FMA order differs from cuBLAS's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
-    p, hidden, b, t = 6, 16, 37, 21
+    t = 21
     params = CRVAE(p, hidden).init(g, cuda_device)
     err = ErrorVAE(p, hidden).init(g, cuda_device)
-    parents = (torch.rand((p, p), generator=g) > 0.3).float()
-    heads = masked_heads(params.heads, parents)
+    heads = params.heads
+    if parents:
+        heads = masked_heads(heads, (torch.rand((p, p), generator=g) > 0.3)
+                             .float())
     h0 = torch.randn((b, hidden), generator=g).to(cuda_device)
     noise = torch.randn((b, t, p), generator=g).to(cuda_device)
     x0 = torch.zeros((b, p), device=cuda_device)
-    k1 = cuda_rollout.crvae_free_run_fused(heads, params.readout, x0, h0,
-                                           noise, 0.1)
+    cuda_rollout.reset_launches()
+    k1, k1_again = (cuda_rollout.crvae_free_run_fused(
+        heads, params.readout, x0, h0, noise, 0.1) for _ in range(2))
+    k2, k2_again = (cuda_rollout.errvae_sample_fused(err.dec, err.out, h0, p,
+                                                     t) for _ in range(2))
+    assert cuda_rollout.ROUTE_LAUNCHES[f"crvae_free_run_{route}"] == 2
+    assert cuda_rollout.ROUTE_LAUNCHES[f"errvae_sample_{route}"] == 2
     ref1 = cuda_rollout.crvae_free_run_plain(heads, params.readout, x0, h0,
                                              noise, 0.1)
-    k2 = cuda_rollout.errvae_sample_fused(err.dec, err.out, h0, p, t)
     ref2 = cuda_rollout.errvae_sample_plain(err.dec, err.out, h0, p, t)
     torch.cuda.synchronize()
     torch.testing.assert_close(k1, ref1, rtol=0, atol=1e-4)
     torch.testing.assert_close(k2, ref2, rtol=0, atol=1e-4)
+    assert torch.equal(k1, k1_again) and torch.equal(k2, k2_again)
 
 
 def _params_on(p, d, hidden, seed, device):

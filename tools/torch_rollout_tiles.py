@@ -1,16 +1,25 @@
-"""Time the CRVAE free-run kernel (K1) at each batch-tile width on one GPU.
+"""Sweep the resident rollout kernels' designs on one GPU.
 
     python3 tools/torch_rollout_tiles.py
 
-The tile policy of ``vae_connexe_torch/ops/cuda_rollout.pick_bt`` rests on
-this sweep: for each batch it prints the device time of one launch at tile
-widths 1, 2, 4 and 8 (p=20, H=64, T=21, float32), calling the kernel
-library directly so that the policy itself is bypassed.  Needs a CUDA
-device and nvcc.
+``vae_connexe_torch/ops/cuda_rollout.rollout_route`` rests on this sweep.
+K1 (the CRVAE free run, T=21, H=64) at the serving width p=20 and at
+lorenz96_crvae's p=10: for each cluster size C of 4..8, 10 and 16 (heads
+per block ceil(p / C), spread as the kernel spreads them) and each batch
+tile of ``cuda_gru.FWD_TILES`` that fits a block, and each k split
+(``cuda_rollout.SPLITS``) whose gate tiles fit it, it prints the clusters
+the card holds at once (``cudaOccupancyMaxActiveClusters``) and, at
+B = 1, 37 and 3072, the device time of one launch (CUDA events) and the
+largest error against the plain version.  K2 (the ErrorVAE free run, d=20,
+H=64) at each tile and split.  The plan ``rollout_route`` picks is marked
+``*``.
+The library is called directly, so the plan itself is bypassed.  Needs a
+CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -19,10 +28,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from vae_connexe_torch.models import CRVAE  # noqa: E402
+from vae_connexe_torch.models import CRVAE, ErrorVAE  # noqa: E402
 from vae_connexe_torch.ops import cuda_rollout as cr  # noqa: E402
+from vae_connexe_torch.ops._build import rollout_library  # noqa: E402
+from vae_connexe_torch.ops.cuda_gru import FWD_TILES  # noqa: E402
 
-P, H, T = 20, 64, 21
+H, T = 64, 21
+BATCHES = (1, 37, 3072)
+CLUSTERS = (4, 5, 6, 7, 8, 10, 16)
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -39,32 +52,99 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def designs(heads: int, hidden: int):
+    """(tile, split) pairs whose gate tiles fit a resident block."""
+    return [(bt, s) for bt in FWD_TILES for s in cr.SPLITS
+            if cr.gate_threads(heads, bt, hidden, s) <= cr.RESIDENT_THREADS]
+
+
+def sweep_k1(dev, g, p, limits) -> None:
+    params = CRVAE(p, H).init(g, dev)
+    hd, ro = params.heads, params.readout
+    inputs = {}
+    for b in BATCHES:
+        h0 = torch.randn((b, H), generator=g).to(dev)
+        noise = torch.randn((b, T, p), generator=g).to(dev)
+        x0 = torch.zeros((b, p), device=dev)
+        inputs[b] = (x0, h0, noise,
+                     cr.crvae_free_run_plain(hd, ro, x0, h0, noise, 0.1))
+    plans = {b: cr.rollout_route("crvae", p, b, p, H, limits) for b in BATCHES}
+    for c in CLUSTERS:
+        hpb = -(-p // c)
+        if c > p:
+            continue
+        for bt, split in designs(hpb, H):
+            smem = cr.resident_smem_bytes(hpb, bt, p, H, 1, True)
+            if smem > limits[0]:
+                continue
+            active = ctypes.c_int(0)
+            rc = rollout_library().vcx_crvae_max_clusters(
+                p, H, c, bt, split, ctypes.byref(active))
+            row = [f"K1 p={p} C={c} heads/block={hpb} bt={bt} split={split} "
+                   f"smem={smem} max_active_clusters={active.value} (rc {rc})"]
+            if rc != 0 or active.value < 1:
+                print(row[0] + ": not launchable", flush=True)
+                continue
+            for b in BATCHES:
+                x0, h0, noise, ref = inputs[b]
+                out = torch.empty((b, T, p), device=dev)
+                n = min(active.value, -(-b // bt))
+                args = (x0, h0, noise, hd.w_ih, hd.w_hh, hd.b_ih, hd.b_hh,
+                        ro.w, ro.b, out)
+                ints = (b, T, p, H, ctypes.c_float(0.1), c, bt, split, n)
+
+                def run():
+                    cr._launch("vcx_crvae_free_run_resident", dev, args, ints)
+
+                try:
+                    ms = time_ms(run)
+                except RuntimeError as e:   # a design the card refuses
+                    row.append(f"B={b}: {e}")
+                    continue
+                err = (out - ref).abs().max().item()
+                pick = plans[b]
+                mark = "*" if (pick.route, pick.cluster, pick.bt,
+                               pick.split) == ("resident", c, bt, split) else ""
+                row.append(f"B={b}{mark}: {ms:.4f} ms err {err:.2e}")
+            print(" | ".join(row), flush=True)
+
+
+def sweep_k2(dev, g, d, limits) -> None:
+    err_p = ErrorVAE(d, H).init(g, dev)
+    for b in BATCHES:
+        h0 = torch.randn((b, H), generator=g).to(dev)
+        ref = cr.errvae_sample_plain(err_p.dec, err_p.out, h0, d, T)
+        pick = cr.rollout_route("errvae", 1, b, d, H, limits)
+        row = [f"K2 d={d} B={b}"]
+        for bt, split in designs(1, H):
+            if cr.resident_smem_bytes(1, bt, d, H, d, False) > limits[0]:
+                continue
+            out = torch.empty((b, T, d), device=dev)
+            args = (h0, err_p.dec.w_ih, err_p.dec.w_hh, err_p.dec.b_ih,
+                    err_p.dec.b_hh, err_p.out.w, err_p.out.b, out)
+            ms = time_ms(lambda: cr._launch("vcx_errvae_sample_resident", dev,
+                                            args, (b, T, d, H, bt, split)))
+            err = (out - ref).abs().max().item()
+            mark = "*" if (pick.bt, pick.split) == (bt, split) else ""
+            row.append(f"bt={bt} split={split}{mark}: {ms:.4f} ms "
+                       f"err {err:.2e}")
+        print(" | ".join(row), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    limits = cr.device_limits(dev)
+    print(f"limits {limits}", flush=True)
     g = torch.Generator().manual_seed(0)
-    params = CRVAE(P, H).init(g, dev)
-    hd = params.heads
-    wi = hd.w_ih.transpose(1, 2).contiguous()
-    wh = hd.w_hh.transpose(1, 2).contiguous()
-    for b in (8, 37, 64, 264, 1024, 3072):
-        h0 = torch.randn((b, H), generator=g).to(dev)
-        noise = torch.randn((b, T, P), generator=g).to(dev)
-        x0 = torch.zeros((b, P), device=dev)
-        out = torch.empty((b, T, P), device=dev)
-        args = (x0, h0, noise, wi, wh, hd.b_ih, hd.b_hh, params.readout.w,
-                params.readout.b, out)
-        row = []
-        for bt in (1, 2, 4, 8):
-            ms = time_ms(lambda: cr._launch("vcx_crvae_free_run", dev, args,
-                                            (b, T, P, H), bt, scale=0.1))
-            row.append(f"bt={bt}: {ms:.4f} ms")
-        print(f"K1 B={b} picked bt={cr._pick_bt_on(dev, b, P, H, P)}: "
-              + " | ".join(row), flush=True)
+    for p in (20, 10):
+        sweep_k1(dev, g, p, limits)
+    sweep_k2(dev, g, 20, limits)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ with a plain C interface: ``rollout`` (the serving kernels), ``gru`` (the
 recurrence forward and backward) and ``step`` (the whole phase-1 step);
 ``gru`` and ``step`` share the backward phases of ``gru_bwd.cuh`` and the
 staging helpers of ``gru_tile.cuh``, whose forward block body only ``step``
-runs (``gru``'s forward is ``gru_fwd.cuh``).  Each is
+runs (``gru``'s forward is ``gru_fwd.cuh``, whose staging helpers and
+thread tile ``rollout`` reuses, and which includes the other two).  Each is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
 package's ``build/`` directory (listed in ``.gitignore``), named after a
 hash of its sources and the flags so that an edited source is rebuilt.
@@ -48,7 +49,7 @@ def nvcc_path() -> str:
 # The files each library is compiled from; the first is the translation
 # unit, the rest are headers it includes.  All of them name the library.
 SOURCES = {
-    "rollout": ("rollout.cu",),
+    "rollout": ("rollout.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh"),
     "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh"),
     "step": ("step.cu", "gru_tile.cuh", "gru_bwd.cuh"),
 }
@@ -121,13 +122,21 @@ _I = ctypes.c_int
 def rollout_library() -> ctypes.CDLL:
     """The built ``csrc/rollout.cu``, with its C signatures declared."""
     lib = ctypes.CDLL(str(build("rollout")[0]))
-    lib.vcx_crvae_free_run.argtypes = [_P] * 10 + [_I] * 4 + [
+    lib.vcx_crvae_free_run_streamed.argtypes = [_P] * 10 + [_I] * 4 + [
         ctypes.c_float, _I, _P]
-    lib.vcx_crvae_free_run.restype = _I
-    lib.vcx_errvae_sample.argtypes = [_P] * 8 + [_I] * 5 + [_P]
-    lib.vcx_errvae_sample.restype = _I
-    lib.vcx_smem_optin.argtypes = [_I]
-    lib.vcx_smem_optin.restype = _I
+    lib.vcx_crvae_free_run_resident.argtypes = [_P] * 10 + [_I] * 4 + [
+        ctypes.c_float] + [_I] * 4 + [_P]
+    lib.vcx_errvae_sample_streamed.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.vcx_errvae_sample_resident.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.vcx_crvae_max_clusters.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+    lib.vcx_resident_block.argtypes = [_I] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.vcx_resident_block.restype = None
+    lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
+    for fn in ("vcx_crvae_free_run_streamed", "vcx_crvae_free_run_resident",
+               "vcx_errvae_sample_streamed", "vcx_errvae_sample_resident",
+               "vcx_crvae_max_clusters", "vcx_device_limits"):
+        getattr(lib, fn).restype = _I
     lib.vcx_error_string.argtypes = [_I]
     lib.vcx_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,12 +1,21 @@
 """Whole-rollout serving kernels (port of ``vae_connexe_tpu/ops/pallas_rollout.py``).
 
 ``crvae_free_run_fused`` and ``errvae_sample_fused`` keep the JAX entry
-points' signatures and layouts.  On a CUDA tensor each launches its
+points' signatures and layouts.  On a CUDA tensor each launches a
 hand-written kernel from ``csrc/rollout.cu`` (built at first use, see
-``_build.py``) and adds one to its count in ``LAUNCHES``; on a CPU tensor it
-runs its plain PyTorch version below, the per-step loop of
-``CRVAE._free_run`` / ``ErrorVAE.sample``.  There is no fallback from the
-kernel to the plain version: a CUDA input either launches or raises.
+``_build.py``) and adds one to its count in ``LAUNCHES`` and one to its
+route's in ``ROUTE_LAUNCHES``; on a CPU tensor it runs its plain PyTorch
+version below, the per-step loop of ``CRVAE._free_run`` /
+``ErrorVAE.sample``.  There is no fallback from a kernel to the plain
+version or from one route to the other: a CUDA input launches or raises.
+
+``rollout_route`` picks the route from the shapes and the card's limits
+before any launch, and each wrapper caches its plan per (shapes, device):
+``"resident"`` where every weight of a block fits its shared memory (K1's
+heads spread over a thread-block cluster; the weights go in torch's layout,
+untransposed), else ``"streamed"`` (the first port's body, weights read from
+L2 every step in the (in, 3H) layout the wrapper transposes them into).
+Shapes that neither route takes raise.
 
 The kernels run in float32; sums are taken in another order than the
 plain versions' ``einsum``, so the two agree to float32 rounding
@@ -16,33 +25,61 @@ plain versions' ``einsum``, so the two agree to float32 rounding
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from vae_connexe_torch.ops.cuda_gru import (
+    FWD_TILES,
+    fit_tile,
+    fwd_step_cost,
+    fwd_units,
+    fwd_weight_stride,
+)
 from vae_connexe_torch.ops.gru import GRUParams, gru_cell, gru_step_heads
 from vae_connexe_torch.utils.layers import Dense, dense
 
-# Kernel launches per wrapper, counted where the kernel is launched.
+# Kernel launches per wrapper, and per wrapper and route, counted where the
+# kernel is launched.
 LAUNCHES = {"crvae_free_run": 0, "errvae_sample": 0}
+ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in LAUNCHES
+                  for r in ("resident", "streamed")}
 
-# Batch tiles the kernels are instantiated for (csrc/rollout.cu, launch()).
+# Batch tiles the streamed kernels are instantiated for (csrc/rollout.cu,
+# launch()).
 _TILES = (8, 4, 2, 1)
+# Hopper's cluster sizes: at most 8 blocks portably, 16 where the kernel
+# allows a non-portable size.
+PORTABLE_CLUSTER, MAX_CLUSTER = 8, 16
+# Threads of a resident block (rollout.cu kResidentThreads): at 128
+# registers a thread they fill an SM's 65,536, so an SM holds one block.
+RESIDENT_THREADS = 512
+# The k splits the resident kernels are instantiated for: lanes that share
+# a thread tile's inputs (rollout.cu res_thread_tile).
+SPLITS = (4, 2)
+# A block whose gate tiles hold at most this many lanes at B1's split of 2
+# (6 warps) is bound by its step's chain of loads and multiply-adds, which
+# a split of 4 halves; a fuller block keeps the split of 2, whose fewer
+# exchanges and loads win there (tools/torch_rollout_tiles.py).
+SPLIT4_MAX_LANES = 192
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def tile_smem_bytes(bt: int, heads: int, hidden: int, d: int) -> int:
-    """Dynamic shared memory of one block: double-buffered hidden states of
-    every head plus the tile's input row, float32."""
+    """Dynamic shared memory of one streamed block: double-buffered hidden
+    states of every head plus the tile's input row, float32."""
     return 4 * (2 * heads * bt * hidden + bt * d)
 
 
 def pick_bt(batch: int, heads: int, hidden: int, d: int, budget: int,
             n_sm: int) -> int:
-    """Batch tile of the rollout kernels: the widest tile whose shared
+    """Batch tile of the streamed kernels: the widest tile whose shared
     memory fits ``budget`` bytes and that still gives every one of the
     ``n_sm`` SMs a block; one row per block when the batch is too small for
     that.  A wider tile reuses each weight it loads for more rows, but a
@@ -62,6 +99,195 @@ def pick_bt(batch: int, heads: int, hidden: int, d: int, budget: int,
     return fitting[-1]
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def resident_smem_bytes(heads: int, bt: int, d: int, hidden: int, outs: int,
+                        noise: bool) -> int:
+    """Shared memory of a resident block of ``heads`` heads (rollout.cu
+    ``resident_smem_floats``): each head's W_ih^T and W_hh^T at B1's row
+    stride, the readout rows and biases, two buffers of x (d columns) and
+    of every head's state, and two of the noise columns."""
+    ld_row = fwd_units(hidden) + 1
+    weights = _round4((d + hidden) * fwd_weight_stride(hidden))
+    return 4 * (heads * weights + _round4(heads * outs * ld_row)
+                + _round4(heads * outs) + 2 * d * bt
+                + 2 * heads * ld_row * bt
+                + (2 * heads * outs * bt if noise else 0))
+
+
+def gate_threads(heads: int, bt: int, hidden: int, split: int) -> int:
+    """Threads of a resident block's gate tiles (rollout.cu
+    ``gate_threads``): B1's tiles of 4 rows x 2 units over ``heads`` heads
+    of ``bt`` rows, each shared by ``split`` lanes."""
+    return fwd_units(hidden) // 2 * (heads * bt // 4) * split
+
+
+def resident_split(heads: int, bt: int, hidden: int) -> int | None:
+    """The k split of a resident block of ``heads`` heads of ``bt`` rows: 4
+    where its gate tiles at a split of 2 hold at most ``SPLIT4_MAX_LANES``
+    lanes, else 2; None when they do not fit the block even at 2."""
+    lanes = gate_threads(heads, bt, hidden, 2)
+    if lanes > RESIDENT_THREADS:
+        return None
+    return 4 if lanes <= SPLIT4_MAX_LANES else 2
+
+
+class RolloutPlan(NamedTuple):
+    """A rollout kernel's launch plan.  ``cluster``: blocks of a K1
+    cluster (1 for K2 and the streamed route); ``heads_per_block``: heads
+    of the fullest block; ``bt``: rows of a batch tile; ``split``: lanes a
+    resident thread tile's k is split over (0 on the streamed route);
+    ``smem``: dynamic shared memory of a block in bytes."""
+    route: str
+    cluster: int
+    heads_per_block: int
+    bt: int
+    split: int
+    threads: int
+    smem: int
+
+
+def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
+                  limits) -> int | None:
+    """Batch tile of K1's resident kernel on clusters of ``cluster`` blocks,
+    or None when no tile fits: the widest tile of ``FWD_TILES`` that fits a
+    block and still gives every cluster the card holds at once a tile (a
+    wider tile feeds each scheduler more warps), else the narrowest that
+    fits.  The card is taken to hold one cluster for every ``cluster`` of
+    its SMs (an SM holds one resident block)."""
+    optin, n_sm = limits[0], limits[2]
+    hpb = -(-heads // cluster)
+    fitting = [bt for bt in FWD_TILES
+               if resident_smem_bytes(hpb, bt, d, hidden, 1, True) <= optin
+               and resident_split(hpb, bt, hidden) is not None]
+    for bt in fitting:
+        if -(-batch // bt) >= n_sm // cluster:
+            return bt
+    return fitting[-1] if fitting else None
+
+
+@functools.cache
+def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
+                  limits) -> RolloutPlan:
+    """The route and plan of a rollout at these shapes on a card of
+    ``limits`` = (opt-in shared memory of a block, shared memory of an SM,
+    SMs, threads of an SM, portable cluster size, largest cluster size),
+    chosen before any launch.
+
+    ``kind``: ``"crvae"`` (K1, ``heads`` heads over an input of d = heads
+    columns, one output each) or ``"errvae"`` (K2, one head, d outputs).
+    ``"resident"`` where every weight of a block fits its shared memory:
+    K1 on a cluster of the fewest heads per block that a portable cluster
+    holds (else a larger, non-portable one), the heads spread evenly over
+    as few blocks as that needs; K2 on one block a tile, its tile by B1's
+    cost model (``fwd_step_cost``), a tie to the narrower tile.  The k
+    split of a resident block by ``resident_split``.  Else ``"streamed"``,
+    at ``pick_bt``'s tile.  Raises ValueError when neither route fits.
+    """
+    optin, _, n_sm, _, portable, largest = limits
+    if kind == "crvae":
+        if d != heads:
+            raise ValueError(f"crvae rollout: input width {d} != heads {heads}")
+        for cap in (portable, largest):
+            hpb = -(-heads // min(cap, heads))
+            cluster = -(-heads // hpb)      # as few blocks as hpb a block needs
+            bt = _cluster_tile(batch, heads, d, hidden, cluster, limits)
+            if bt is not None:
+                return RolloutPlan(
+                    "resident", cluster, hpb, bt,
+                    resident_split(hpb, bt, hidden), RESIDENT_THREADS,
+                    resident_smem_bytes(hpb, bt, d, hidden, 1, True))
+    elif kind == "errvae":
+        if heads != 1:
+            raise ValueError(f"errvae rollout: {heads} heads, expected 1")
+        # Narrowest first: a tie goes to the narrower tile, whose step (the
+        # chain a small batch waits on) is shorter.
+        tiles = [n for n in sorted(FWD_TILES)
+                 if resident_split(1, n, hidden) is not None]
+        bt = fit_tile(
+            batch, 1, hidden, tiles,
+            lambda n: resident_smem_bytes(1, n, d, hidden, d, False),
+            lambda *_: RESIDENT_THREADS,
+            lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
+            (*limits[:3], RESIDENT_THREADS))    # one block an SM
+        if bt is not None:
+            return RolloutPlan(
+                "resident", 1, 1, bt, resident_split(1, bt, hidden),
+                RESIDENT_THREADS,
+                resident_smem_bytes(1, bt, d, hidden, d, False))
+    else:
+        raise ValueError(f"unknown rollout kind {kind!r}")
+    if tile_smem_bytes(1, heads, hidden, d) > optin:
+        raise ValueError(
+            f"{kind} rollout: at {heads} heads, D={d}, H={hidden} neither "
+            f"route fits the device's {optin} bytes of shared memory a "
+            f"block: one head's weights need "
+            f"{resident_smem_bytes(1, 4, d, hidden, 1, False)} resident, one "
+            f"row of the streamed kernel {tile_smem_bytes(1, heads, hidden, d)}")
+    bt = pick_bt(batch, heads, hidden, d, optin, n_sm)
+    threads = min(-(-heads * hidden // 32) * 32, 1024 if bt <= 2 else 2048 // bt)
+    return RolloutPlan("streamed", 1, heads, bt, 0, threads,
+                       tile_smem_bytes(bt, heads, hidden, d))
+
+
+@functools.cache
+def device_limits(device: torch.device) -> tuple[int, ...]:
+    """``rollout_route``'s limits, read from ``device`` once."""
+    from vae_connexe_torch.ops._build import rollout_library
+
+    out = (ctypes.c_int * 4)()
+    rc = rollout_library().vcx_device_limits(device.index or 0, out)
+    if rc != 0:
+        raise RuntimeError(f"cannot read the limits of {device} (cuda {rc})")
+    return (*out, PORTABLE_CLUSTER, MAX_CLUSTER)
+
+
+def max_active_clusters(device: torch.device, plan: RolloutPlan, heads: int,
+                        hidden: int) -> int:
+    """How many clusters of K1's resident kernel ``device`` holds at once
+    under ``plan`` (``cudaOccupancyMaxActiveClusters``)."""
+    from vae_connexe_torch.ops._build import rollout_library
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = rollout_library().vcx_crvae_max_clusters(
+            heads, hidden, plan.cluster, plan.bt, plan.split, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed (cuda {rc})")
+    return out.value
+
+
+@functools.cache
+def _plan(kind: str, heads: int, batch: int, d: int, hidden: int,
+          device: torch.device) -> tuple[RolloutPlan, int]:
+    """(plan, clusters to launch) of a rollout on ``device``.  A resident
+    plan's block is checked against the kernel's own sizing; K1's clusters
+    are the fewer of the batch tiles and what the card holds at once, and a
+    card that holds none raises before any launch."""
+    from vae_connexe_torch.ops._build import rollout_library
+
+    plan = rollout_route(kind, heads, batch, d, hidden, device_limits(device))
+    if plan.route == "streamed":
+        return plan, 0
+    outs = 1 if kind == "crvae" else d
+    got = (ctypes.c_longlong * 2)()
+    rollout_library().vcx_resident_block(plan.heads_per_block, plan.bt, d,
+                                         hidden, outs, kind == "crvae", got)
+    if tuple(got) != (plan.smem, plan.threads):
+        raise RuntimeError(f"csrc/rollout.cu sizes a resident block as "
+                           f"{tuple(got)}, cuda_rollout as "
+                           f"{(plan.smem, plan.threads)}")
+    if kind == "errvae":
+        return plan, 0
+    active = max_active_clusters(device, plan, heads, hidden)
+    if active < 1:
+        raise RuntimeError(f"crvae rollout: {device} holds no cluster of "
+                           f"{plan.cluster} blocks of {plan.smem} bytes")
+    return plan, min(active, -(-batch // plan.bt))
+
+
 def _check(device: torch.device, what: str, **expected) -> None:
     """Each ``name=(tensor, shape)`` lies on ``device``, is float32 and has
     exactly ``shape``: the kernel reads it by that shape."""
@@ -74,34 +300,20 @@ def _check(device: torch.device, what: str, **expected) -> None:
                              f"expected {shape}")
 
 
-def _launch(fn_name: str, device: torch.device, tensors, ints, bt: int,
-            scale=None) -> None:
+def _launch(fn_name: str, device: torch.device, tensors, ints) -> None:
     """Call one C entry point of the rollout library on ``device``'s current
-    stream; raise on the CUDA error it returns."""
+    stream with the tensors' data pointers, then ``ints`` (Python ints and
+    ctypes values); raise on the CUDA error it returns."""
     from vae_connexe_torch.ops._build import rollout_library
 
     lib = rollout_library()
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
-    extra = [] if scale is None else [ctypes.c_float(scale)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*ptrs, *ints, *extra, bt,
-                                   ctypes.c_void_p(stream))
+        rc = getattr(lib, fn_name)(*ptrs, *ints, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: "
                            f"{lib.vcx_error_string(rc).decode()} (cuda {rc})")
-
-
-def _pick_bt_on(device: torch.device, batch: int, heads: int, hidden: int,
-                d: int) -> int:
-    """``pick_bt`` with ``device``'s shared-memory limit and SM count."""
-    from vae_connexe_torch.ops._build import rollout_library
-
-    budget = rollout_library().vcx_smem_optin(device.index or 0)
-    if budget < 0:
-        raise RuntimeError(f"cannot read the shared-memory limit of {device}")
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return pick_bt(batch, heads, hidden, d, budget, n_sm)
 
 
 # --------------------------------------------------------------------------
@@ -145,16 +357,22 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
            b_hh=(heads.b_hh, (p, g)), ro_w=(readout.w, (p, 1, hidden)),
            ro_b=(readout.b, (p, 1)), x0=(x0, (b, p)),
            h0=(h0_shared, (b, hidden)), noise=(noise, (b, t_len, p)))
-    bt = _pick_bt_on(dev, b, p, hidden, p)
+    plan, n_clusters = _plan("crvae", p, b, p, hidden, dev)
     out = torch.empty((b, t_len, p), device=dev, dtype=torch.float32)
+    if plan.route == "resident":
+        w_ih, w_hh = heads.w_ih.contiguous(), heads.w_hh.contiguous()
+        tail = (plan.cluster, plan.bt, plan.split, n_clusters)
+    else:
+        w_ih = heads.w_ih.transpose(1, 2).contiguous()
+        w_hh = heads.w_hh.transpose(1, 2).contiguous()
+        tail = (plan.bt,)
     tensors = (x0.contiguous(), h0_shared.contiguous(), noise.contiguous(),
-               heads.w_ih.transpose(1, 2).contiguous(),
-               heads.w_hh.transpose(1, 2).contiguous(),
-               heads.b_ih.contiguous(), heads.b_hh.contiguous(),
+               w_ih, w_hh, heads.b_ih.contiguous(), heads.b_hh.contiguous(),
                readout.w.contiguous(), readout.b.contiguous(), out)
-    _launch("vcx_crvae_free_run", dev, tensors, (b, t_len, p, hidden), bt,
-            scale=float(noise_scale))
+    _launch(f"vcx_crvae_free_run_{plan.route}", dev, tensors,
+            (b, t_len, p, hidden, ctypes.c_float(noise_scale), *tail))
     LAUNCHES["crvae_free_run"] += 1
+    ROUTE_LAUNCHES[f"crvae_free_run_{plan.route}"] += 1
     return out
 
 
@@ -189,11 +407,17 @@ def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
            w_hh=(dec.w_hh, (g, hidden)), b_ih=(dec.b_ih, (g,)),
            b_hh=(dec.b_hh, (g,)), ro_w=(out.w, (d, hidden)),
            ro_b=(out.b, (d,)), h0=(h0, (b, hidden)))
-    bt = _pick_bt_on(dev, b, 1, hidden, d)
+    plan, _ = _plan("errvae", 1, b, d, hidden, dev)
     res = torch.empty((b, t_len, d), device=dev, dtype=torch.float32)
-    tensors = (h0.contiguous(), dec.w_ih.T.contiguous(), dec.w_hh.T.contiguous(),
-               dec.b_ih.contiguous(), dec.b_hh.contiguous(),
-               out.w.contiguous(), out.b.contiguous(), res)
-    _launch("vcx_errvae_sample", dev, tensors, (b, t_len, d, hidden), bt)
+    w_ih, w_hh = ((dec.w_ih.contiguous(), dec.w_hh.contiguous())
+                  if plan.route == "resident" else
+                  (dec.w_ih.T.contiguous(), dec.w_hh.T.contiguous()))
+    tensors = (h0.contiguous(), w_ih, w_hh, dec.b_ih.contiguous(),
+               dec.b_hh.contiguous(), out.w.contiguous(), out.b.contiguous(),
+               res)
+    _launch(f"vcx_errvae_sample_{plan.route}", dev, tensors,
+            (b, t_len, d, hidden, plan.bt)
+            + ((plan.split,) if plan.route == "resident" else ()))
     LAUNCHES["errvae_sample"] += 1
+    ROUTE_LAUNCHES[f"errvae_sample_{plan.route}"] += 1
     return res
