@@ -46,6 +46,12 @@
      chains, both weight-gradient kernels and the latent phase rtol 1e-3,
      atol 1e-4, as B2's gradients.  Two B3 calls on the same inputs must
      give bitwise-equal params and metrics.
+   - B1/B2 at phase 2's call sites: five ``make_phase2_step`` steps at
+     p=20, H=64, ctx=20, B=256 with a random binary mask on the card
+     (four one-head or p-head recurrences a step, the ErrorVAE's decoder
+     from a differentiable h0) against the same steps on the CPU's plain
+     recurrences on the same draws: params, ErrorVAE params, Adam's state
+     and metrics rtol 1e-4, atol 1e-6; two card runs bitwise equal.
 4. The main paths, each with the launch counts set to 0 just before it and
    read just after:
    - serving: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20, H=64),
@@ -67,10 +73,23 @@
      falls;
    - the whole-step kernel: 200 ``fused_phase1_step`` steps on the same
      windows: one B3 launch a step, a loss that falls;
-   - graph recovery: ``lorenz96_crvae``'s phase 1 (p=10, H=64, B=256,
-     lam=0.1, lr=5e-2) for 1000 steps; the GC AUROC against the circulant
-     truth must reach the JAX package's at the same configuration and step
-     count (``tools/jax_phase1_auroc.py``) minus a margin.
+   - the run: ``cli.main(["run", "lorenz96_crvae", ...])`` in this process
+     at the full width (p=10, T=2048, H=64, B=256), steps cut from
+     5000/10000 to 1000/1000: exactly 2 B1 + 2 B2 launches a phase-1 step
+     and 4 + 4 a phase-2 step (read at every chunk's log line), every
+     recurrence a launch; graph recovery, the phase-1 GC AUROC against the
+     circulant truth at least the JAX package's at the same configuration
+     and step count (``tools/jax_phase1_auroc.py``) minus a margin; every
+     head input column off the phase-1 mask exactly zero in the phase-2
+     best params; phase-2 ``recon`` and ``loss_e`` finite and lower at the
+     last chunk than at the first; the generation metrics printed;
+   - kill and resume: a 100-step phase 2 at p=20 with snapshots every 50
+     steps, stopped after the first chunk and resumed, bitwise equal to the
+     uninterrupted fit;
+   - the port's own weights served: ``cli export`` of the run's
+     ``ckpt_phase2``, ``GeneratorServer`` answering three ``/generate``
+     requests on the resident route, held against the plain versions on
+     the same draws.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
@@ -98,6 +117,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -119,7 +139,11 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-4)       # B2 gradients
 # in another order; the plain version's own departure is ~2e-6 of it).
 LONG_SUM_TOL = 1e-5
 STEP_TOL = dict(rtol=1e-4, atol=1e-6)       # B3: one step and five
-FIT_STEPS, STEP_STEPS, GC_STEPS = 300, 200, 1000
+FIT_STEPS, STEP_STEPS = 300, 200
+# lorenz96_crvae through the command line: both phases cut from 5000/10000
+# steps to RUN_STEPS; the phase-2 kill-and-resume and timing fits.
+RUN_STEPS, RESUME_STEPS, RATE_STEPS = 1000, 100, 200
+CRVAE_P = 10
 # lorenz96_scaled (vae_connexe_tpu/configs/experiments.py): p=40, T=4096,
 # context 40, H=128, B=512; cut to 30 steps.
 SCALED_P, SCALED_H, SCALED_B, SCALED_CTX, SCALED_T = 40, 128, 512, 40, 4096
@@ -219,9 +243,10 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> dict[str, float]:
-    """Device time of ``fn`` by kernel, from ``torch.profiler`` over
-    ``iters`` calls: {kernel name: ms a call}, the host's work left out."""
+def profile_ms(fn, iters: int) -> tuple[float, dict[str, float]]:
+    """``fn`` over ``iters`` calls under ``torch.profiler``: (wall ms a
+    call under the profiler, {kernel name: device ms a call}), the host's
+    operators left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,9 +254,11 @@ def device_ms(fn, iters: int) -> dict[str, float]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
     out = {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -240,7 +267,12 @@ def device_ms(fn, iters: int) -> dict[str, float]:
                            getattr(e, "self_cuda_time_total", 0.0)))
         if us > 0:
             out[e.key] = us / iters / 1e3
-    return out
+    return wall, out
+
+
+def device_ms(fn, iters: int) -> dict[str, float]:
+    """Device time of ``fn`` by kernel: {kernel name: ms a call}."""
+    return profile_ms(fn, iters)[1]
 
 
 def kernel_name(key: str) -> str:
@@ -924,35 +956,345 @@ def step_main_path(dev, card, windows):
     return launches
 
 
-def graph_recovery(dev, card):
-    """Phase 4d: lorenz96_crvae's phase 1 recovers the circulant graph."""
+def phase2_state(model, err, params, eparams, gen, dev):
     import torch
 
-    from vae_connexe_torch.data import lorenz96_truth
-    from vae_connexe_torch.evals import gc_metrics
-    from vae_connexe_torch.models import CRVAE
-    from vae_connexe_torch.train import Phase1Config, fit_phase1
+    from vae_connexe_torch.optim import adam_init
+    from vae_connexe_torch.train import Phase2State
 
-    p = 10
-    windows = lorenz_windows(dev, p, seed=4)
-    model = CRVAE(p, H)
-    params = model.init(torch.Generator().manual_seed(5), dev)
-    cfg = Phase1Config(lam=0.1, lr=5e-2, batch_size=TRAIN_B,
-                       max_iter=GC_STEPS, check_every=500)
+    return Phase2State(params=params, err_params=eparams,
+                       err_opt=adam_init(eparams), best_params=params,
+                       best_loss=torch.tensor(float("inf"), device=dev),
+                       generator=gen, step=0)
+
+
+def check_phase2_step(dev, errors):
+    """Phase 3d: five phase-2 steps on the card (B1/B2 at the CRVAE's and
+    the ErrorVAE's call sites) against the same steps on the CPU's plain
+    recurrences, on the same draws, with a random binary mask; two card
+    runs bitwise equal."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.train import Phase2Config, make_phase2_step
+    from vae_connexe_torch.utils.tree import tree_leaves, tree_map
+
+    g = torch.Generator().manual_seed(21)
+    model, err = CRVAE(P, H, ENC), ErrorVAE(P, H)
+    params, eparams = model.init(g, "cpu"), err.init(g, "cpu")
+    parents = (torch.rand((P, P), generator=g) > 0.3).float()
+    windows = torch.randn((1024, CTX, P), generator=g)
+    draws = [(torch.randint(0, 1024, (TRAIN_B,), generator=g),
+              torch.randn((TRAIN_B, H), generator=g),
+              torch.randn((TRAIN_B, H), generator=g)) for _ in range(5)]
+    cfg = Phase2Config(batch_size=TRAIN_B)
+
+    def run(on):
+        to = lambda t: t.to(on)    # noqa: E731
+        ps, es = tree_map(to, params), tree_map(to, eparams)
+        step = make_phase2_step(model, err, cfg, to(windows), to(parents))
+        state = phase2_state(model, err, ps, es, torch.Generator(), on)
+        for idx, eps, eps_err in draws:
+            state, met = step(state, batch=to(windows[idx]), eps=to(eps),
+                              eps_err=to(eps_err))
+        return (tree_leaves(state.params) + tree_leaves(state.err_params)
+                + tree_leaves(state.err_opt.mu)
+                + tree_leaves(state.err_opt.nu) + tree_leaves(state.best_params),
+                torch.stack(list(met.values())))
+
+    cuda_gru.reset_launches()
+    k_leaves, k_met = run(dev)
+    launches = dict(cuda_gru.LAUNCHES)
+    a_leaves, a_met = run(dev)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in
+               zip(k_leaves + [k_met], a_leaves + [a_met]))
+    r_leaves, r_met = run(torch.device("cpu"))
+    what = f"p={P} H={H} ctx={CTX} B={TRAIN_B} parents masked, 5 steps"
+    log(f"check phase2_step {what}: launches {launches} (4 + 4 a step), two "
+        f"card runs bitwise equal: {same}")
+    if launches != {"gru_forward": 20, "gru_backward": 20,
+                    "gru_forward_wide": 0, "gru_backward_wide": 0} or not same:
+        raise AssertionError("the phase-2 step took other launches or is not "
+                             "deterministic")
+    _assert_close("phase2_step", _flat(k_leaves).cpu(), _flat(r_leaves),
+                  errors, **STEP_TOL, what=what + ": params, ErrorVAE params, "
+                  "Adam's moments, best params")
+    _assert_close("phase2_step", k_met.cpu(), r_met, errors, **STEP_TOL,
+                  what=what + ": metrics")
+
+
+class _ChunkTap(io.TextIOBase):
+    """Captures what a command prints and snapshots the recurrence launch
+    counts at every per-chunk log line ("[phase1 it=50] ...")."""
+
+    def __init__(self):
+        self.text = io.StringIO()
+        self.snaps = []
+
+    def write(self, s):
+        from vae_connexe_torch.ops import cuda_gru
+
+        self.text.write(s)
+        for m in re.finditer(r"^\[(phase[12]) it=(\d+)\]", s, re.M):
+            self.snaps.append((m.group(1), int(m.group(2)),
+                               dict(cuda_gru.LAUNCHES)))
+        return len(s)
+
+
+def run_main_path(dev, card, out_dir):
+    """Phase 4d: ``cli run lorenz96_crvae`` at the full width, phases cut
+    to RUN_STEPS steps each, with checkpoints; returns its launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+    from vae_connexe_torch.utils import restore_checkpoint
+
+    name, n = "lorenz96_crvae", RUN_STEPS
+    tap = _ChunkTap()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
     t0 = time.perf_counter()
-    best, _, metrics = fit_phase1(model, params, windows,
-                                  torch.ones((p, p), device=dev), cfg,
-                                  torch.Generator(device=dev).manual_seed(6))
-    gc = gc_metrics(lorenz96_truth(p, dev), model.gc(best, threshold=False))
+    with contextlib.redirect_stdout(tap):
+        cli.main(["run", name, "--iters", str(n), "--out-dir", out_dir,
+                  "--save-checkpoints", "--device", str(dev)])
+    torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    auroc = float(gc["auroc"])
-    log(f"graph recovery lorenz96_crvae p={p} H={H} B={TRAIN_B} "
-        f"{GC_STEPS} steps in {secs:.3f} s: auroc={auroc:.4f} "
-        f"auroc_offdiag={float(gc['auroc_offdiag']):.4f} "
-        f"recall={float(gc['recall']):.4f} mean_loss={metrics['mean_loss']:.5f}; "
-        f"threshold {JAX_AUROC - AUROC_MARGIN:.4f} (JAX {JAX_AUROC} - "
+    total, rollouts = dict(cuda_gru.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    res = json.load(open(os.path.join(out_dir, f"metrics_{name}.json")))
+    per1 = [c for ph, _, c in tap.snaps if ph == "phase1"][-1]
+    end2 = [c for ph, _, c in tap.snaps if ph == "phase2"][-1]
+    per2 = {k: end2[k] - per1[k] for k in total}
+    log(f"main path cli run {name} p={CRVAE_P} H={H} B={TRAIN_B} "
+        f"{n} + {n} steps in {secs:.3f} s: launches phase 1 {per1}, phase 2 "
+        f"{per2}, whole run {total}, rollouts by route {rollouts} [{card}]")
+    want1 = {"gru_forward": 2 * n, "gru_backward": 2 * n,
+             "gru_forward_wide": 0, "gru_backward_wide": 0}
+    want2 = {"gru_forward": 4 * n, "gru_backward": 4 * n,
+             "gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert per1 == want1, (per1, want1)
+    assert per2 == want2, (per2, want2)
+    # After phase 2: one encoder forward of the conditioned rollout, and
+    # two generations (compensated, conditioned) of one K2 and one K1.
+    assert total == {**want1, "gru_forward": 6 * n + 1,
+                     "gru_backward": 6 * n}, total
+    assert rollouts == {"crvae_free_run_resident": 2,
+                        "errvae_sample_resident": 2,
+                        "crvae_free_run_streamed": 0,
+                        "errvae_sample_streamed": 0}, rollouts
+
+    gc = res["gc"]
+    log(f"graph recovery {name} p={CRVAE_P} H={H} B={TRAIN_B} {n} steps: "
+        f"auroc={gc['auroc']:.4f} auroc_offdiag={gc['auroc_offdiag']:.4f} "
+        f"recall={gc['recall']:.4f} mean_loss={res['phase1']['mean_loss']:.5f}"
+        f"; threshold {JAX_AUROC - AUROC_MARGIN:.4f} (JAX {JAX_AUROC} - "
         f"{AUROC_MARGIN}) [{card}]")
-    assert auroc >= JAX_AUROC - AUROC_MARGIN, auroc
+    assert gc["auroc"] >= JAX_AUROC - AUROC_MARGIN, gc
+
+    mask = np.load(os.path.join(out_dir, f"GC_{name}.npy"))
+    g = torch.Generator().manual_seed(0)
+    model, err = CRVAE(CRVAE_P, H), ErrorVAE(CRVAE_P, H)
+    ck = restore_checkpoint(os.path.join(out_dir, "ckpt_phase2"),
+                            {"crvae": model.init(g, dev),
+                             "error_vae": err.init(g, dev)})
+    w_ih = ck["crvae"].heads.w_ih.permute(0, 2, 1)
+    off = torch.tensor(mask == 0, device=dev)
+    frozen = bool((w_ih[off] == 0).all())
+    log(f"phase 2 under the phase-1 mask ({int(mask.sum())} of "
+        f"{mask.size} edges): head input columns off the mask all zero: "
+        f"{frozen}")
+    assert frozen
+
+    log_path = os.path.join(out_dir, f"train_log_{name}.jsonl")
+    rows = [json.loads(line) for line in open(log_path)]
+    p2 = [r for r in rows if r["phase"] == "phase2"]
+    first, last = p2[0], p2[-1]
+    log(f"phase 2 losses, chunk at step {first['step']} -> {last['step']}: "
+        f"recon {first['recon']:.5f} -> {last['recon']:.5f}, loss_e "
+        f"{first['loss_e']:.5f} -> {last['loss_e']:.5f}, kl_e "
+        f"{first['kl_e']:.5f} -> {last['kl_e']:.5f}")
+    for k in ("recon", "loss_e"):
+        assert all(math.isfinite(r[k]) for r in p2), k
+        assert last[k] < first[k], (k, first[k], last[k])
+    log("generation " + json.dumps({
+        k: res[k] for k in ("generated_shape", "generation_moment_gap",
+                            "generation_moment_gap_conditioned")}))
+    return {"run_phase1": per1, "run_phase2": per2,
+            "run_rollouts": rollouts}, (model, err, ck)
+
+
+def kill_resume_main_path(dev, card, windows, out_dir):
+    """Phase 4e: a RESUME_STEPS-step phase 2 at p=20 with snapshots every
+    half, killed after the first chunk and resumed: bitwise equal to the
+    uninterrupted fit."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.train import Phase2Config, fit_phase2
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    class Kill(Exception):
+        pass
+
+    def kill(step, state, metrics):
+        raise Kill
+
+    g = torch.Generator().manual_seed(31)
+    model, err = CRVAE(P, H, ENC), ErrorVAE(P, H)
+    params, eparams = model.init(g, dev), err.init(g, dev)
+    mask = (torch.rand((P, P), generator=g) > 0.3).float().to(dev)
+    half = RESUME_STEPS // 2
+    cfg = Phase2Config(max_iter=RESUME_STEPS, check_every=half,
+                       batch_size=TRAIN_B)
+    args = (model, err, params, eparams, windows, mask, cfg)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(32)
+
+    ck = os.path.join(out_dir, "resume")
+    whole = fit_phase2(*args, gen())
+    try:
+        fit_phase2(*args, gen(), checkpoint_dir=ck, checkpoint_every=half,
+                   callback=kill)
+        raise AssertionError("the kill did not fire")
+    except Kill:
+        pass
+    resumed = fit_phase2(*args, gen(), checkpoint_dir=ck,
+                         checkpoint_every=half, resume=True)
+    torch.cuda.synchronize()
+
+    def leaves(r):
+        best, errp, state, _ = r
+        return (tree_leaves(best) + tree_leaves(errp)
+                + tree_leaves(state.err_opt) + [state.best_loss])
+
+    same = (all(torch.equal(u, v) for u, v in zip(leaves(whole),
+                                                  leaves(resumed)))
+            and whole[3] == resumed[3] and resumed[2].step == RESUME_STEPS)
+    log(f"kill and resume fit_phase2 p={P} H={H} B={TRAIN_B}: "
+        f"{RESUME_STEPS} steps, killed at {half}, resumed: bitwise equal to "
+        f"the uninterrupted fit (params, ErrorVAE, Adam, best, metrics): "
+        f"{same} [{card}]")
+    assert same, "resumed phase 2 differs from the uninterrupted fit"
+
+
+def serve_own_weights(dev, card, out_dir, trained):
+    """Phase 4f: ``cli export`` of the run's ``ckpt_phase2``, served by
+    ``GeneratorServer`` for three requests; the samples held against the
+    plain versions on the same draws; returns the launches."""
+    import contextlib
+
+    import numpy as np
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.ops import cuda_rollout as cr
+    from vae_connexe_torch.server import GeneratorServer
+    from vae_connexe_torch.serving import load_generator
+
+    model, err, ck = trained
+    art, batch = os.path.join(out_dir, "g.vcxt"), TRAIN_B
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export", "lorenz96_crvae",
+                  os.path.join(out_dir, "ckpt_phase2"), "--out", art,
+                  "--batch", str(batch), "--device", str(dev)])
+    cr.reset_launches()
+    srv = GeneratorServer(art, device=dev)
+    srv.start()
+    try:
+        outs = [post(srv, {"seed": s}) for s in (1, 2, 3)]
+    finally:
+        srv.shutdown()
+    launches, routes = dict(cr.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    fn, _ = load_generator(art, dev)
+    ref = plain_generation(model, err, ck["crvae"], ck["error_vae"], 1, batch,
+                           dev)
+    e2e = float(np.abs(outs[0] - ref).max())
+    same = np.array_equal(outs[0], fn(1))
+    log(f"main path serving the port's own lorenz96_crvae weights "
+        f"(p={CRVAE_P}, H={H}, batch {batch}): 3 requests, launches "
+        f"{launches}, by route {routes}, served vs plain max_abs_err="
+        f"{e2e:.3e} tol={TOL:g}, equal to load_generator's fn(1): {same} "
+        f"[{card}]")
+    assert all(o.shape == (batch, T, CRVAE_P) and np.isfinite(o).all()
+               for o in outs)
+    assert routes == {"crvae_free_run_resident": 4, "errvae_sample_resident": 4,
+                      "crvae_free_run_streamed": 0,
+                      "errvae_sample_streamed": 0}, routes
+    assert e2e <= TOL and same, "served own weights disagree"
+    return {"served_own": launches}
+
+
+def time_phase2(dev, card, windows20, windows10):
+    """Phase 5c: steps/s through fit_phase2 beside fit_phase1 at p=20 and
+    at lorenz96_crvae's p=10 (two runs each, in turns, host clock), the
+    launches a step, and the device's busy share of a phase-2 step."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.train import (
+        Phase1Config,
+        Phase2Config,
+        fit_phase1,
+        fit_phase2,
+        make_phase2_step,
+    )
+
+    out = {}
+    for p, windows in ((P, windows20), (CRVAE_P, windows10)):
+        g = torch.Generator().manual_seed(41)
+        model, err = CRVAE(p, H, ENC), ErrorVAE(p, H)
+        params, eparams = model.init(g, dev), err.init(g, dev)
+        ones = torch.ones((p, p), device=dev)
+        c1 = Phase1Config(max_iter=RATE_STEPS, batch_size=TRAIN_B)
+        c2 = Phase2Config(max_iter=RATE_STEPS, batch_size=TRAIN_B)
+        rates, launches = {}, {}
+        for phase in ("phase1", "phase2", "phase1", "phase2"):
+            gen = torch.Generator(device=dev).manual_seed(42)
+            torch.cuda.synchronize()
+            cuda_gru.reset_launches()
+            t0 = time.perf_counter()
+            if phase == "phase1":
+                fit_phase1(model, params, windows, ones, c1, gen)
+            else:
+                fit_phase2(model, err, params, eparams, windows, ones, c2, gen)
+            torch.cuda.synchronize()
+            rates.setdefault(phase, []).append(
+                RATE_STEPS / (time.perf_counter() - t0))
+            launches[phase] = {k: v / RATE_STEPS for k, v in
+                               cuda_gru.LAUNCHES.items() if v}
+        step = make_phase2_step(model, err, c2, windows, ones)
+        state = [phase2_state(model, err, params, eparams,
+                              torch.Generator(device=dev).manual_seed(43),
+                              dev)]
+
+        def run():
+            state[0] = step(state[0])[0]
+
+        for _ in range(4):
+            run()
+        wall, by_kernel = profile_ms(run, 20)
+        busy = sum(by_kernel.values())
+        row = {"phase1_steps_s": rates["phase1"],
+               "phase2_steps_s": rates["phase2"],
+               "phase2_wall_ms": wall, "phase2_device_ms": busy,
+               "phase2_busy_share": busy / wall}
+        out[f"p{p}"] = row
+        log(f"time phase-2 steps/s p={p} H={H} B={TRAIN_B} via fit_phase2: "
+            f"{rates['phase2'][0]:.1f}, {rates['phase2'][1]:.1f}; phase 1 via "
+            f"fit_phase1: {rates['phase1'][0]:.1f}, {rates['phase1'][1]:.1f} "
+            f"(two runs each, in turns); launches a step {launches}; a "
+            f"phase-2 step under the profiler: wall {wall:.4f} ms, device "
+            f"{busy:.4f} ms, busy share {busy / wall:.3f} [{card}]")
+    return out
 
 
 def time_recurrence(dev, card, g, heads, b, td, d, hid):
@@ -1164,15 +1506,21 @@ def main() -> int:
     check_kernels(dev, errors)
     check_training_kernels(dev, errors)
     check_step_phases(dev, errors)
+    check_phase2_step(dev, errors)
     launches, served_fn = serve_main_path(dev)
     launches.update(serve_scaled_path(dev, card))
     series = lorenz_windows(dev, P, seed=0)
     launches.update(train_main_path(dev, card, series))
     launches.update(scaled_main_path(dev, card))
     launches.update(step_main_path(dev, card, series))
-    graph_recovery(dev, card)
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_launches, trained = run_main_path(dev, card, out_dir)
+        kill_resume_main_path(dev, card, series, out_dir)
+        run_launches.update(serve_own_weights(dev, card, out_dir, trained))
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
+    phase2_rates = time_phase2(dev, card, series,
+                               lorenz_windows(dev, CRVAE_P, seed=4))
 
     rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
                             "vae_connexe_torch/csrc/gru.cu")
@@ -1229,6 +1577,17 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": row.get("library_ms"),
             **row.get("extra", {}),
         })
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("gru_forward", "gru_backward"):
+        by_name[name].update(
+            launches_run_phase1=run_launches["run_phase1"][name],
+            launches_run_phase2=run_launches["run_phase2"][name],
+            phase2_step_max_abs_err=errors["phase2_step"])
+    by_name["gru_backward"]["phase2_rates"] = phase2_rates
+    for name in ("crvae_free_run", "errvae_sample"):
+        by_name[name].update(
+            launches_run=run_launches["run_rollouts"][f"{name}_resident"],
+            launches_served_own=run_launches["served_own"][name])
     kernels[-1]["phase_max_abs_err"] = {
         k.split(":", 1)[1]: v for k, v in errors.items()
         if k.startswith("phase1_step:")}

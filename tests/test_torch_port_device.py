@@ -16,23 +16,34 @@ from vae_connexe_torch import _device
 from vae_connexe_torch.models import CRVAE, ErrorVAE, masked_heads
 from vae_connexe_torch.ops import cuda_gru, cuda_rollout, cuda_step
 from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
-from vae_connexe_torch.train import Phase1Config
+from vae_connexe_torch.optim import adam_init
+from vae_connexe_torch.train import (
+    Phase1Config,
+    Phase2Config,
+    Phase2State,
+    make_phase2_step,
+)
 from vae_connexe_torch.utils.tree import tree_leaves
 
 _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
-            "vae_connexe_torch.cli", "vae_connexe_torch.convert",
+            "vae_connexe_torch.cli", "vae_connexe_torch.configs",
+            "vae_connexe_torch.configs.experiments", "vae_connexe_torch.convert",
             "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.windows",
-            "vae_connexe_torch.evals.gc_metrics", "vae_connexe_torch.losses.kl",
+            "vae_connexe_torch.evals.gc_metrics",
+            "vae_connexe_torch.evals.generation", "vae_connexe_torch.losses.kl",
             "vae_connexe_torch.losses.penalties",
             "vae_connexe_torch.models.crvae", "vae_connexe_torch.models.error_vae",
             "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
             "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
             "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
-            "vae_connexe_torch.optim.prox", "vae_connexe_torch.server",
+            "vae_connexe_torch.optim.adam", "vae_connexe_torch.optim.prox",
+            "vae_connexe_torch.server",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",
-            "vae_connexe_torch.utils.layers", "vae_connexe_torch.utils.scalers",
-            "vae_connexe_torch.utils.tree"]
+            "vae_connexe_torch.utils.checkpoint",
+            "vae_connexe_torch.utils.layers",
+            "vae_connexe_torch.utils.metrics_log",
+            "vae_connexe_torch.utils.scalers", "vae_connexe_torch.utils.tree"]
 
 
 def test_port_imports_no_jax():
@@ -330,3 +341,69 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
         lorenz96_truth(4)
     assert lorenz96(g, p=4, t=8, burn_in=2, device="cpu").device.type == "cpu"
     assert lorenz96_truth(4, "cpu").sum() == 16
+
+
+def test_phase2_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """run_experiment, fit_phase2 (through its models' init) and the
+    command line resolve to ``cuda`` and raise without a card unless the
+    caller names the CPU."""
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.configs import run_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_experiment("lorenz96_crvae", verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErrorVAE(3, 4).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["run", "lorenz96_crvae", "--iters", "1", "--quiet"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["export", "lorenz96_crvae", str(tmp_path / "ck"), "--out",
+                  str(tmp_path / "g")])
+
+
+@pytest.mark.cuda
+def test_phase2_step_matches_plain_on_card(cuda_device):
+    """Five phase-2 steps on the card (B1/B2 for all four recurrences)
+    against the same steps on the CPU's plain recurrences, on the same
+    draws, with a random parents mask: params, ErrorVAE params, Adam's
+    state and the metrics rtol 1e-4, atol 1e-6; two card runs bitwise
+    equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    p, hidden, ctx, b = 6, 16, 12, 37
+    model, err = CRVAE(p, hidden), ErrorVAE(p, hidden)
+    params = model.init(g, "cpu")
+    eparams = err.init(g, "cpu")
+    parents = (torch.rand((p, p), generator=g) > 0.4).float()
+    windows = torch.randn((60, ctx, p), generator=g)
+    draws = [(torch.randint(0, 60, (b,), generator=g),
+              torch.randn((b, hidden), generator=g),
+              torch.randn((b, hidden), generator=g)) for _ in range(5)]
+    cfg = Phase2Config(batch_size=b, lr_error=1e-2, lam_ridge=0.01)
+
+    def run(dev):
+        to = lambda t: t.to(dev)   # noqa: E731
+        from vae_connexe_torch.utils.tree import tree_map
+        ps, es = tree_map(to, params), tree_map(to, eparams)
+        step = make_phase2_step(model, err, cfg, to(windows), to(parents))
+        state = Phase2State(params=ps, err_params=es, err_opt=adam_init(es),
+                            best_params=ps,
+                            best_loss=torch.tensor(float("inf"), device=dev),
+                            generator=torch.Generator(), step=0)
+        for idx, eps, eps_err in draws:
+            state, met = step(state, batch=to(windows[idx]), eps=to(eps),
+                              eps_err=to(eps_err))
+        leaves = (tree_leaves(state.params) + tree_leaves(state.err_params)
+                  + tree_leaves(state.err_opt.mu) + tree_leaves(state.err_opt.nu)
+                  + list(met.values()))
+        return [t.cpu() for t in leaves]
+
+    cuda_gru.reset_launches()
+    got, again = run(cuda_device), run(cuda_device)
+    assert cuda_gru.LAUNCHES["gru_forward"] == 2 * 5 * 4
+    assert cuda_gru.LAUNCHES["gru_backward"] == 2 * 5 * 4
+    ref = run(torch.device("cpu"))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-6)

@@ -271,11 +271,12 @@ def test_pick_tile(batch, heads, kernel, want):
 @pytest.mark.parametrize("heads,batch,d,hidden,want,fwd_bt,chain_bt", [
     (20, 256, 20, 64, "kernel", 20, 20),   # the main path's decoder heads
     (1, 256, 20, 64, "kernel", 8, 4),      # ... and its encoder
+    (1, 256, 10, 64, "kernel", 8, 4),      # lorenz96_crvae's ErrorVAE
     (40, 512, 40, 128, "wide", 16, 8),     # lorenz96_scaled's heads
     (1, 512, 40, 128, "wide", 4, 4),       # ... and its encoder
     (128, 64, 128, 128, "wide", 12, 4),    # lorenz96_xl's heads
-], ids=["main-heads", "main-encoder", "scaled-heads", "scaled-encoder",
-        "xl-heads"])
+], ids=["main-heads", "main-encoder", "crvae-error-vae", "scaled-heads",
+        "scaled-encoder", "xl-heads"])
 def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     """The kernels' variant is chosen from shapes and the card's limits
     alone: both weights in shared memory where B1's tile and B2's chain

@@ -74,14 +74,17 @@ def test_crvae_positional_signature_matches_jax(args):
 
 def test_phase1_config_fields_match_jax():
     """Phase1Config's fields in JAX's names, order and defaults; the CS
-    keywords construct, and latent_reg='cs' still raises."""
+    keywords and latent_reg='cs' construct, so every crvae configuration
+    builds, and 'cs' raises where training starts."""
     got = [(f.name, f.default) for f in dataclasses.fields(Phase1Config)]
     want = [(f.name, f.default) for f in dataclasses.fields(JPhase1Config)]
     assert got == want
     assert Phase1Config(lambda_cs=0.1, gmm_components=10,
                         cs_variant="symmetric").lambda_cs == 0.1
+    cfg = Phase1Config(latent_reg="cs", lambda_cs=0.1)
+    windows, parents = torch.zeros((4, T, P)), torch.ones((P, P))
     with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        Phase1Config(latent_reg="cs", lambda_cs=0.1)
+        make_phase1_step(CRVAE(P, H, E), cfg, windows, parents)
 
 
 def test_encode_matches_jax(setup):
@@ -335,17 +338,28 @@ def test_fit_phase1_fixed_batch_draws_once():
         torch.testing.assert_close(a, r, rtol=0, atol=0)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="cs"):
-        Phase1Config(latent_reg="cs")
+def test_unported_options_raise(tmp_path):
+    """latent_reg='cs' and a mesh raise where the fit starts; a checkpoint
+    directory now works: a fit resumed from its own finished snapshot is a
+    pure restore."""
     m = CRVAE(P, H, E)
     params = m.init(torch.Generator().manual_seed(1), "cpu")
-    args = (m, params, _windows(5), torch.ones((P, P)), Phase1Config(),
-            torch.Generator())
+    args = (m, params, _windows(5), torch.ones((P, P)))
+    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
+        fit_phase1(*args, Phase1Config(latent_reg="cs"), torch.Generator())
     with pytest.raises(NotImplementedError, match="mesh"):
-        fit_phase1(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        fit_phase1(*args, checkpoint_dir="ckpt")
+        fit_phase1(*args, Phase1Config(), torch.Generator(), mesh=object())
+    cfg = Phase1Config(max_iter=4, check_every=2, batch_size=8)
+    ckpt = str(tmp_path / "ckpt")
+    best, _, metrics = fit_phase1(*args, cfg, torch.Generator().manual_seed(2),
+                                  checkpoint_dir=ckpt)
+    calls = []
+    again, state, restored = fit_phase1(
+        *args, cfg, torch.Generator().manual_seed(9), checkpoint_dir=ckpt,
+        resume=True, callback=lambda *a: calls.append(a))
+    assert calls == [] and state.step == 4 and restored == metrics
+    for a, r in zip(tree_leaves(again), tree_leaves(best)):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
 
 
 def test_conditioned_rollout_matches_jax(setup):

@@ -1,11 +1,12 @@
-"""Where a phase-1 step's device time goes, by kernel, on one GPU.
+"""Where a training step's device time goes, by kernel, on one GPU.
 
     python3 tools/torch_step_profile.py
 
 Traces 20 steps of each step path at p=20, H=64, ctx=20, B=256 with
 ``torch.profiler`` (CPU and CUDA activity): ``fused_phase1_step`` (the
-eleven kernels of csrc/step.cu) and ``make_phase1_step`` (B1/B2 plus eager
-PyTorch).  Prints, per path, the wall time per step, the device time per
+eleven kernels of csrc/step.cu), ``make_phase1_step`` (B1/B2 plus eager
+PyTorch) and ``make_phase2_step`` (four B1 and four B2 launches, the
+ErrorVAE's Adam, eager PyTorch).  Prints, per path, the wall time per step, the device time per
 step summed over kernels (host operators are left out: they carry their
 kernels' time too), their ratio (the device's busy share; idle is the
 rest), and the kernels that take the most device time.  Needs a CUDA
@@ -24,9 +25,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from vae_connexe_torch.models import CRVAE  # noqa: E402
+from vae_connexe_torch.models import CRVAE, ErrorVAE  # noqa: E402
+from vae_connexe_torch.optim import adam_init  # noqa: E402
 from vae_connexe_torch.ops.cuda_step import fused_phase1_step  # noqa: E402
-from vae_connexe_torch.train import Phase1Config, Phase1State, make_phase1_step  # noqa: E402
+from vae_connexe_torch.train import (  # noqa: E402
+    Phase1Config,
+    Phase1State,
+    Phase2Config,
+    Phase2State,
+    make_phase1_step,
+    make_phase2_step,
+)
 
 P, H, CTX, B, STEPS = 20, 64, 20, 256, 20
 
@@ -94,6 +103,20 @@ def main() -> int:
         state[0] = step(state[0])[0]
 
     trace("make_phase1_step", run, card)
+
+    err = ErrorVAE(P, H)
+    eparams = err.init(torch.Generator().manual_seed(2), dev)
+    step2 = make_phase2_step(model, err, Phase2Config(batch_size=B), windows,
+                             parents)
+    state2 = [Phase2State(params=params, err_params=eparams,
+                          err_opt=adam_init(eparams), best_params=params,
+                          best_loss=torch.tensor(float("inf"), device=dev),
+                          generator=g, step=0)]
+
+    def run2():
+        state2[0] = step2(state2[0])[0]
+
+    trace("make_phase2_step", run2, card)
     return 0
 
 

@@ -1,16 +1,22 @@
 """vae_connexe_torch: the PyTorch/CUDA port of vae_connexe_tpu for one H100.
 
 Imports ``torch`` and never ``jax`` nor the JAX package.  Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.  Serving (compensated
-generation) and phase-1 training are ported; their kernels (``csrc/rollout.cu``,
-``csrc/gru.cu``, ``csrc/step.cu``) are built with ``nvcc`` at first use.
+on ``cuda`` unless the caller passes ``device="cpu"``.  Ported: serving
+(compensated generation), phase-1 and phase-2 training with checkpoints and
+resume, and the crvae family's experiment runner and command line
+(``python -m vae_connexe_torch.cli run lorenz96_crvae``).  The kernels
+(``csrc/rollout.cu``, ``csrc/gru.cu``, ``csrc/step.cu``) are built with
+``nvcc`` at first use.
 """
 
+from vae_connexe_torch.configs import EXPERIMENTS, get_experiment, run_experiment
 from vae_connexe_torch.models import CRVAE, CRVAEParams, ErrorVAE, ErrorVAEParams
 from vae_connexe_torch.serving import export_generator, load_generator
 from vae_connexe_torch.train import (
     Phase1Config,
+    Phase2Config,
     fit_phase1,
+    fit_phase2,
     generate_from_draws,
     generate_with_compensation,
 )
@@ -18,12 +24,17 @@ from vae_connexe_torch.train import (
 __all__ = [
     "CRVAE",
     "CRVAEParams",
+    "EXPERIMENTS",
     "ErrorVAE",
     "ErrorVAEParams",
     "Phase1Config",
+    "Phase2Config",
     "export_generator",
     "fit_phase1",
+    "fit_phase2",
     "generate_from_draws",
     "generate_with_compensation",
+    "get_experiment",
     "load_generator",
+    "run_experiment",
 ]

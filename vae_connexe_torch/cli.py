@@ -1,16 +1,158 @@
-"""Command line of the port: sample from or serve generator artifacts.
+"""Command line of the port: run experiments, evaluate and export their
+checkpoints, sample from or serve generator artifacts.
 
-    python -m vae_connexe_torch.cli generate gen.vcxt --seed 0 --out s.npy
-    python -m vae_connexe_torch.cli serve gen.vcxt --port 8799
+Subcommands:
+  list       show the experiments
+  run        run a named experiment end to end (train, evaluate, artifacts)
+  eval       rescore / generate from a phase-1 checkpoint
+  export     phase-2 checkpoint -> generator artifact
+  generate   sample from an artifact
+  serve      HTTP serving daemon for artifacts
 
-Both run on the card unless ``--device cpu`` is given.  ``export`` restores
-a phase-2 training checkpoint and comes with the training slice.
+Examples:
+  python -m vae_connexe_torch.cli list
+  python -m vae_connexe_torch.cli run lorenz96_crvae --out-dir out --save-checkpoints
+  python -m vae_connexe_torch.cli export lorenz96_crvae out/ckpt_phase2 --out g.vcxt
+  python -m vae_connexe_torch.cli serve g.vcxt --port 8799
+
+Everything runs on the card unless ``--device cpu`` is given.  The JAX
+package's flags that the port does not have yet exit with the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import sys
+
+# Flags of the reference's ``run`` not ported yet: (dest, flag, ROADMAP item).
+_RUN_UNPORTED = (
+    ("mesh", "--mesh", "A7"), ("ep", "--ep", "A7"), ("sp", "--sp", "A7"),
+    ("processes", "--processes", "A7"),
+    ("devices_per_process", "--devices-per-process", "A7"),
+    ("out_of_core", "--out-of-core", "A6"),
+    ("artifacts_every", "--artifacts-every", "A3"),
+    ("debug_nans", "--debug-nans", "A4"),
+)
+
+
+def _unported(args, table):
+    for dest, flag, item in table:
+        if getattr(args, dest) not in (None, False):
+            sys.exit(f"{flag} is not ported yet (ROADMAP {item})")
+
+
+def _cmd_list(args):
+    from vae_connexe_torch.configs import EXPERIMENTS
+
+    for name, exp in sorted(EXPERIMENTS.items()):
+        print(f"{name:20s} family={exp.model_family:6s} dataset={exp.dataset:14s} "
+              f"p={exp.p} hidden={exp.hidden} {exp.notes}")
+
+
+def _cmd_run(args):
+    from vae_connexe_torch.configs import get_experiment, run_experiment
+
+    _unported(args, _RUN_UNPORTED)
+    overrides = {}
+    if args.iters is not None:
+        exp = get_experiment(args.experiment)
+        overrides["phase1"] = dataclasses.replace(exp.phase1,
+                                                  max_iter=args.iters)
+        overrides["phase2"] = dataclasses.replace(exp.phase2,
+                                                  max_iter=args.iters)
+        overrides["win"] = dataclasses.replace(
+            exp.win, stage1_epochs=max(1, args.iters // 10),
+            stage2_epochs=max(1, args.iters // 20))
+    results = run_experiment(args.experiment, seed=args.seed,
+                             out_dir=args.out_dir, overrides=overrides or None,
+                             run_phase2=not args.no_phase2,
+                             save_checkpoints=args.save_checkpoints,
+                             checkpoint_every=args.checkpoint_every,
+                             resume=args.resume, verbose=not args.quiet,
+                             device=args.device)
+    print(json.dumps(results, indent=2, default=str))
+
+
+def _crvae_only(exp, what: str):
+    if exp.model_family != "crvae":
+        sys.exit(f"{what} of the {exp.model_family!r} family is not ported "
+                 f"yet (ROADMAP A4)")
+
+
+def _cmd_eval(args):
+    """Restore a phase-1 checkpoint and its GC companion, rescore, and
+    optionally generate, without training."""
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch._device import resolve_device
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.configs.experiments import _sweep, _unported_dataset
+    from vae_connexe_torch.data import lorenz96_truth
+    from vae_connexe_torch.evals import gc_metrics
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.utils import load_gc, restore_checkpoint
+
+    exp = get_experiment(args.experiment)
+    _crvae_only(exp, "eval")
+    _unported_dataset(exp)
+    dev = resolve_device(args.device)
+    results = {"experiment": args.experiment, "checkpoint": args.checkpoint}
+    model = CRVAE(p=exp.p, hidden=exp.hidden)
+    params = restore_checkpoint(
+        args.checkpoint, model.init(torch.Generator().manual_seed(0), dev))
+    gc = torch.tensor(load_gc(args.checkpoint), dtype=torch.float32,
+                      device=dev)
+    scores = model.gc(params, parents=gc, threshold=False)
+    truth = lorenz96_truth(exp.p, dev)
+    results["gc"] = {k: float(v) for k, v in
+                     gc_metrics(truth, scores, exp.gc_threshold).items()}
+    results["threshold_sweep"] = _sweep(truth, scores)
+    if args.generate:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        roll = model.rollout(params, args.generate, generator=gen, parents=gc)
+        results["generated_shape"] = list(roll.shape)
+        if args.out:
+            np.save(args.out, roll.cpu().numpy())
+            results["saved"] = args.out
+    print(json.dumps(results, indent=2))
+
+
+def _cmd_export(args):
+    """Export a phase-2 checkpoint as a generator artifact."""
+    import pathlib
+
+    import torch
+
+    from vae_connexe_torch._device import resolve_device
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.serving import export_generator
+    from vae_connexe_torch.utils import restore_checkpoint
+
+    if args.platforms is not None:
+        sys.exit("--platforms is not ported yet (ROADMAP A5): the port's "
+                 "artifacts run on cuda")
+    if args.serve_dtype == "bfloat16":
+        sys.exit("--serve-dtype bfloat16 is not ported yet (ROADMAP A5)")
+    exp = get_experiment(args.experiment)
+    _crvae_only(exp, "export")
+    dev = resolve_device(args.device)
+    model = CRVAE(p=exp.p, hidden=exp.hidden)
+    err_model = ErrorVAE(d=exp.p, hidden=exp.hidden)
+    g = torch.Generator().manual_seed(0)
+    target = {"crvae": model.init(g, dev), "error_vae": err_model.init(g, dev)}
+    ckpt = restore_checkpoint(args.checkpoint, target)
+    blob = export_generator(model, err_model, ckpt["crvae"],
+                            ckpt["error_vae"], batch=args.batch,
+                            length=args.length, serve_dtype=args.serve_dtype,
+                            kernel=args.serve_kernel)
+    pathlib.Path(args.out).write_bytes(blob)
+    print(json.dumps({"artifact": args.out, "bytes": len(blob),
+                      "batch": args.batch, "platforms": ["cuda"]}, indent=2))
 
 
 def _cmd_serve(args):
@@ -47,18 +189,94 @@ def _cmd_generate(args):
     print(json.dumps(result, indent=2))
 
 
+def _device_arg(p):
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="vae_connexe_torch",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    sub.add_parser("list", help="list experiments").set_defaults(fn=_cmd_list)
+
+    p_run = sub.add_parser("run", help="run a named experiment")
+    p_run.add_argument("experiment")
+    p_run.add_argument("--seed", type=int, default=0)
+    p_run.add_argument("--out-dir", default=None)
+    p_run.add_argument("--iters", type=int, default=None,
+                       help="override phase iteration counts (smoke runs)")
+    p_run.add_argument("--no-phase2", action="store_true")
+    p_run.add_argument("--save-checkpoints", action="store_true",
+                       help="write ckpt_phase1 (+ GC companion) and "
+                            "ckpt_phase2 to --out-dir")
+    p_run.add_argument("--checkpoint-every", type=int, default=None,
+                       dest="checkpoint_every", metavar="N",
+                       help="snapshot the running phase's whole state every "
+                            "N steps under --out-dir; a killed run restarts "
+                            "with --resume, bitwise equal to the "
+                            "uninterrupted run")
+    p_run.add_argument("--resume", action="store_true",
+                       help="restore the latest mid-phase snapshot under "
+                            "--out-dir and continue (finished phases are "
+                            "pure restores)")
+    p_run.add_argument("--quiet", action="store_true")
+    _device_arg(p_run)
+    # The reference's flags that are not ported yet: each exits.
+    p_run.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
+    p_run.add_argument("--ep", type=int, default=None, help=argparse.SUPPRESS)
+    p_run.add_argument("--sp", type=int, default=None, help=argparse.SUPPRESS)
+    p_run.add_argument("--processes", type=int, default=None,
+                       help=argparse.SUPPRESS)
+    p_run.add_argument("--devices-per-process", type=int, default=None,
+                       dest="devices_per_process", help=argparse.SUPPRESS)
+    p_run.add_argument("--out-of-core", action="store_true",
+                       dest="out_of_core", help=argparse.SUPPRESS)
+    p_run.add_argument("--artifacts-every", type=int, default=None,
+                       help=argparse.SUPPRESS)
+    p_run.add_argument("--debug-nans", action="store_true", dest="debug_nans",
+                       help=argparse.SUPPRESS)
+    p_run.set_defaults(fn=_cmd_run)
+
+    p_e = sub.add_parser("eval", help="evaluate / generate from a checkpoint")
+    p_e.add_argument("experiment", help="experiment name (model geometry)")
+    p_e.add_argument("checkpoint", help="ckpt_phase1 from run "
+                                        "--save-checkpoints")
+    p_e.add_argument("--seed", type=int, default=0)
+    p_e.add_argument("--generate", type=int, default=0, metavar="BATCH",
+                     help="also sample BATCH free-running rollouts")
+    p_e.add_argument("--out", default=None, help=".npy path for samples")
+    _device_arg(p_e)
+    p_e.set_defaults(fn=_cmd_eval)
+
+    p_x = sub.add_parser("export", help="export a phase-2 checkpoint as a "
+                                        "generator artifact")
+    p_x.add_argument("experiment", help="experiment name (model geometry)")
+    p_x.add_argument("checkpoint", help="ckpt_phase2 from run "
+                                        "--save-checkpoints")
+    p_x.add_argument("--out", required=True, help="artifact path (.vcxt)")
+    p_x.add_argument("--batch", type=int, default=64,
+                     help="rollouts per call (baked into the artifact)")
+    p_x.add_argument("--length", type=int, default=None,
+                     help="rollout length override")
+    p_x.add_argument("--serve-dtype", choices=["float32", "bfloat16"],
+                     default=None)
+    p_x.add_argument("--serve-kernel", choices=["auto", "lax", "fused"],
+                     default="lax",
+                     help="kept for the reference's signature: every value "
+                          "serves through the CUDA rollout kernels")
+    p_x.add_argument("--platforms", nargs="+", default=None,
+                     help=argparse.SUPPRESS)
+    _device_arg(p_x)
+    p_x.set_defaults(fn=_cmd_export)
+
     p_g = sub.add_parser("generate", help="sample from an artifact")
-    p_g.add_argument("artifact", help="artifact path from export_generator")
+    p_g.add_argument("artifact", help="artifact path from export")
     p_g.add_argument("--seed", type=int, default=0)
     p_g.add_argument("--out", default=None, help=".npy path for samples")
-    p_g.add_argument("--device", default=None,
-                     help="torch device (default cuda)")
+    _device_arg(p_g)
     p_g.set_defaults(fn=_cmd_generate)
 
     p_s = sub.add_parser("serve", help="HTTP serving daemon for artifacts "
@@ -72,8 +290,7 @@ def main(argv=None):
                           "/generate/<file-stem>")
     p_s.add_argument("--host", default="127.0.0.1")
     p_s.add_argument("--port", type=int, default=8799)
-    p_s.add_argument("--device", default=None,
-                     help="torch device (default cuda)")
+    _device_arg(p_s)
     p_s.set_defaults(fn=_cmd_serve)
 
     args = ap.parse_args(argv)

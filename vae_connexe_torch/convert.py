@@ -45,3 +45,30 @@ def from_numpy(cls, tree: dict, device=None):
             kwargs[name] = torch.tensor(np.asarray(tree[name], np.float32),
                                         device=dev)
     return cls(**kwargs)
+
+
+def phase2_state_from_numpy(crvae_tree: dict, err_tree: dict, opt_tree: dict,
+                            device=None) -> dict:
+    """The JAX package's phase-2 state pieces, as nested dicts of arrays,
+    -> the port's ``Phase2State`` fields on ``device``.
+
+    ``crvae_tree`` and ``err_tree``: ``to_state_dict`` of the CRVAE and
+    ErrorVAE params; ``opt_tree``: ``to_state_dict`` of ``optax.adam``'s
+    state, the chain ``(ScaleByAdamState, EmptyState)`` as ``{'0':
+    {'count', 'mu', 'nu'}, '1': {}}``.  Returns ``{"params",
+    "err_params", "err_opt"}``, to which the caller adds the best params
+    and loss, a generator and the step.
+    """
+    from vae_connexe_torch.models.crvae import CRVAEParams
+    from vae_connexe_torch.models.error_vae import ErrorVAEParams
+    from vae_connexe_torch.optim.adam import AdamState
+
+    dev = resolve_device(device)
+    adam = opt_tree["0"]
+    count = torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32,
+                         device=dev)
+    return {"params": from_numpy(CRVAEParams, crvae_tree, dev),
+            "err_params": from_numpy(ErrorVAEParams, err_tree, dev),
+            "err_opt": AdamState(
+                count=count, mu=from_numpy(ErrorVAEParams, adam["mu"], dev),
+                nu=from_numpy(ErrorVAEParams, adam["nu"], dev))}

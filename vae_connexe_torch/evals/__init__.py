@@ -7,6 +7,8 @@ from vae_connexe_torch.evals.gc_metrics import (
     threshold_sweep,
     variable_usage,
 )
+from vae_connexe_torch.evals.generation import moment_match, prediction_mse
 
 __all__ = ["auroc", "auto_threshold", "gc_accuracy", "gc_metrics",
-           "precision_recall_f1", "threshold_sweep", "variable_usage"]
+           "moment_match", "precision_recall_f1", "prediction_mse",
+           "threshold_sweep", "variable_usage"]

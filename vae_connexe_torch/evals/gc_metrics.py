@@ -3,7 +3,7 @@
 Exact-match accuracy, precision/recall/F1, AUROC of the continuous scores
 (Mann-Whitney with midranks for ties), a threshold sweep, the unsupervised
 log-gap threshold and the one-call summary.  Stability selection and the
-vote functions come with ``discover`` (ROADMAP A5).
+vote functions come with ``discover`` (ROADMAP A3).
 """
 
 from __future__ import annotations

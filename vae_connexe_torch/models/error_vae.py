@@ -1,11 +1,18 @@
-"""Error-compensation sequence VAE, sampling half (port of
+"""Error-compensation sequence VAE (port of
 ``vae_connexe_tpu/models/error_vae.py``).
 
-Trained on the CRVAE's residuals; at generation time it synthesises an error
-sequence that is blended into the rollout.  This slice ports the parameters
-and free-running sampling; ``forward`` comes with the training slice.
-Sampling runs through the K2 kernel (``ops/cuda_rollout.errvae_sample_fused``)
-on a CUDA tensor and through its plain version on a CPU tensor.
+Trained on the CRVAE's residuals in phase 2; at generation time it
+synthesises an error sequence that is blended into the rollout.
+
+``forward``'s two recurrences (the encoder over the residuals, the decoder
+from ``tanh(z2h(z))``) go through ``ops/dispatch.py::gru_sequence``: on a
+CUDA tensor each is a one-head launch of the B1 forward kernel and, under
+autograd, of the B2 backward kernel; on a CPU tensor they run the plain
+``gru_scan``.  The JAX package calls ``gru_scan`` directly here, which on a
+TPU is XLA's scan, not a Pallas kernel; on the card the port has no other
+route, so these recurrences are B1/B2 launches.  Sampling runs through the
+K2 kernel (``ops/cuda_rollout.errvae_sample_fused``) on a CUDA tensor and
+through its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ import torch
 from vae_connexe_torch._device import resolve_device
 from vae_connexe_torch.models.crvae import no_reduced_precision
 from vae_connexe_torch.ops.cuda_rollout import errvae_sample_fused
+from vae_connexe_torch.ops.dispatch import gru_sequence
 from vae_connexe_torch.ops.gru import GRUParams, init_gru
-from vae_connexe_torch.utils.layers import Dense, init_dense
+from vae_connexe_torch.utils.layers import Dense, dense, init_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,17 +47,18 @@ class ErrorVAE:
       d: number of series.
       hidden: GRU hidden size.
       latent: latent size (default ``hidden``, the author variant).
+      shift_decoder_input: author-variant teacher forcing (the decoder
+        reads a zero step, then the residuals shifted right by one) rather
+        than the residuals as they are (the W_in variants).
       rollout_len: default sample length.
-
-    The reference's ``shift_decoder_input`` belongs to ``forward`` and comes
-    with it in the training slice.
     """
 
     def __init__(self, d: int, hidden: int, latent: Optional[int] = None,
-                 rollout_len: int = 21):
+                 shift_decoder_input: bool = True, rollout_len: int = 21):
         self.d = d
         self.hidden = hidden
         self.latent = hidden if latent is None else latent
+        self.shift_decoder_input = shift_decoder_input
         self.rollout_len = rollout_len
 
     def init(self, generator: torch.Generator, device=None) -> ErrorVAEParams:
@@ -65,6 +74,37 @@ class ErrorVAE:
             dec=init_gru(g, self.d, self.hidden, dev),
             out=init_dense(g, self.hidden, self.d, dev),
         )
+
+    def forward(self, params: ErrorVAEParams, eps_seq: torch.Tensor,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Reconstruct a residual sequence.
+
+        eps_seq: (B, T, D) residuals.  The encoder reads them from h0 = 0;
+        z = mu + exp(logvar / 2) * eps, with eps (B, Z) passed in or drawn
+        from ``generator``; ``tanh(z2h(z))`` is the decoder's h0.  Returns
+        (recon (B, T, D), mu (B, Z), logvar (B, Z)).
+        """
+        b = eps_seq.shape[0]
+        h0 = torch.zeros((b, self.hidden), device=eps_seq.device,
+                         dtype=eps_seq.dtype)
+        _, h_t = gru_sequence(params.enc, eps_seq, h0)
+        mu = dense(params.fc_mu, h_t)
+        logvar = dense(params.fc_std, h_t)
+        if eps is None:
+            if generator is None:
+                raise ValueError("forward needs an eps draw or a generator")
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=generator.device)
+        z = mu + torch.exp(0.5 * logvar) * eps.to(mu.device)
+        h_dec = torch.tanh(dense(params.z2h, z))
+        if self.shift_decoder_input:
+            dec_in = torch.cat([torch.zeros_like(eps_seq[:, :1]),
+                                eps_seq[:, :-1]], dim=1)
+        else:
+            dec_in = eps_seq
+        outs, _ = gru_sequence(params.dec, dec_in, h_dec)
+        return dense(params.out, outs), mu, logvar
 
     def sample(self, params: ErrorVAEParams, batch: int,
                generator: Optional[torch.Generator] = None,

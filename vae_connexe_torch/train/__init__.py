@@ -1,11 +1,23 @@
-from vae_connexe_torch.train.config import Phase1Config
+"""Trainers: the two-phase CRVAE fits and compensated generation."""
+
+from vae_connexe_torch.train.config import (
+    CSRAETrainConfig,
+    Phase1Config,
+    Phase2Config,
+    WInTrainConfig,
+)
 from vae_connexe_torch.train.crvae_trainer import (
     Phase1State,
+    Phase2State,
     fit_phase1,
+    fit_phase2,
     generate_from_draws,
     generate_with_compensation,
     make_phase1_step,
+    make_phase2_step,
 )
 
-__all__ = ["Phase1Config", "Phase1State", "fit_phase1", "generate_from_draws",
-           "generate_with_compensation", "make_phase1_step"]
+__all__ = ["CSRAETrainConfig", "Phase1Config", "Phase1State", "Phase2Config",
+           "Phase2State", "WInTrainConfig", "fit_phase1", "fit_phase2",
+           "generate_from_draws", "generate_with_compensation",
+           "make_phase1_step", "make_phase2_step"]

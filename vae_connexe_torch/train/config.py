@@ -1,5 +1,11 @@
-"""Phase-1 configuration (port of ``vae_connexe_tpu/train/config.py``,
-``Phase1Config``)."""
+"""Training configuration (port of ``vae_connexe_tpu/train/config.py``).
+
+Plain dataclasses with the reference's names, order and defaults.
+``latent_reg='cs'`` (the CS-divergence hybrid) constructs, so that every
+entry of the experiments table builds; the trainers raise on it until the
+CS divergence is ported.  ``WInTrainConfig`` and ``CSRAETrainConfig`` are
+data for the experiments table: their trainers are not ported yet.
+"""
 
 from __future__ import annotations
 
@@ -13,10 +19,7 @@ class Phase1Config:
     Defaults follow the reference's Lorenz-96 script: lam=0.1 group lasso,
     lr=5e-2 manual SGD, beta=0.1 KL weight, batch 256, 5000 iterations.
     ``resample_batches=False`` trains on one fixed random batch, as the
-    author scripts do.  ``latent_reg='cs'`` (the CS-divergence hybrid) is
-    not ported yet and raises; its ``lambda_cs``, ``gmm_components`` and
-    ``cs_variant`` are taken, with the reference's names, order and
-    defaults, so that every crvae configuration of the reference builds.
+    author scripts do.
     """
 
     lam: float = 0.1
@@ -32,10 +35,63 @@ class Phase1Config:
     gmm_components: int = 10
     cs_variant: str = "symmetric"
 
-    def __post_init__(self):
-        if self.latent_reg == "cs":
-            raise NotImplementedError(
-                "latent_reg='cs' (CS divergence against a GMM prior) is not "
-                "ported yet; the port trains with latent_reg='kl'")
-        if self.latent_reg != "kl":
-            raise ValueError(f"unknown latent_reg {self.latent_reg!r}")
+
+@dataclasses.dataclass(frozen=True)
+class Phase2Config:
+    """Generation phase: lam=0, beta=1, manual SGD lr=5e-2 on the pruned
+    CRVAE and Adam 1e-3 on the error VAE."""
+
+    lr: float = 5e-2
+    lr_error: float = 1e-3
+    beta: float = 1.0
+    beta_error: float = 1.0
+    lam_ridge: float = 0.0
+    batch_size: int = 256
+    max_iter: int = 10000
+    check_every: int = 50
+    latent_reg: str = "kl"
+    lambda_cs: float = 0.1
+    gmm_components: int = 10
+    cs_variant: str = "symmetric"
+
+
+@dataclasses.dataclass(frozen=True)
+class WInTrainConfig:
+    """Trainer config of the explicit-W_in variant (its trainer is not
+    ported yet)."""
+
+    lr: float = 2e-3
+    lr_prox: float | None = None
+    lam: float = 0.03
+    prox_groups: str = "row"
+    batch_size: int = 256
+    stage1_epochs: int = 2000
+    stage2_epochs: int = 1000
+    prune_threshold: float = 1e-6
+    update_w_in_stage2: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRAETrainConfig:
+    """Trainer config of the MixtureCSRAE (its trainer is not ported
+    yet)."""
+
+    hidden_dims: tuple[int, ...] = (400,)
+    latent_dim: int = 20
+    k: int = 10
+    lambda_cs: float = 1.0
+    cs_variant: str = "symmetric"
+    epochs: int = 30
+    batch_size: int = 128
+    lr: float = 1e-3
+
+
+def check_latent_reg(cfg) -> None:
+    """Raise where training would start on a latent regulariser the port
+    does not have."""
+    if cfg.latent_reg == "cs":
+        raise NotImplementedError(
+            "latent_reg='cs' (CS divergence against a GMM prior) is not "
+            "ported yet (ROADMAP A4); the port trains with latent_reg='kl'")
+    if cfg.latent_reg != "kl":
+        raise ValueError(f"unknown latent_reg {cfg.latent_reg!r}")

@@ -1,29 +1,39 @@
-"""Phase-1 training and compensated generation (port of
-``vae_connexe_tpu/train/crvae_trainer.py:70-357`` and ``:510-588``).
+"""Two-phase CRVAE training and compensated generation (port of
+``vae_connexe_tpu/train/crvae_trainer.py``).
 
 Phase 1, structure learning: each step computes the loss (sum of the
 per-variable MSEs + ridge + beta * KL) and its gradient at the incoming
 parameters, takes a manual SGD step, projects the head input weights onto
 the parents mask and group-soft-thresholds their columns; the surviving
-columns are the learned Granger graph.  The best model is the one with the
-lowest ``mean_loss``, snapshotted at the parameters that achieved it.
+columns are the learned Granger graph.  Phase 2, generation: the same
+step with lam = 0 on the pruned CRVAE under the binary GC mask, plus the
+error VAE trained by Adam on the detached residuals.  The best model is
+the one with the lowest ``mean_loss``, snapshotted at the parameters that
+achieved it.
 
-PyTorch runs eagerly, so ``fit_phase1`` is a Python loop over steps in
-chunks of ``check_every``; the host reads the metrics once per chunk.  On
-the card the recurrences of every step run through the B1/B2 kernels
-(``ops/dispatch.py``); the whole step in one kernel family (B3) is the
-separate entry point ``ops.cuda_step.fused_phase1_step``, as in the JAX
-package, where ``fit_phase1`` does not call it either.
+PyTorch runs eagerly, so each fit is a Python loop over steps in chunks of
+``check_every`` (``_run_chunked``, shared by both fits); the host reads the
+metrics once per chunk.  On the card every recurrence of a step runs
+through the B1/B2 kernels (``ops/dispatch.py``): 2 + 2 launches a phase-1
+step, 4 + 4 a phase-2 step (the ErrorVAE's encoder and decoder are
+one-head launches).  The whole phase-1 step in one kernel family (B3) is
+the separate entry point ``ops.cuda_step.fused_phase1_step``, as in the
+JAX package, where ``fit_phase1`` does not call it either.
 
-Random draws come from the ``torch.Generator`` the fit is given: each step
-draws its batch indices first and its reparameterisation epsilon second
-(with a fixed batch, only epsilon).  Both can be passed to a step as
-tensors instead.  The JAX package's threefry keys give other numbers, so
-results match it draw for draw only when the draws are passed in.
+Random draws come from the ``torch.Generator`` a fit is given: a phase-1
+step draws its batch indices first and its reparameterisation epsilon
+second (with a fixed batch, only epsilon); a phase-2 step draws the
+indices, epsilon (B, H), then the error VAE's epsilon (B, Z), the order of
+the reference's ``k_batch, k_z, k_e`` split.  Each can be passed to a step
+as a tensor instead.  The JAX package's threefry keys give other numbers,
+so results match it draw for draw only when the draws are passed in.
 
-Phase-2 sampling: draw an error sequence from the error VAE and inject it,
-scaled by ``model.noise_scale``, into the CRVAE's free run.  The phase-2
-trainer is not ported yet (ROADMAP A3).
+Checkpoints (``checkpoint_dir``) hold the whole phase state, the
+generator's state included, so a killed and resumed fit equals the
+uninterrupted one bitwise.
+
+Compensated generation: draw an error sequence from the error VAE and
+inject it, scaled by ``model.noise_scale``, into the CRVAE's free run.
 """
 
 from __future__ import annotations
@@ -47,8 +57,14 @@ from vae_connexe_torch.ops.cuda_rollout import (
     errvae_sample_fused,
 )
 from vae_connexe_torch.ops.gru import GRUParams
+from vae_connexe_torch.optim.adam import AdamState, adam_init, adam_update
 from vae_connexe_torch.optim.prox import prox_column_groups
-from vae_connexe_torch.train.config import Phase1Config
+from vae_connexe_torch.train.config import (
+    Phase1Config,
+    Phase2Config,
+    check_latent_reg,
+)
+from vae_connexe_torch.utils.checkpoint import TrainCheckpointer
 from vae_connexe_torch.utils.layers import Dense
 from vae_connexe_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -62,6 +78,23 @@ class Phase1State:
     best_loss: torch.Tensor        # 0-d
     generator: torch.Generator
     step: int
+
+
+@dataclasses.dataclass
+class Phase2State:
+    params: CRVAEParams
+    err_params: ErrorVAEParams
+    err_opt: AdamState
+    best_params: CRVAEParams
+    best_loss: torch.Tensor        # 0-d
+    generator: torch.Generator
+    step: int
+
+
+def _no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"meshed {what} fits are not ported yet (ROADMAP A7)")
 
 
 def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
@@ -99,7 +132,72 @@ def _chunk_lengths(max_iter: int, check_every: int) -> list[int]:
     return [check_every] * full + ([rem] if rem else [])
 
 
-def _track_best(state: Phase1State, candidate_params: CRVAEParams,
+def _make_checkpointer(checkpoint_dir, checkpoint_every):
+    if checkpoint_dir is None:
+        return None
+    return TrainCheckpointer(checkpoint_dir, checkpoint_every)
+
+
+def _restore_if_resuming(ckpt, state, resume: bool):
+    """(state, metrics) from the latest snapshot when resuming and one
+    exists, else (state, None)."""
+    if ckpt is not None and resume:
+        restored = ckpt.restore(state)
+        if restored is not None:
+            return restored
+    return state, None
+
+
+def _stepper(step):
+    """``run_chunk(state, length)``: ``length`` steps; returns the state
+    and the last step's metrics."""
+    def run_chunk(state, length):
+        last = {}
+        for _ in range(length):
+            state, last = step(state)
+        return state, last
+    return run_chunk
+
+
+def _run_chunked(run_chunk, state, cfg, ckpt, resume_metrics, verbose,
+                 log_fn, callback, phase: str):
+    """The resume-aware chunk loop of both fits.
+
+    ``state.step`` may be non-zero (a restored mid-phase snapshot): chunks
+    the uninterrupted run already ran are skipped, and the rest run from
+    the exact state the uninterrupted run had at that boundary, so a
+    killed and resumed fit is bitwise the uninterrupted one.  Snapshots
+    land only on chunk boundaries, so a restored step that is not a prefix
+    sum of the chunk lengths means the config changed between runs: that
+    raises.
+    """
+    start = int(state.step)
+    metrics = dict(resume_metrics) if resume_metrics else {}
+    done = 0
+    for length in _chunk_lengths(cfg.max_iter, cfg.check_every):
+        end = done + length
+        if end <= start:
+            done = end
+            continue
+        if done < start:
+            raise ValueError(
+                f"resumed step {start} is not a chunk boundary of "
+                f"check_every={cfg.check_every} / max_iter={cfg.max_iter}: "
+                f"the config changed since the checkpoint was written")
+        done = end
+        state, last = run_chunk(state, length)
+        metrics = {k: float(v) for k, v in last.items()}
+        if ckpt is not None:
+            ckpt.maybe_save(state, metrics, final=(done == cfg.max_iter))
+        if verbose:
+            log_fn(f"[{phase} it={int(state.step)}] "
+                   + " ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
+        if callback is not None:
+            callback(int(state.step), state, metrics)
+    return state, metrics
+
+
+def _track_best(state, candidate_params: CRVAEParams,
                 mean_loss: torch.Tensor):
     """Snapshot ``candidate_params`` when ``mean_loss`` improves.
 
@@ -146,7 +244,9 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     ``cfg.resample_batches`` false, the fixed batch is one random gather
     drawn here from a generator seeded 0.  The best-model pick sees the
     pre-update parameters; ``variable_usage`` is read after the update.
+    ``cfg.latent_reg='cs'`` raises (ROADMAP A4).
     """
+    check_latent_reg(cfg)
     n = windows.shape[0]
     if fixed_batch is None and not cfg.resample_batches:
         g0 = torch.Generator(device=windows.device).manual_seed(0)
@@ -182,7 +282,8 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
                parents: torch.Tensor, cfg: Phase1Config,
                generator: torch.Generator, verbose: bool = False,
                log_fn=print, callback=None, mesh=None,
-               checkpoint_dir: Optional[str] = None, resume: bool = False):
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 0, resume: bool = False):
     """Run phase 1 for exactly ``cfg.max_iter`` steps; returns (the params
     of the lowest ``mean_loss``, the final state, the last metrics as
     floats).
@@ -191,13 +292,17 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
     ``cfg.resample_batches`` false, the one fixed batch is drawn from
     ``generator`` before the first step.  The host reads the metrics once
     per chunk of ``cfg.check_every`` steps; ``callback(step, state,
-    metrics)`` fires then.  ``mesh`` (ROADMAP A8) and ``checkpoint_dir`` /
-    ``resume`` (A4) are not ported yet and raise.
+    metrics)`` fires then.
+
+    ``checkpoint_dir`` snapshots the whole state every ``checkpoint_every``
+    steps (at chunk boundaries) and at the final step; ``resume=True``
+    restores the latest snapshot, if there is one, into ``generator`` and
+    the state and runs only the remaining chunks, bitwise equal to the
+    uninterrupted fit.  A resumed finished phase is a pure restore.
+    ``mesh`` (ROADMAP A7) is not ported yet and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError("meshed phase-1 fits are not ported yet")
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError("phase-1 checkpoints are not ported yet")
+    check_latent_reg(cfg)
+    _no_mesh(mesh, "phase-1")
     fixed_batch = None
     if not cfg.resample_batches:
         idx = torch.randint(0, windows.shape[0], (cfg.batch_size,),
@@ -208,17 +313,129 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
                         best_loss=torch.tensor(float("inf"),
                                                device=windows.device),
                         generator=generator, step=0)
-    metrics = {}
-    for length in _chunk_lengths(cfg.max_iter, cfg.check_every):
-        for _ in range(length):
-            state, last = step(state)
-        metrics = {k: float(v) for k, v in last.items()}
-        if verbose:
-            log_fn(f"[phase1 it={state.step}] "
-                   + " ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
-        if callback is not None:
-            callback(state.step, state, metrics)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
+    state, metrics = _run_chunked(_stepper(step), state, cfg, ckpt,
+                                  resume_metrics, verbose, log_fn, callback,
+                                  "phase1")
     return state.best_params, state, metrics
+
+
+def _phase2_update(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
+                   state: Phase2State, parents: torch.Tensor,
+                   batch: torch.Tensor, eps: torch.Tensor,
+                   eps_err: torch.Tensor):
+    """One phase-2 update on a given batch and draws: one backward of the
+    CRVAE loss plus the error VAE's loss over the leaves of both models,
+    SGD and the mask projection on the CRVAE, Adam on the error VAE.
+    Returns (params, err_params, err_opt, metrics of 0-d tensors)."""
+    with torch.enable_grad():
+        live = tree_map(lambda t: t.detach().requires_grad_(True),
+                        state.params)
+        err_live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            state.err_params)
+        main_loss, aux = _crvae_loss(model, cfg, live, batch, eps, parents,
+                                     cfg.beta)
+        # The gradient firewall: the error VAE trains on the residuals as
+        # data, so its loss sends no gradient into the CRVAE.
+        error = (batch[:, model.enc_len:, :] - aux["pred"]).detach()
+        recon_e, mu_e, logvar_e = err_model.forward(err_live, error, eps_err)
+        loss_e = torch.mean((recon_e - error) ** 2)
+        kl_e = kl_gaussian(mu_e, logvar_e)
+        smooth_e = loss_e + cfg.beta_error * kl_e
+        leaves, err_leaves = tree_leaves(live), tree_leaves(err_live)
+        # The two losses are gradient-disjoint, so one backward of their
+        # sum serves both optimisers.
+        grads = torch.autograd.grad(main_loss + smooth_e, leaves + err_leaves)
+    with torch.no_grad():
+        g_params = tree_unflatten(state.params, grads[:len(leaves)])
+        params = tree_map(lambda p, g: p - cfg.lr * g, state.params, g_params)
+        params = _project_and_prox(params, parents, 0.0, cfg.lr)
+        g_err = tree_unflatten(state.err_params, grads[len(leaves):])
+        err_params, err_opt = adam_update(g_err, state.err_opt,
+                                          state.err_params, cfg.lr_error)
+    metrics = {"recon": aux["recon"].detach(),
+               "latent_reg": aux["latent_reg"].detach(),
+               "mean_loss": aux["mean_loss"].detach(),
+               "loss_e": smooth_e.detach(), "kl_e": kl_e.detach()}
+    return params, err_params, err_opt, metrics
+
+
+def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
+                     windows: torch.Tensor, parents: torch.Tensor):
+    """Build the phase-2 step: ``step(state, batch=None, eps=None,
+    eps_err=None)`` -> (new Phase2State, metrics).
+
+    Each call draws from ``state.generator`` the batch indices (unless
+    ``batch`` is given), then epsilon (B, H) (unless ``eps``), then the
+    error VAE's epsilon (B, Z) (unless ``eps_err``).  The loss is the CRVAE
+    loss at beta = ``cfg.beta`` plus the error VAE's ``mean((recon -
+    error)^2) + beta_error * KL`` on the detached residuals; SGD with the
+    mask projection (lam = 0) updates the CRVAE, Adam at ``cfg.lr_error``
+    the error VAE.  The best-model pick sees the pre-update CRVAE params.
+    ``cfg.latent_reg='cs'`` raises (ROADMAP A4).
+    """
+    check_latent_reg(cfg)
+    n = windows.shape[0]
+
+    def step(state: Phase2State, batch: Optional[torch.Tensor] = None,
+             eps: Optional[torch.Tensor] = None,
+             eps_err: Optional[torch.Tensor] = None):
+        g = state.generator
+        if batch is None:
+            idx = torch.randint(0, n, (cfg.batch_size,), generator=g,
+                                device=g.device)
+            batch = windows[idx.to(windows.device)]
+        b = batch.shape[0]
+        if eps is None:
+            eps = torch.randn((b, model.hidden), generator=g, device=g.device)
+        if eps_err is None:
+            eps_err = torch.randn((b, err_model.latent), generator=g,
+                                  device=g.device)
+        params, err_params, err_opt, metrics = _phase2_update(
+            model, err_model, cfg, state, parents, batch,
+            eps.to(batch.device), eps_err.to(batch.device))
+        best_params, best_loss = _track_best(state, state.params,
+                                             metrics["mean_loss"])
+        return Phase2State(params=params, err_params=err_params,
+                           err_opt=err_opt, best_params=best_params,
+                           best_loss=best_loss, generator=g,
+                           step=state.step + 1), metrics
+
+    return step
+
+
+def fit_phase2(model: CRVAE, err_model: ErrorVAE, params: CRVAEParams,
+               err_params: ErrorVAEParams, windows: torch.Tensor,
+               parents: torch.Tensor, cfg: Phase2Config,
+               generator: torch.Generator, verbose: bool = False,
+               log_fn=print, callback=None, mesh=None,
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 0, resume: bool = False):
+    """Run phase 2 for exactly ``cfg.max_iter`` steps; returns (the CRVAE
+    params of the lowest ``mean_loss``, the final error-VAE params, the
+    final state, the last metrics as floats).
+
+    ``parents`` is the binary GC mask from phase 1, held fixed.  Every step
+    resamples its batch from ``generator``.  ``callback``, checkpoints and
+    ``resume`` as in ``fit_phase1``; a snapshot carries both models, Adam's
+    state, the best params and loss, the generator's state and the step.
+    ``mesh`` (ROADMAP A7) is not ported yet and raises.
+    """
+    check_latent_reg(cfg)
+    _no_mesh(mesh, "phase-2")
+    step = make_phase2_step(model, err_model, cfg, windows, parents)
+    state = Phase2State(params=params, err_params=err_params,
+                        err_opt=adam_init(err_params), best_params=params,
+                        best_loss=torch.tensor(float("inf"),
+                                               device=windows.device),
+                        generator=generator, step=0)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
+    state, metrics = _run_chunked(_stepper(step), state, cfg, ckpt,
+                                  resume_metrics, verbose, log_fn, callback,
+                                  "phase2")
+    return state.best_params, state.err_params, state, metrics
 
 
 def generate_from_draws(model: CRVAE, err_model: ErrorVAE, heads: GRUParams,
