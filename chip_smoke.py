@@ -52,6 +52,11 @@
      from a differentiable h0) against the same steps on the CPU's plain
      recurrences on the same draws: params, ErrorVAE params, Adam's state
      and metrics rtol 1e-4, atol 1e-6; two card runs bitwise equal.
+   - B1/B2 at the sweep's call sites: five steps of a 3-seed sweep at
+     lorenz96_crvae's width (the encoder one 3-head launch, the decoder
+     one 30-head launch a step) against each seed's single-seed step loop
+     on the card, on the same generators: params, best params and best
+     loss rtol 1e-4, atol 1e-6; two sweeps bitwise equal.
 4. The main paths, each with the launch counts set to 0 just before it and
    read just after:
    - serving: a port-initialised CRVAE(p=20, H=64) + ErrorVAE(d=20, H=64),
@@ -89,7 +94,17 @@
    - the port's own weights served: ``cli export`` of the run's
      ``ckpt_phase2``, ``GeneratorServer`` answering three ``/generate``
      requests on the resident route, held against the plain versions on
-     the same draws.
+     the same draws;
+   - the sweep: ``cli sweep`` at its defaults (lorenz96_crvae's width, 8
+     seeds of 1000 steps): exactly 2 B1 + 2 B2 launches a sweep step,
+     every seed's AUROC against the circulant truth at least the JAX
+     package's minus the margin, the stability selection printed;
+   - discovery: ``cli discover`` on a Lorenz-96 series (p=10, T=2048,
+     made on the card) saved as a CSV with a header, 8 seeds of 1000
+     steps, phase 2 for 200 steps, 64 samples: 2 + 2 launches a sweep
+     step, 4 + 4 a phase-2 step, one B5 and one B4 launch; the seed-median
+     scores' AUROC as above; finite (64, 21, 10) samples; the header's
+     names in the edges.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
@@ -100,7 +115,10 @@
    B=1 and B=3072 on both routes (resident at p=20, H=64; streamed at
    p=40, H=128), and phase-1
    steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
-   (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes.
+   (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes;
+   the sweep's steps/s and seed-steps/s at p=10 and p=20 for 1, 8 and 32
+   seeds beside ``fit_phase1``'s, its device busy share, kernels and draw
+   kernels a step, and B1/B2 at S * p heads beside their bound.
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -152,6 +170,12 @@ SCALED_STEPS = 30
 # configuration and 1000 steps (tools/jax_phase1_auroc.py), and the margin
 # the port's may fall below it (another series and other draws).
 JAX_AUROC, AUROC_MARGIN = 1.0, 0.05
+# The sweep: ``cli sweep``'s defaults (lorenz96_crvae's width, 1000 steps, 8
+# seeds); ``cli discover`` with as many seeds and steps (cut from its 2000)
+# and a phase 2 of DISCOVER_P2 steps; the check's seeds; the rate cells.
+SWEEP_STEPS, SWEEP_SEEDS, SWEEP_CHECK_SEEDS = 1000, 8, 3
+DISCOVER_P2, DISCOVER_GEN = 200, 64
+SWEEP_RATE_SEEDS, SWEEP_RATE_STEPS = (1, 8, 32), 50
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -182,23 +206,24 @@ def rollout_cost(b, t, heads, hidden, d, outs, noise: bool, x0: bool):
     return flops, 4 * elems
 
 
-def gru_cost(p, b, t, d, hidden, backward: bool):
+def gru_cost(p, b, t, d, hidden, backward: bool, per_head: bool = False):
     """(flops, bytes) of one B1 (forward) or B2 (backward, no dx) launch.
 
     Forward: the input and hidden products of every step.  Backward: those
     again (the gates are rematerialised from the saved states, which is
     the work these inputs need), d h_prev and the dW_hh and dW_ih outer
-    products.  Bytes: x, the weights and h0 read once and the outputs
-    written once (backward: plus outs and douts read, the weight gradients
-    and dh0 written)."""
+    products.  Bytes: x (one per head when ``per_head``), the weights and
+    h0 read once and the outputs written once (backward: plus outs and
+    douts read, the weight gradients and dh0 written)."""
     g = 3 * hidden
     fwd = 2 * p * b * t * g * (d + hidden)
     weights = p * (g * d + g * hidden + 2 * g)
     states = p * b * t * hidden
+    x = (p if per_head else 1) * b * t * d
     if not backward:
-        return fwd, 4 * (b * t * d + weights + b * hidden + states)
+        return fwd, 4 * (x + weights + b * hidden + states)
     flops = fwd + 2 * p * b * t * g * (2 * hidden + d)
-    return flops, 4 * (b * t * d + 2 * weights + p * b * hidden + b * hidden
+    return flops, 4 * (x + 2 * weights + p * b * hidden + b * hidden
                        + 2 * states)
 
 
@@ -243,10 +268,12 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_ms(fn, iters: int) -> tuple[float, dict[str, float]]:
+def profile_ms(fn, iters: int,
+               counts: dict | None = None) -> tuple[float, dict[str, float]]:
     """``fn`` over ``iters`` calls under ``torch.profiler``: (wall ms a
     call under the profiler, {kernel name: device ms a call}), the host's
-    operators left out."""
+    operators left out; ``counts`` receives {kernel name: launches a
+    call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -267,6 +294,8 @@ def profile_ms(fn, iters: int) -> tuple[float, dict[str, float]]:
                            getattr(e, "self_cuda_time_total", 0.0)))
         if us > 0:
             out[e.key] = us / iters / 1e3
+            if counts is not None:
+                counts[e.key] = e.count / iters
     return wall, out
 
 
@@ -1470,6 +1499,347 @@ def time_training(dev, card, windows):
     return res
 
 
+def check_sweep(dev, card, errors, windows):
+    """Phase 3e, the sweep's kernels at ``cli sweep``'s shapes.  First,
+    five sweep steps of SWEEP_SEEDS seeds at lorenz96_crvae's width (the
+    encoder one S-head and the decoder one S * p-head B1/B2 launch a step),
+    each seed on its own resampled batch, against the same steps on the
+    CPU's plain recurrences on the same indices and epsilons; two card
+    sweeps bitwise equal.  Then SWEEP_CHECK_SEEDS seeds drawing from their
+    own generators against each seed's single-seed step loop on the
+    card."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.parallel import (
+        SweepState,
+        make_sweep_step,
+        seed_generators,
+    )
+    from vae_connexe_torch.parallel.seed_sweep import init_sweep_state
+    from vae_connexe_torch.train import (
+        Phase1Config,
+        Phase1State,
+        make_phase1_step,
+    )
+    from vae_connexe_torch.utils.tree import tree_leaves, tree_map
+
+    n = 5
+    model = CRVAE(CRVAE_P, H, ENC)
+    cfg = Phase1Config(batch_size=TRAIN_B)
+    parents = torch.ones((CRVAE_P, CRVAE_P), device=dev)
+    want = {"gru_forward": 2 * n, "gru_backward": 2 * n,
+            "gru_forward_wide": 0, "gru_backward_wide": 0}
+
+    s = SWEEP_SEEDS
+    init = init_sweep_state(model, range(s), "cpu").params
+    g = torch.Generator().manual_seed(23)
+    draws = [(torch.randint(0, windows.shape[0], (s, TRAIN_B), generator=g),
+              torch.randn((s, TRAIN_B, H), generator=g)) for _ in range(n)]
+    windows_cpu = windows.cpu()
+
+    def drawn(on):
+        to = lambda t: t.to(on)    # noqa: E731
+        params = tree_map(to, init)
+        step = make_sweep_step(model, cfg, to(windows_cpu), to(parents))
+        state = SweepState(params=params, best_params=params,
+                           best_loss=torch.full((s,), float("inf"),
+                                                device=on),
+                           generators=[], step=0)
+        for idx, eps in draws:
+            state, met = step(state, batch=to(idx), eps=to(eps))
+        return (tree_leaves(state.params) + tree_leaves(state.best_params)
+                + [state.best_loss], torch.stack(list(met.values())))
+
+    cuda_gru.reset_launches()
+    k_leaves, k_met = drawn(dev)
+    launches = dict(cuda_gru.LAUNCHES)
+    a_leaves, a_met = drawn(dev)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in
+               zip(k_leaves + [k_met], a_leaves + [a_met]))
+    r_leaves, r_met = drawn(torch.device("cpu"))
+    what = (f"S={s} p={CRVAE_P} H={H} ctx={CTX} B={TRAIN_B}, a batch a "
+            f"seed, {n} steps, against the CPU's plain recurrences")
+    log(f"check sweep {what}: launches {launches} (2 + 2 a step), two "
+        f"sweeps bitwise equal: {same} [{card}]")
+    if launches != want or not same:
+        raise AssertionError("the sweep took other launches or is not "
+                             "deterministic")
+    _assert_close("sweep", _flat(k_leaves).cpu(), _flat(r_leaves), errors,
+                  **STEP_TOL, what=what + ": params, best params, best loss")
+    _assert_close("sweep", k_met.cpu(), r_met, errors, **STEP_TOL,
+                  what=what + ": metrics")
+
+    s = SWEEP_CHECK_SEEDS
+    step = make_sweep_step(model, cfg, windows, parents)
+    cuda_gru.reset_launches()
+    state = init_sweep_state(model, range(s), dev)
+    for _ in range(n):
+        state, _ = step(state)
+    launches = dict(cuda_gru.LAUNCHES)
+    got = (tree_leaves(state.params) + tree_leaves(state.best_params)
+           + [state.best_loss])
+    single = make_phase1_step(model, cfg, windows, parents)
+    refs = []
+    for seed in range(s):
+        gens = seed_generators(seed, dev)
+        params = model.init(gens["init"], dev)
+        state = Phase1State(params=params, best_params=params,
+                            best_loss=torch.tensor(float("inf"), device=dev),
+                            generator=gens["run"], step=0)
+        for _ in range(n):
+            state, _ = single(state)
+        refs.append(tree_leaves(state.params) + tree_leaves(state.best_params)
+                    + [state.best_loss[None]])
+    ref = [torch.stack([r[i] for r in refs]) for i in range(len(got) - 1)]
+    ref.append(torch.cat([r[-1] for r in refs]))
+    what = (f"S={s} p={CRVAE_P} H={H} ctx={CTX} B={TRAIN_B}, {n} steps, "
+            "against each seed's single-seed loop")
+    log(f"check sweep {what}: launches {launches} [{card}]")
+    if launches != want:
+        raise AssertionError("the sweep took other launches")
+    _assert_close("sweep", _flat(got), _flat(ref), errors, **STEP_TOL,
+                  what=what + ": params, best params, best loss")
+
+
+def sweep_main_path(dev, card):
+    """Phase 4g: ``cli sweep`` at its defaults (lorenz96_crvae's width,
+    SWEEP_STEPS steps, SWEEP_SEEDS seeds): 2 B1 + 2 B2 launches a sweep
+    step, every seed's AUROC against the circulant truth, the stability
+    selection's JSON; returns its launches and rate."""
+    import contextlib
+
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    n, s = SWEEP_STEPS, SWEEP_SEEDS
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["sweep", "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, rollouts = dict(cuda_gru.LAUNCHES), dict(cr.LAUNCHES)
+    res = json.loads(out.getvalue())
+    rate = {"wall_s": secs, "steps_s": n / secs, "seed_steps_s": s * n / secs}
+    log(f"main path cli sweep p={CRVAE_P} H={H} B={TRAIN_B} ctx={CTX} "
+        f"S={s}: {n} steps in {secs:.3f} s ({n / secs:.1f} steps/s, "
+        f"{s * n / secs:.1f} seed-steps/s incl. host), launches {launches}, "
+        f"aurocs {[round(a, 4) for a in res['aurocs']]}; threshold "
+        f"{JAX_AUROC - AUROC_MARGIN:.4f} [{card}]")
+    log("stability selection " + json.dumps(
+        {k: res[k] for k in ("stability_min_frac", "stability_selection")}))
+    want = {"gru_forward": 2 * n, "gru_backward": 2 * n,
+            "gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert launches == want, (launches, want)
+    assert not any(rollouts.values()), rollouts
+    assert res["seeds"] == s and len(res["aurocs"]) == s, res
+    assert min(res["aurocs"]) >= JAX_AUROC - AUROC_MARGIN, res["aurocs"]
+    assert set(res["stability_selection"]) >= {"auroc", "precision",
+                                               "recall", "f1"}, res
+    return launches, rate
+
+
+class _Taps:
+    """Wraps functions of a module for one call: records what ``discover``
+    returned and the recurrence launch counts when the sweep and phase 2
+    returned."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.saved, self.seen = {}, {}
+
+    def __enter__(self):
+        from vae_connexe_torch.ops import cuda_gru
+
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.module, name)
+
+            def tap(*a, _fn=fn, _name=name, **k):
+                out = _fn(*a, **k)
+                self.seen[_name] = (out, dict(cuda_gru.LAUNCHES))
+                return out
+
+            setattr(self.module, name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def discover_main_path(dev, card, out_dir):
+    """Phase 4h: ``cli discover`` on a Lorenz-96 series (p=10, T=2048, made
+    on the card) saved as a CSV with a header: SWEEP_SEEDS seeds of
+    SWEEP_STEPS steps (cut from 2000), phase 2 for DISCOVER_P2 steps and
+    DISCOVER_GEN compensated samples.  Gates: the reported scores' AUROC,
+    finite samples of the right shape, the header's names in the edges, the
+    launches of each part; returns the launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.data import lorenz96, lorenz96_truth
+    from vae_connexe_torch.evals import auroc
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    n, s, n2 = SWEEP_STEPS, SWEEP_SEEDS, DISCOVER_P2
+    series = lorenz96(torch.Generator(device=dev).manual_seed(5), p=CRVAE_P,
+                      t=SERIES_T, device=dev).cpu().numpy()
+    names = [f"x{i}" for i in range(CRVAE_P)]
+    path = os.path.join(out_dir, "lorenz96.csv")
+    np.savetxt(path, series, delimiter=",", header=",".join(names),
+               comments="")
+    module = sys.modules["vae_connexe_torch.discover"]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with _Taps(module, ("discover", "sweep_phase1", "fit_phase2")) as taps, \
+            contextlib.redirect_stdout(out):
+        cli.main(["discover", path, "--seeds", str(s), "--iters", str(n),
+                  "--generate", str(DISCOVER_GEN), "--phase2-iters", str(n2),
+                  "--device", str(dev), "--quiet"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total, rollouts = dict(cuda_gru.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    summary = json.loads(out.getvalue())
+    res = taps.seen["discover"][0]
+    swept = taps.seen["sweep_phase1"][1]
+    p2 = {k: v - swept[k] for k, v in taps.seen["fit_phase2"][1].items()}
+    gen = {k: v - taps.seen["fit_phase2"][1][k] for k, v in total.items()}
+    truth = lorenz96_truth(CRVAE_P, "cpu")
+    score_auroc = float(auroc(truth, torch.tensor(res.scores)))
+    log(f"main path cli discover p={CRVAE_P} T={SERIES_T} H={H} B={TRAIN_B} "
+        f"S={s}: {n} sweep steps + {n2} phase-2 steps + {DISCOVER_GEN} "
+        f"samples in {secs:.3f} s; launches sweep {swept}, phase 2 {p2}, "
+        f"after phase 2 {gen}, rollouts by route {rollouts}; scores auroc "
+        f"{score_auroc:.4f}, confidence {summary['confidence']}, "
+        f"{summary['n_edges']} edges, vote threshold "
+        f"{summary['threshold']} [{card}]")
+    zero = {"gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert swept == {"gru_forward": 2 * n, "gru_backward": 2 * n, **zero}
+    assert p2 == {"gru_forward": 4 * n2, "gru_backward": 4 * n2, **zero}, p2
+    assert not any(gen.values()), gen
+    assert rollouts == {"crvae_free_run_resident": 1,
+                        "errvae_sample_resident": 1,
+                        "crvae_free_run_streamed": 0,
+                        "errvae_sample_streamed": 0}, rollouts
+    assert score_auroc >= JAX_AUROC - AUROC_MARGIN, score_auroc
+    assert res.samples.shape == (DISCOVER_GEN, T, CRVAE_P)
+    assert np.isfinite(res.samples).all()
+    assert summary["variables"] == names
+    assert summary["edges"] and all(
+        e["cause"] in names and e["effect"] in names
+        for e in summary["edges"]), summary["edges"]
+    return {"discover_sweep": swept, "discover_phase2": p2,
+            "discover_rollouts": rollouts,
+            "discover": {"wall_s": secs, "auroc": score_auroc,
+                         "confidence": summary["confidence"]}}
+
+
+def time_sweep(dev, card, windows10, windows20):
+    """Phase 5d: sweep steps/s and seed-steps/s at p=10 and p=20 for S in
+    SWEEP_RATE_SEEDS (host clock, draws included) beside fit_phase1's
+    steps/s in the same run; a sweep step under the profiler (device busy
+    share, device time by kernel, launches a step, the draw kernels); B1
+    and B2 at S * p heads beside their bound; the scratch of the decoder's
+    B2 and its repeated input."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.parallel import make_sweep_step
+    from vae_connexe_torch.parallel.seed_sweep import init_sweep_state
+    from vae_connexe_torch.train import Phase1Config, fit_phase1
+
+    td, out = CTX - ENC, {}
+    for p, windows in ((CRVAE_P, windows10), (P, windows20)):
+        model = CRVAE(p, H, ENC)
+        cfg = Phase1Config(max_iter=RATE_STEPS, batch_size=TRAIN_B)
+        ones = torch.ones((p, p), device=dev)
+        params = model.init(torch.Generator().manual_seed(51), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_phase1(model, params, windows, ones, cfg,
+                   torch.Generator(device=dev).manual_seed(52))
+        torch.cuda.synchronize()
+        fit_rate = RATE_STEPS / (time.perf_counter() - t0)
+        step = make_sweep_step(model, cfg, windows, ones)
+        for s in SWEEP_RATE_SEEDS:
+            state = [init_sweep_state(model, range(s), dev)]
+
+            def run():
+                state[0] = step(state[0])[0]
+
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            n = SWEEP_RATE_STEPS
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+            rate = n / (time.perf_counter() - t0)
+            counts = {}
+            wall, by_kernel = profile_ms(run, 10, counts)
+            busy = sum(by_kernel.values())
+            b1 = sum(v for k, v in by_kernel.items() if "gru_forward" in k)
+            b2 = sum(v for k, v in by_kernel.items()
+                     if any(n_ in k for n_ in ("gru_chain", "gru_wgrad",
+                                               "gru_dx")))
+            heads = s * p
+            b1_bound = (bound(*gru_cost(heads, TRAIN_B, td, p, H, False,
+                                        True))[0]
+                        + bound(*gru_cost(s, TRAIN_B, ENC, p, H, False,
+                                          True))[0])
+            b2_bound = (bound(*gru_cost(heads, TRAIN_B, td, p, H, True,
+                                        True))[0]
+                        + bound(*gru_cost(s, TRAIN_B, ENC, p, H, True,
+                                          True))[0])
+            draws = sum(v for k, v in counts.items()
+                        if "distribution" in k or "random" in k.lower())
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+            row = {"steps_s": rate, "seed_steps_s": s * rate,
+                   "fit_phase1_steps_s": fit_rate, "wall_ms": wall,
+                   "device_ms": busy, "busy_share": busy / wall,
+                   "kernels_a_step": sum(counts.values()),
+                   "draw_kernels_a_step": draws,
+                   "b1_device_ms": b1, "b1_bound_ms": b1_bound,
+                   "b2_device_ms": b2, "b2_bound_ms": b2_bound,
+                   "b2_gate_scratch_mb": heads * TRAIN_B * td * 4 * H * 4 / 1e6,
+                   "decoder_input_mb": heads * TRAIN_B * td * p * 4 / 1e6,
+                   "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 1e6,
+                   "top_kernels_ms": {kernel_name(k): v for k, v in top}}
+            out[f"p{p}_s{s}"] = row
+            log(f"time sweep p={p} S={s} (decoder P={heads}) H={H} "
+                f"B={TRAIN_B}: {rate:.1f} steps/s, {s * rate:.1f} seed-steps/s "
+                f"(fit_phase1 {fit_rate:.1f} steps/s); under the profiler "
+                f"wall {wall:.4f} ms, device {busy:.4f} ms, busy "
+                f"{busy / wall:.3f}, {row['kernels_a_step']:.0f} kernels a "
+                f"step ({draws:.0f} draws); B1 {b1:.4f} ms (bound "
+                f"{b1_bound:.4f}), B2 {b2:.4f} ms (bound {b2_bound:.4f}); B2 "
+                f"gate scratch {row['b2_gate_scratch_mb']:.1f} MB, repeated "
+                f"decoder input {row['decoder_input_mb']:.1f} MB, peak "
+                f"{row['peak_mem_mb']:.0f} MB; top "
+                + ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in top)
+                + f" [{card}]")
+            del state
+    return out
+
+
 def cr_plan(kind, p, hidden, dev) -> dict:
     """The plan (at B=3072) of a rollout as a dict for the JSON line."""
     from vae_connexe_torch.ops import cuda_rollout as cr
@@ -1487,6 +1857,7 @@ def main() -> int:
         return 1
     from vae_connexe_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1507,6 +1878,8 @@ def main() -> int:
     check_training_kernels(dev, errors)
     check_step_phases(dev, errors)
     check_phase2_step(dev, errors)
+    series10 = lorenz_windows(dev, CRVAE_P, seed=4)
+    check_sweep(dev, card, errors, series10)
     launches, served_fn = serve_main_path(dev)
     launches.update(serve_scaled_path(dev, card))
     series = lorenz_windows(dev, P, seed=0)
@@ -1517,10 +1890,12 @@ def main() -> int:
         run_launches, trained = run_main_path(dev, card, out_dir)
         kill_resume_main_path(dev, card, series, out_dir)
         run_launches.update(serve_own_weights(dev, card, out_dir, trained))
+        sweep_launches, sweep_rate = sweep_main_path(dev, card)
+        found = discover_main_path(dev, card, out_dir)
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
-    phase2_rates = time_phase2(dev, card, series,
-                               lorenz_windows(dev, CRVAE_P, seed=4))
+    phase2_rates = time_phase2(dev, card, series, series10)
+    sweep_rates = time_sweep(dev, card, series10, series)
 
     rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
                             "vae_connexe_torch/csrc/gru.cu")
@@ -1584,13 +1959,25 @@ def main() -> int:
             launches_run_phase2=run_launches["run_phase2"][name],
             phase2_step_max_abs_err=errors["phase2_step"])
     by_name["gru_backward"]["phase2_rates"] = phase2_rates
+    for name in ("gru_forward", "gru_backward"):
+        by_name[name].update(
+            launches_sweep=sweep_launches[name],
+            launches_discover_sweep=found["discover_sweep"][name],
+            launches_discover_phase2=found["discover_phase2"][name],
+            sweep_max_abs_err=errors["sweep"])
+    by_name["gru_backward"].update(sweep_main=sweep_rate,
+                                   sweep_rates=sweep_rates,
+                                   discover=found["discover"])
     for name in ("crvae_free_run", "errvae_sample"):
         by_name[name].update(
             launches_run=run_launches["run_rollouts"][f"{name}_resident"],
-            launches_served_own=run_launches["served_own"][name])
+            launches_served_own=run_launches["served_own"][name],
+            launches_discover=found["discover_rollouts"][f"{name}_resident"])
     kernels[-1]["phase_max_abs_err"] = {
         k.split(":", 1)[1]: v for k, v in errors.items()
         if k.startswith("phase1_step:")}
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -140,8 +140,15 @@ def test_run_experiment_unported_paths_raise():
      "A5"),
     (["export", "henon6d_win", "ck", "--out", "g", "--device", "cpu"], "A4"),
     (["eval", "vrae_demo", "ck", "--device", "cpu"], "A4"),
+    (["discover", "s.csv", "--mesh"], "A7"),
+    (["discover", "s.csv", "--ep", "2"], "A7"),
+    (["discover", "s.csv", "--family", "win"], "A4"),
+    (["discover", "s.csv", "--prox", "row"], "A4"),
+    (["sweep", "--mesh"], "A7"),
 ], ids=["mesh", "ep", "sp", "processes", "out-of-core", "artifacts-every",
-        "debug-nans", "bf16", "platforms", "export-win", "eval-vrae"])
+        "debug-nans", "bf16", "platforms", "export-win", "eval-vrae",
+        "discover-mesh", "discover-ep", "discover-win", "discover-prox",
+        "sweep-mesh"])
 def test_unported_flags_exit(argv, item):
     """The reference's flags the port does not have exit with the ROADMAP
     item that brings them; none is silently ignored."""

@@ -28,22 +28,26 @@ from vae_connexe_torch.utils.tree import tree_leaves
 _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.configs",
             "vae_connexe_torch.configs.experiments", "vae_connexe_torch.convert",
+            "vae_connexe_torch.data.io",
             "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.windows",
-            "vae_connexe_torch.evals.gc_metrics",
-            "vae_connexe_torch.evals.generation", "vae_connexe_torch.losses.kl",
+            "vae_connexe_torch.discover", "vae_connexe_torch.evals.gc_metrics",
+            "vae_connexe_torch.evals.generation", "vae_connexe_torch.evals.viz",
+            "vae_connexe_torch.losses.kl",
             "vae_connexe_torch.losses.penalties",
             "vae_connexe_torch.models.crvae", "vae_connexe_torch.models.error_vae",
             "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
             "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
             "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
             "vae_connexe_torch.optim.adam", "vae_connexe_torch.optim.prox",
+            "vae_connexe_torch.parallel", "vae_connexe_torch.parallel.seed_sweep",
             "vae_connexe_torch.server",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",
             "vae_connexe_torch.utils.checkpoint",
             "vae_connexe_torch.utils.layers",
             "vae_connexe_torch.utils.metrics_log",
-            "vae_connexe_torch.utils.scalers", "vae_connexe_torch.utils.tree"]
+            "vae_connexe_torch.utils.scalers", "vae_connexe_torch.utils.seeding",
+            "vae_connexe_torch.utils.tree"]
 
 
 def test_port_imports_no_jax():
@@ -403,6 +407,70 @@ def test_phase2_step_matches_plain_on_card(cuda_device):
     got, again = run(cuda_device), run(cuda_device)
     assert cuda_gru.LAUNCHES["gru_forward"] == 2 * 5 * 4
     assert cuda_gru.LAUNCHES["gru_backward"] == 2 * 5 * 4
+    ref = run(torch.device("cpu"))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-6)
+
+
+def test_discovery_entry_points_default_to_cuda(monkeypatch):
+    """discover, the sweep's generators and the two commands resolve to
+    ``cuda`` and raise without a card unless the caller names the CPU."""
+    import numpy as np
+
+    from vae_connexe_torch import cli, discover
+    from vae_connexe_torch.parallel import seed_generators
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    series = np.zeros((40, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        discover(series, context=10, max_iter=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seed_generators(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["sweep", "--iters", "1"])
+    assert seed_generators(0, "cpu")["run"].device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_sweep_matches_plain_on_card(cuda_device):
+    """Five sweep steps of S=3 seeds on the card (the encoder one 3-head and
+    the decoder one 18-head B1/B2 launch a step) against the same steps on
+    the CPU's plain recurrences, on the same draws, with a random parents
+    mask: params, best params, best loss and metrics rtol 1e-4, atol 1e-6;
+    two card runs bitwise equal."""
+    from vae_connexe_torch.parallel import make_sweep_step
+    from vae_connexe_torch.parallel.seed_sweep import init_sweep_state
+    from vae_connexe_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    s, p, hidden, ctx, b, steps = 3, 6, 16, 12, 37, 5
+    model = CRVAE(p, hidden)
+    parents = (torch.rand((p, p), generator=g) > 0.4).float()
+    windows = torch.randn((60, ctx, p), generator=g)
+    draws = [(torch.randint(0, 60, (s, b), generator=g),
+              torch.randn((s, b, hidden), generator=g)) for _ in range(steps)]
+    cfg = Phase1Config(batch_size=b, lam=0.05, lam_ridge=0.01)
+    state0 = init_sweep_state(model, [0, 1, 2], "cpu")
+
+    def run(dev):
+        to = lambda t: t.to(dev)   # noqa: E731
+        step = make_sweep_step(model, cfg, to(windows), to(parents))
+        state = init_sweep_state(model, [0, 1, 2], dev)
+        state.params = state.best_params = tree_map(to, state0.params)
+        for idx, eps in draws:
+            state, met = step(state, to(idx), to(eps))
+        leaves = (tree_leaves(state.params) + tree_leaves(state.best_params)
+                  + [state.best_loss] + list(met.values()))
+        return [t.cpu() for t in leaves]
+
+    cuda_gru.reset_launches()
+    got, again = run(cuda_device), run(cuda_device)
+    assert cuda_gru.LAUNCHES == {"gru_forward": 2 * 2 * steps,
+                                 "gru_backward": 2 * 2 * steps,
+                                 "gru_forward_wide": 0,
+                                 "gru_backward_wide": 0}
     ref = run(torch.device("cpu"))
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     for a, r in zip(got, ref):

@@ -3,13 +3,17 @@
 Imports ``torch`` and never ``jax`` nor the JAX package.  Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``.  Ported: serving
 (compensated generation), phase-1 and phase-2 training with checkpoints and
-resume, and the crvae family's experiment runner and command line
-(``python -m vae_connexe_torch.cli run lorenz96_crvae``).  The kernels
+resume, the crvae family's experiment runner and command line
+(``python -m vae_connexe_torch.cli run lorenz96_crvae``), and discovery on
+the user's own series: ``discover``, the multi-seed sweep with its seeds
+folded into the recurrence kernels' heads (``parallel``), stability
+selection, ``cli discover`` and ``cli sweep``.  The kernels
 (``csrc/rollout.cu``, ``csrc/gru.cu``, ``csrc/step.cu``) are built with
 ``nvcc`` at first use.
 """
 
 from vae_connexe_torch.configs import EXPERIMENTS, get_experiment, run_experiment
+from vae_connexe_torch.discover import DiscoveryResult, discover
 from vae_connexe_torch.models import CRVAE, CRVAEParams, ErrorVAE, ErrorVAEParams
 from vae_connexe_torch.serving import export_generator, load_generator
 from vae_connexe_torch.train import (
@@ -24,11 +28,13 @@ from vae_connexe_torch.train import (
 __all__ = [
     "CRVAE",
     "CRVAEParams",
+    "DiscoveryResult",
     "EXPERIMENTS",
     "ErrorVAE",
     "ErrorVAEParams",
     "Phase1Config",
     "Phase2Config",
+    "discover",
     "export_generator",
     "fit_phase1",
     "fit_phase2",

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from vae_connexe_torch._device import resolve_device
+from vae_connexe_torch.utils.seeding import role_generators
 from vae_connexe_torch.train.config import (
     CSRAETrainConfig,
     Phase1Config,
@@ -162,12 +163,6 @@ EXPERIMENTS: dict[str, Experiment] = {
 ROLES = ("data", "init", "run", "p2", "gen")
 
 
-def _role_seeds(seed: int) -> dict[str, int]:
-    master = torch.Generator().manual_seed(seed)
-    draws = torch.randint(0, 2 ** 62, (len(ROLES),), generator=master)
-    return dict(zip(ROLES, draws.tolist()))
-
-
 def get_experiment(name: str) -> Experiment:
     if name not in EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; "
@@ -240,8 +235,9 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     ``metrics_<name>.json``; the reference's PNG figures are not written
     (``evals/viz.py``, ROADMAP A3).
 
-    The draws: one CPU generator seeded with ``seed`` draws one seed per
-    role of ``ROLES`` in that order.  ``data`` (on the device) makes the
+    The draws (``utils/seeding.py::role_generators``): one CPU generator
+    seeded with ``seed`` draws one seed per role of ``ROLES`` in that
+    order.  ``data`` (on the device) makes the
     series; ``init`` (CPU) the phase-1 CRVAE, seed + 1 the phase-2 CRVAE
     and seed + 2 the ErrorVAE (the reference's ``fold_in(k_init, 1)`` and
     ``fold_in(k_init, 2)``); ``run`` and ``p2`` (on the device) are the
@@ -272,13 +268,11 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
         exp = dataclasses.replace(exp, **overrides)
     _unported_dataset(exp)
     dev = resolve_device(device)
-    seeds = _role_seeds(seed)
 
-    def on_dev(role, offset=0):
-        return torch.Generator(device=dev).manual_seed(seeds[role] + offset)
+    def gens(offset=0):
+        return role_generators(seed, ROLES, ("init",), dev, offset)
 
-    def on_cpu(role, offset=0):
-        return torch.Generator().manual_seed(seeds[role] + offset)
+    g = gens()
 
     from vae_connexe_torch.data import arrange_input
     from vae_connexe_torch.evals import auto_threshold, gc_metrics, moment_match
@@ -290,14 +284,14 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     )
     from vae_connexe_torch.utils import JsonlWriter, save_checkpoint
 
-    series, truth = _make_dataset(exp, on_dev("data"), dev)
+    series, truth = _make_dataset(exp, g["data"], dev)
     out = pathlib.Path(out_dir) if out_dir else None
     if out:
         out.mkdir(parents=True, exist_ok=True)
     results: dict[str, Any] = {"experiment": name, "seed": seed}
 
     model = CRVAE(p=exp.p, hidden=exp.hidden)
-    params = model.init(on_cpu("init"), dev)
+    params = model.init(g["init"], dev)
     full = torch.ones((exp.p, exp.p), device=dev)
     log_writer = (JsonlWriter(str(out / f"train_log_{name}.jsonl"))
                   if out else None)
@@ -316,7 +310,7 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
 
     windows, _ = arrange_input(series, exp.context)
     best, _, m1 = fit_phase1(model, params, windows, full, exp.phase1,
-                             on_dev("run"), verbose=verbose, log_fn=log_fn,
+                             g["run"], verbose=verbose, log_fn=log_fn,
                              callback=log_phase("phase1"), **ckpt_kw("phase1"))
     scores = model.gc(best, threshold=False)
     gc_est = model.gc(best, threshold=True)
@@ -334,25 +328,25 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
 
     if run_phase2:
         mask = gc_est.to(torch.float32)
-        p2_params = model.init(on_cpu("init", 1), dev)
+        p2_params = model.init(gens(1)["init"], dev)
         err_model = ErrorVAE(d=exp.p, hidden=exp.hidden)
-        err_params = err_model.init(on_cpu("init", 2), dev)
+        err_params = err_model.init(gens(2)["init"], dev)
         best2, err2, _, m2 = fit_phase2(model, err_model, p2_params,
                                         err_params, windows, mask,
-                                        exp.phase2, on_dev("p2"),
+                                        exp.phase2, g["p2"],
                                         verbose=verbose, log_fn=log_fn,
                                         callback=log_phase("phase2"),
                                         **ckpt_kw("phase2"))
         results["phase2"] = m2
         gen = generate_with_compensation(model, err_model, best2, err2,
-                                         on_dev("gen"), 256, parents=mask)
+                                         g["gen"], 256, parents=mask)
         results["generated_shape"] = list(gen.shape)
         results["generation_moment_gap"] = _gap(moment_match(windows, gen))
         # Conditioned generation beside the cold start: encode real
         # contexts, continue with error compensation.  ErrorVAE.sample
         # keeps its leading zero step; slice to rollout_len as
         # generate_with_compensation does.
-        g_cond = on_dev("gen", 1)
+        g_cond = gens(1)["gen"]
         ctxs = windows[:256, : model.enc_len, :]
         noise_c = err_model.sample(err2, ctxs.shape[0], generator=g_cond,
                                    length=model.rollout_len)

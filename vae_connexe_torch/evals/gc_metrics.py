@@ -2,12 +2,13 @@
 
 Exact-match accuracy, precision/recall/F1, AUROC of the continuous scores
 (Mann-Whitney with midranks for ties), a threshold sweep, the unsupervised
-log-gap threshold and the one-call summary.  Stability selection and the
-vote functions come with ``discover`` (ROADMAP A3).
+log-gap threshold, multi-seed stability selection with its two vote
+helpers, and the one-call summary.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -92,6 +93,62 @@ def auto_threshold(scores: torch.Tensor, exclude_diagonal: bool = False,
     log_s = torch.sort(torch.log(torch.maximum(s, floor_val))).values
     i = torch.argmax(log_s[1:] - log_s[:-1])
     return torch.exp((log_s[i] + log_s[i + 1]) / 2.0)
+
+
+def stability_selection(score_stack: torch.Tensor,
+                        min_frac: float | str = 0.5,
+                        exclude_diagonal: bool = False):
+    """Unsupervised multi-seed edge selection (stability selection).
+
+    Each seed's (p, p) scores of the (S, p, p) stack, e.g. from
+    ``parallel.sweep_phase1``, are binarised at their own
+    ``auto_threshold``, and the seeds vote: an edge is kept when the
+    fraction of seeds selecting it reaches ``min_frac``.  ``"auto"`` puts
+    ``min_frac`` at the midpoint of the largest gap in the sorted distinct
+    vote values, clamped to [0.5, 0.95] (``auto_vote_threshold``).
+
+    Returns ``(votes (p, p) in [0, 1], selected = votes >= min_frac as
+    int32, min_frac)``, the last the resolved vote threshold.
+    """
+    votes = torch.stack([
+        (s > auto_threshold(s, exclude_diagonal=exclude_diagonal)).float()
+        for s in score_stack]).mean(dim=0)
+    if min_frac == "auto":
+        min_frac = auto_vote_threshold(votes, exclude_diagonal)
+    return votes, (votes >= min_frac).to(torch.int32), float(min_frac)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def vote_confidence(votes, exclude_diagonal: bool = True,
+                    low: float = 0.25) -> float:
+    """Discovery confidence from a stability-selection vote matrix: the
+    fraction of candidate edges the seeds confidently rule out (vote <=
+    ``low``), self-loops excluded by default.  Low (< 0.5) means the
+    ensemble agrees on a dense graph it cannot discriminate: treat the
+    graph as exploratory (``cli discover`` warns)."""
+    vals = _host(votes)
+    if exclude_diagonal and vals.ndim == 2 and vals.shape[0] == vals.shape[1]:
+        vals = vals[~np.eye(vals.shape[0], dtype=bool)]
+    return float((vals <= low).mean())
+
+
+def auto_vote_threshold(votes, exclude_diagonal: bool = False) -> float:
+    """The ``min_frac="auto"`` rule: midpoint of the largest gap in the
+    sorted distinct vote values, clamped to [0.5, 0.95]."""
+    vals = _host(votes)
+    if exclude_diagonal and vals.ndim == 2:
+        vals = vals[~np.eye(vals.shape[0], dtype=bool)]
+    vals = np.unique(vals)
+    if len(vals) > 1:
+        i = int(np.argmax(np.diff(vals)))
+        thr = float((vals[i] + vals[i + 1]) / 2)
+    else:
+        thr = 0.5
+    return min(max(thr, 0.5), 0.95)
 
 
 def gc_metrics(gc_true: torch.Tensor, scores: torch.Tensor,

@@ -15,6 +15,13 @@ def group_lasso_value(w: torch.Tensor, lam: float,
 
 
 def ridge_value(readout_w: torch.Tensor, w_hh: torch.Tensor,
-                lam: float) -> torch.Tensor:
-    """lam * (||W_out||^2 + ||W_hh||^2), summed over any stacked head axes."""
-    return lam * (torch.sum(readout_w ** 2) + torch.sum(w_hh ** 2))
+                lam: float, keep: int = 0) -> torch.Tensor:
+    """lam * (||W_out||^2 + ||W_hh||^2), summed over any stacked head axes.
+    The first ``keep`` axes (a seed axis) are kept: one value each."""
+    return lam * (_sum_after(readout_w ** 2, keep)
+                  + _sum_after(w_hh ** 2, keep))
+
+
+def _sum_after(x: torch.Tensor, keep: int) -> torch.Tensor:
+    """The sum over every axis after the first ``keep``."""
+    return torch.sum(x, dim=tuple(range(keep, x.ndim))) if keep else x.sum()

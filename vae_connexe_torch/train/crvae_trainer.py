@@ -99,15 +99,26 @@ def _no_mesh(mesh, what: str) -> None:
 
 def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
                 eps: torch.Tensor, parents: torch.Tensor, beta: float,
-                recurrences=None):
+                recurrences=None, forward=None):
     """Smooth loss: sum over variables of each variable's MSE + ridge +
-    beta * KL.  Returns (loss, aux)."""
-    pred, mu, logvar = model.forward(params, batch, eps, parents,
-                                     recurrences=recurrences)
-    target = batch[:, model.enc_len:, :]
-    recon = torch.sum(torch.mean((pred - target) ** 2, dim=(0, 1)))
-    ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge)
-    reg = beta * kl_gaussian(mu, logvar)
+    beta * KL.  Returns (loss, aux).
+
+    ``forward(params, batch, eps, parents)`` stands in for
+    ``model.forward``: a seed-stacked one (``parallel/seed_sweep.py``)
+    gives a leading seed axis to its outputs and to every term here, one
+    loss a seed.
+    """
+    if forward is None:
+        pred, mu, logvar = model.forward(params, batch, eps, parents,
+                                         recurrences=recurrences)
+    else:
+        pred, mu, logvar = forward(params, batch, eps, parents)
+    keep = pred.ndim - 3
+    target = batch[..., model.enc_len:, :]
+    recon = torch.mean((pred - target) ** 2, dim=(-3, -2)).sum(dim=-1)
+    ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge,
+                        keep)
+    reg = beta * kl_gaussian(mu, logvar, keep)
     loss = recon + ridge + reg
     aux = {"recon": recon, "ridge": ridge, "latent_reg": reg,
            "mean_loss": (recon + ridge) / model.p, "pred": pred}
@@ -202,34 +213,53 @@ def _track_best(state, candidate_params: CRVAEParams,
     """Snapshot ``candidate_params`` when ``mean_loss`` improves.
 
     ``mean_loss`` is measured at the pre-update parameters, so callers pass
-    those as the candidate.  No host sync: the pick is a ``torch.where``.
+    those as the candidate.  It is 0-d, or (S,) for parameters with a
+    leading seed axis (``parallel/seed_sweep.py``), each seed picked on its
+    own.  No host sync: the pick is a ``torch.where``.
     """
     improved = mean_loss < state.best_loss
-    best_params = tree_map(lambda new, old: torch.where(improved, new, old),
-                           candidate_params, state.best_params)
+    best_params = tree_map(
+        lambda new, old: torch.where(
+            improved.view(-1, *([1] * (new.ndim - 1))), new, old),
+        candidate_params, state.best_params)
     return best_params, torch.minimum(mean_loss, state.best_loss)
 
 
 def _phase1_update(model: CRVAE, cfg: Phase1Config, params: CRVAEParams,
                    parents: torch.Tensor, batch: torch.Tensor,
-                   eps: torch.Tensor, recurrences=None):
+                   eps: torch.Tensor, recurrences=None, forward=None):
     """One phase-1 update on a given batch and epsilon: the loss and its
     gradient at ``params``, SGD on every leaf, then the mask projection and
-    the prox.  Returns (new params, metrics of 0-d tensors)."""
+    the prox.  Returns (new params, metrics of 0-d tensors).  With a
+    seed-stacked ``forward`` (``_crvae_loss``) the parameters carry a
+    leading seed axis: one backward of the sum of the seeds' losses gives
+    each seed its own gradient, since their parameters are disjoint, and
+    the metrics are (S,)."""
     with torch.enable_grad():
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, aux = _crvae_loss(model, cfg, live, batch, eps, parents,
-                                cfg.beta, recurrences)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+                                cfg.beta, recurrences, forward)
+        grads = torch.autograd.grad(loss.sum(), tree_leaves(live))
     with torch.no_grad():
         new = tree_map(lambda p, g: p - cfg.lr * g, params,
                        tree_unflatten(params, grads))
         new = _project_and_prox(new, parents, cfg.lam, cfg.lr)
-        usage = (torch.linalg.vector_norm(new.heads.w_ih, dim=-2) > 0).float().mean()
+        usage = (torch.linalg.vector_norm(new.heads.w_ih, dim=-2) > 0
+                 ).float().mean(dim=(-2, -1))
     metrics = {"loss": loss.detach(), "recon": aux["recon"].detach(),
                "latent_reg": aux["latent_reg"].detach(),
                "mean_loss": aux["mean_loss"].detach(), "variable_usage": usage}
     return new, metrics
+
+
+def default_fixed_batch(windows: torch.Tensor,
+                        batch_size: int) -> torch.Tensor:
+    """The one batch a phase-1 step without resampling trains on when it is
+    given none: a random gather drawn from a generator seeded 0."""
+    g0 = torch.Generator(device=windows.device).manual_seed(0)
+    idx = torch.randint(0, windows.shape[0], (batch_size,), generator=g0,
+                        device=windows.device)
+    return windows[idx]
 
 
 def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
@@ -249,10 +279,7 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     check_latent_reg(cfg)
     n = windows.shape[0]
     if fixed_batch is None and not cfg.resample_batches:
-        g0 = torch.Generator(device=windows.device).manual_seed(0)
-        idx = torch.randint(0, n, (cfg.batch_size,), generator=g0,
-                            device=windows.device)
-        fixed_batch = windows[idx]
+        fixed_batch = default_fixed_batch(windows, cfg.batch_size)
 
     def step(state: Phase1State, batch: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None):
