@@ -13,7 +13,8 @@
      cluster) at the serving width (p=20, H=64, T=21; B = 1, 8, 37, 3072),
      at p=4, H=8 with a random parents mask and at lorenz96_crvae's p=10;
      on the streamed route at lorenz96_scaled's p=40, H=128 (B = 37, 512),
-     with the ErrorVAE at the same width; 1e-4 absolute (float32
+     with the ErrorVAE at the same width; at henon_author's p=2, H=64 (B =
+     1, 256: K1 on a 2-block cluster, one head a block); 1e-4 absolute (float32
      recurrences of 21 steps, products summed in another order); two
      calls on the same inputs give bitwise-equal outputs; each case's plan
      (cluster, heads a block, tile, k split, clusters launched, shared
@@ -31,7 +32,11 @@
      calls on the same inputs must give bitwise-equal gradients.  The same
      checks of the wide variants (W_ih^T read from global memory) at
      ``lorenz96_scaled``'s decoder (P=40, B=512, T=30, D=40, H=128, a
-     random parents mask) and encoder (P=1, T=10) shapes; there the
+     random parents mask) and encoder (P=1, T=10) shapes; and on the
+     kernel route at the W_in family's shapes: henon6d_win's decoder (6
+     heads, B=256, T=10, a per-head x of width 64, dx on), the 8-seed fold
+     of it (48 heads), its ErrorVAE (1 head, D=6, H=32) and var_crvae's
+     decoder (5 heads, B=16); there the
      chain's outputs keep GRAD_TOL and each summed gradient is held to
      1e-5 of its largest magnitude (``LONG_SUM_TOL``: at B*T = 15,360 the
      float32 plain version itself is off a float64 one by more than
@@ -52,6 +57,15 @@
      from a differentiable h0) against the same steps on the CPU's plain
      recurrences on the same draws: params, ErrorVAE params, Adam's state
      and metrics rtol 1e-4, atol 1e-6; two card runs bitwise equal.
+   - B1/B2 at the W_in trainer's call sites: five stage-I and five
+     stage-II steps of henon6d_win's model (d=6, H=64, Z=32, tau=10,
+     B=256) on the card against the same steps on the CPU's plain
+     recurrences on the same batches and epsilons, for both prox groups
+     and both stage-II rules: params, Adam's moments and metrics rtol
+     1e-4, atol 1e-6; two card runs bitwise equal; 2 + 2 launches a
+     stage-I step and 4 + 4 a stage-II step at S = 1, 3, 8; a 3-seed
+     ``fit_many`` against the three single ``fit``s on the card (same
+     tolerance), bitwise repeatable.
    - B1/B2 at the sweep's call sites: five steps of a 3-seed sweep at
      lorenz96_crvae's width (the encoder one 3-head launch, the decoder
      one 30-head launch a step) against each seed's single-seed step loop
@@ -105,6 +119,28 @@
      step, 4 + 4 a phase-2 step, one B5 and one B4 launch; the seed-median
      scores' AUROC as above; finite (64, 21, 10) samples; the header's
      names in the edges.
+   - the W_in family through ``cli.main``, each with --out-dir and
+     --save-checkpoints: ``run henon6d_win`` (epochs cut from 2000 + 1000
+     to 200 + 100, its 8 stability seeds kept) and ``run var_crvae`` (its
+     own 100 + 30 epochs and 8 seeds): 2 + 2 launches a stage-I step and
+     4 + 4 a stage-II step, the folded seeds' and the rest's launches
+     exact, ``gc_offdiag_auto.auroc`` at least the JAX package's at the
+     same counts (``tools/jax_win_auroc.py``, a CPU run) minus the margin,
+     a finite stability row, the JAX package's files (PNGs aside: the
+     card's machine has no matplotlib, and the run names the figures it
+     skipped on stderr); ``run henon_author`` (p=2, phase 1 at its own
+     1000 steps, phase 2 cut from 10000 to 1000): 2 + 2 / 4 + 4 launches,
+     K1 and K2 twice on the resident route, ``gc_dynamics.auroc`` gated
+     the same way;
+   - win serving: ``cli export henon6d_win`` of that run's ``ckpt_win``,
+     ``cli generate --context`` on windows of the series, and
+     ``GeneratorServer`` answering three context requests (equal to
+     ``WInCRVAE.generate`` on the same seed within 1e-5) and refusing a
+     malformed context with a 400;
+   - win discovery: ``cli discover --family win --prox row --seeds 8`` on
+     a coupled-Henon CSV made on the card, 200 stage-I epochs: 2 + 2
+     launches a step of the one folded fit; the seed-median scores'
+     off-diagonal AUROC printed.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
@@ -118,7 +154,11 @@
    (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes;
    the sweep's steps/s and seed-steps/s at p=10 and p=20 for 1, 8 and 32
    seeds beside ``fit_phase1``'s, its device busy share, kernels and draw
-   kernels a step, and B1/B2 at S * p heads beside their bound.
+   kernels a step, and B1/B2 at S * p heads beside their bound; the W_in
+   trainer's stage-I and stage-II steps/s at henon6d_win's shapes and
+   their busy share, ``fit_many``'s seed-steps/s at S=8, B1/B2 at the W_in
+   decoder's shapes (6 and 48 heads) beside their bound, and the win
+   generation's latency at B=8 and 256 with its kernels a step.
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +168,7 @@ device is present.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -138,6 +179,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -176,6 +218,27 @@ JAX_AUROC, AUROC_MARGIN = 1.0, 0.05
 SWEEP_STEPS, SWEEP_SEEDS, SWEEP_CHECK_SEEDS = 1000, 8, 3
 DISCOVER_P2, DISCOVER_GEN = 200, 64
 SWEEP_RATE_SEEDS, SWEEP_RATE_STEPS = (1, 8, 32), 50
+# The W_in family: henon6d_win's model (d=6, H=64, Z=32, tau=10, batch
+# 256); the runs through ``cli run`` with their (stage-I, stage-II) epochs
+# (henon6d_win cut from 2000 + 1000, var_crvae at its own 100 + 30) and
+# henon_author's (phase-1, phase-2) steps (phase 2 cut from 10000); the JAX
+# package's reference AUROC at those counts and seed 0 on a CPU
+# (tools/jax_win_auroc.py: gc_offdiag_auto.auroc, gc_dynamics.auroc for
+# henon_author); cli discover's stage-I epochs; the rate epochs.
+WIN_D, WIN_TAU, WIN_B, WIN_Z = 6, 10, 256, 32
+WIN_RUNS = {"henon6d_win": (200, 100), "var_crvae": (100, 30)}
+AUTHOR_RUN = (1000, 1000)
+JAX_WIN_AUROC = {"henon6d_win": 1.0, "var_crvae": 1.0, "henon_author": 1.0}
+# henon_author's graph ranking depends on the seed in both packages (x's
+# own lags carry y, so the x <- y and y <- y scores trade places between
+# inits; the JAX package's gc_dynamics AUROC is 1.0 at some seeds, 0.667 at
+# others): its gate is the mean over AUTHOR_SEEDS phase-1 fits (seed 0 the
+# run's own) against the JAX package's mean at seeds 0-7 and the same
+# counts (tools/jax_win_auroc.py, a CPU run), less two standard errors of
+# the difference of two such means, from the JAX seeds' spread.
+AUTHOR_SEEDS = 8
+JAX_AUTHOR_AUROCS = (1.0, 0.6667, 0.6667, 1.0, 1.0, 1.0, 1.0, 0.6667)
+WIN_DISCOVER_EPOCHS, WIN_RATE_EPOCHS = 200, 5
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -370,6 +433,7 @@ ROLLOUT_CASES = [
     (4, 8, (1, 37), True, "resident"),
     (10, H, (37, SERVE_B), False, "resident"),          # lorenz96_crvae
     (SCALED_P, SCALED_H, (37, SCALED_B), False, "streamed"),
+    (2, H, (1, TRAIN_B), False, "resident"),            # henon_author
 ]
 
 
@@ -671,6 +735,16 @@ def check_training_kernels(dev, errors):
         ("scaled decoder", sd, sb, SCALED_CTX - ENC, sd, sh, False,
          (1, sb, sh), True),
         ("scaled encoder", 1, sb, ENC, sd, sh, False, (1, sb, sh), False),
+        # The W_in family: henon6d_win's decoder (its per-head x_sel of
+        # width H, dx on), the 8-seed fold of it, its ErrorVAE (H // 2),
+        # and var_crvae's decoder (d=5, batch 16).
+        ("win decoder", WIN_D, WIN_B, WIN_TAU, H, H, True, (WIN_D, WIN_B, H),
+         False),
+        ("win 8-seed decoder", 8 * WIN_D, WIN_B, WIN_TAU, H, H, True,
+         (8 * WIN_D, WIN_B, H), False),
+        ("win error vae", 1, WIN_B, WIN_TAU, WIN_D, H // 2, True,
+         (1, WIN_B, H // 2), False),
+        ("var decoder", 5, 16, WIN_TAU, H, H, True, (5, 16, H), False),
     ]
     limits = cuda_gru.device_limits(dev)
     for what, heads, b, td, d, hid, per_head, h0_shape, masked in cases:
@@ -680,7 +754,7 @@ def check_training_kernels(dev, errors):
         fwd, bwd = (("gru_forward_wide", "gru_backward_wide") if wide else
                     ("gru_forward", "gru_backward"))
         g = torch.Generator().manual_seed(b + heads)
-        params = init_stacked_gru(g, heads, d, hid, dev)
+        params = init_stacked_gru(g, heads, d, hid, device=dev)
         if masked:
             mask = (torch.rand((heads, d), generator=g) > 0.3).float().to(dev)
             params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
@@ -1336,7 +1410,7 @@ def time_recurrence(dev, card, g, heads, b, td, d, hid):
     from vae_connexe_torch.ops import cuda_gru
     from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
 
-    params = init_stacked_gru(g, heads, d, hid, dev)
+    params = init_stacked_gru(g, heads, d, hid, device=dev)
     x = torch.randn((b, td, d), generator=g).to(dev)
     h0 = torch.randn((1, b, hid), generator=g).to(dev)
     douts = torch.randn((heads, b, td, hid), generator=g).to(dev)
@@ -1840,6 +1914,555 @@ def time_sweep(dev, card, windows10, windows20):
     return out
 
 
+# ---------------- the W_in family and the Henon / VAR experiments ----------
+
+
+def henon_windows(dev, seed=9, t=3000, d=WIN_D, tau=WIN_TAU):
+    """``henon6d_win``'s (N, 2 tau, d) windows of a coupled-Henon series
+    made from a generator on ``dev``."""
+    import torch
+
+    from vae_connexe_torch.data import coupled_henon, sliding_windows
+
+    series = coupled_henon(torch.Generator(device=dev).manual_seed(seed),
+                           t=t, d=d, device=dev)
+    return sliding_windows(series, 2 * tau)
+
+
+def win_model_trainer(prox="row", update=False, **kw):
+    """``henon6d_win``'s model and trainer (d=6, H=64, Z=32, tau=10,
+    lr=2e-3, lam=0.03, batch 256), the prox groups and stage-II rule
+    given."""
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.models import WInCRVAE
+    from vae_connexe_torch.train import WInTrainer
+
+    exp = get_experiment("henon6d_win")
+    model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                     tau=exp.tau)
+    cfg = dataclasses.replace(exp.win, prox_groups=prox,
+                              update_w_in_stage2=update, **kw)
+    return model, WInTrainer(model, cfg)
+
+
+def check_win_steps(dev, errors, windows):
+    """Phase 3e: five stage-I and five stage-II steps of ``henon6d_win``'s
+    model on the card against the same steps on the CPU's plain
+    recurrences, on the same batches and epsilons, for both prox groups
+    and both stage-II rules (params, Adam's state, metrics; rtol 1e-4,
+    atol 1e-6); two card runs bitwise equal; 2 + 2 launches a stage-I step
+    and 4 + 4 a stage-II step at S = 1, 3 and 8; a 3-seed ``fit_many``
+    against the three single ``fit``s on the card, and bitwise repeatable.
+    Returns the launches a step."""
+    import torch
+
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.optim import adam_init
+    from vae_connexe_torch.train.win_trainer import adam_leaves
+    from vae_connexe_torch.utils.tree import (
+        stack_trees,
+        tree_leaves,
+        tree_map,
+        unstack_tree,
+    )
+
+    g = torch.Generator().manual_seed(61)
+    cpu_windows = windows.cpu()
+    n, b = windows.shape[0], WIN_B
+    draws = [(torch.randint(0, n, (b,), generator=g),
+              torch.randn((b, WIN_Z), generator=g),
+              torch.randn((b, WIN_Z // 2), generator=g)) for _ in range(10)]
+    for prox in ("row", "element"):
+        for update in (False, True):
+            model, trainer = win_model_trainer(prox, update)
+            params = model.init(torch.Generator().manual_seed(62), "cpu")
+
+            def run(on):
+                to = lambda t: t.to(on)    # noqa: E731
+                state = trainer.init_state(tree_map(to, params),
+                                           torch.Generator())
+                for k, (idx, ez, ee) in enumerate(draws):
+                    batch = to(cpu_windows[idx])
+                    if k == 5:
+                        state = dataclasses.replace(
+                            state, params=trainer.prune(state.params))
+                    if k < 5:
+                        state, met = trainer.step_stage1(state, batch, to(ez))
+                    else:
+                        state, met = trainer.step_stage2(state, batch, to(ez),
+                                                         to(ee))
+                return (tree_leaves(state.params)
+                        + tree_leaves(state.opt_state.mu)
+                        + tree_leaves(state.opt_state.nu),
+                        torch.stack(list(met.values())))
+
+            k_leaves, k_met = run(dev)
+            a_leaves, a_met = run(dev)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in
+                       zip(k_leaves + [k_met], a_leaves + [a_met]))
+            r_leaves, r_met = run(torch.device("cpu"))
+            what = (f"henon6d_win d={WIN_D} H={H} tau={WIN_TAU} B={b} "
+                    f"prox={prox} update_w_in_stage2={update}, 5 + 5 steps")
+            log(f"check win_step {what}: two card runs bitwise equal: {same}")
+            if not same:
+                raise AssertionError("the win steps are not deterministic")
+            _assert_close("win_step", _flat(k_leaves).cpu(), _flat(r_leaves),
+                          errors, **STEP_TOL,
+                          what=what + ": params, Adam's moments")
+            _assert_close("win_step", k_met.cpu(), r_met, errors, **STEP_TOL,
+                          what=what + ": metrics")
+
+    model, trainer = win_model_trainer()
+    launches = {}
+    for s in (1, 3, 8):
+        params = stack_trees([model.init(torch.Generator().manual_seed(70 + i),
+                                         dev) for i in range(s)])
+        opt = adam_init(adam_leaves(params))
+        batch = windows[torch.randint(0, n, (s, b), generator=g).to(dev)]
+        ez = torch.randn((s, b, WIN_Z), generator=g).to(dev)
+        ee = torch.randn((s, b, WIN_Z // 2), generator=g).to(dev)
+        for stage in (1, 2):
+            torch.cuda.synchronize()
+            cuda_gru.reset_launches()
+            trainer._update(stage, params, opt, batch, ez, ee)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in cuda_gru.LAUNCHES.items()}
+            launches[f"stage{stage}_S{s}"] = got
+            want = 2 * stage
+            if got != {"gru_forward": want, "gru_backward": want,
+                       "gru_forward_wide": 0, "gru_backward_wide": 0}:
+                raise AssertionError(f"stage {stage} at S={s}: {got}")
+    log(f"check win launches a step (2 + 2 stage I, 4 + 4 stage II): "
+        f"{launches}")
+
+    sub = windows[:1024]
+    model, trainer = win_model_trainer(
+        "element", True, stage1_epochs=2, stage2_epochs=1)
+    inits = [model.init(torch.Generator().manual_seed(80 + i), dev)
+             for i in range(3)]
+    gens = lambda: [torch.Generator(device=dev).manual_seed(90 + i)  # noqa
+                    for i in range(3)]
+    many, _ = trainer.fit_many(stack_trees(inits), sub, gens())
+    again, _ = trainer.fit_many(stack_trees(inits), sub, gens())
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in
+               zip(tree_leaves(many), tree_leaves(again)))
+    singles = [trainer.fit(inits[i], sub, gens()[i])[0] for i in range(3)]
+    what = (f"3-seed fit_many d={WIN_D} H={H} B={b} on 1024 windows, 2 + 1 "
+            f"epochs, element prox, W_in updated in stage II")
+    log(f"check win_fit_many {what}: two runs bitwise equal: {same}")
+    if not same:
+        raise AssertionError("fit_many is not deterministic")
+    for i in range(3):
+        _assert_close("win_step", _flat(tree_leaves(unstack_tree(many, i))),
+                      _flat(tree_leaves(singles[i])), errors, **STEP_TOL,
+                      what=f"{what}: seed {i} against its single fit")
+    return launches
+
+
+class _EpochTap(io.TextIOBase):
+    """Captures what a command prints and snapshots the recurrence launch
+    counts at every per-block log line of the W_in trainer ("[stage1
+    epoch=25] ...")."""
+
+    def __init__(self):
+        self.text = io.StringIO()
+        self.snaps = []
+
+    def write(self, s):
+        from vae_connexe_torch.ops import cuda_gru
+
+        self.text.write(s)
+        for m in re.finditer(r"^\[(stage[12]) epoch=(\d+)\]", s, re.M):
+            self.snaps.append((m.group(1), int(m.group(2)),
+                               dict(cuda_gru.LAUNCHES)))
+        return len(s)
+
+
+def _png_free(names):
+    return {f for f in names if not f.endswith(".png")}
+
+
+def win_run_main_path(dev, card, out_dir, name, argv_extra):
+    """Phase 4i: ``cli run <name>`` of the win family with --out-dir and
+    --save-checkpoints.  Gates: 2 + 2 launches a stage-I step and 4 + 4 a
+    stage-II step of the main fit (read at the per-block log lines), the
+    stability seeds' fit_many and the rest exactly counted;
+    ``gc_offdiag_auto.auroc`` at least the JAX package's at the same
+    counts minus the margin; a finite stability row; the JAX package's
+    files, PNGs aside.  Returns the launches and the metrics."""
+    import contextlib
+
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    exp = get_experiment(name)
+    run_dir = os.path.join(out_dir, name)
+    tap, err = _EpochTap(), io.StringIO()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tap), contextlib.redirect_stderr(err):
+        cli.main(["run", name, *argv_extra, "--out-dir", run_dir,
+                  "--save-checkpoints", "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total = dict(cuda_gru.LAUNCHES)
+    res = json.load(open(os.path.join(run_dir, f"metrics_{name}.json")))
+    e1, e2 = WIN_RUNS[name]
+    n_win = (exp.t - 2 * exp.tau + 1) if exp.dataset != "var" else 500
+    nb = n_win // exp.win.batch_size
+    end1 = [c for st, _, c in tap.snaps if st == "stage1"][-1]
+    end2 = [c for st, _, c in tap.snaps if st == "stage2"][-1]
+    stage2 = {k: end2[k] - end1[k] for k in total}
+    many_e2 = e2 if exp.win.update_w_in_stage2 else 0
+    # After the main fit: the prediction MSE's three forwards (2 + 4 + 2
+    # B1), the stability seeds' fit_many, and generate's encoder (1 B1).
+    rest = {k: total[k] - end2[k] for k in total}
+    want_rest = {"gru_forward": 8 + 2 * nb * e1 + 4 * nb * many_e2 + 1,
+                 "gru_backward": 2 * nb * e1 + 4 * nb * many_e2,
+                 "gru_forward_wide": 0, "gru_backward_wide": 0}
+    log(f"main path cli run {name} d={exp.p} H={exp.hidden} B="
+        f"{exp.win.batch_size} {e1} + {e2} epochs ({nb} steps an epoch), "
+        f"{exp.stability_seeds - 1} stability seeds folded, in {secs:.3f} s: "
+        f"launches stage I {end1}, stage II {stage2}, after the fit {rest}; "
+        f"rollout launches {dict(cr.LAUNCHES)} [{card}]")
+    zero = {"gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert end1 == {"gru_forward": 2 * nb * e1, "gru_backward": 2 * nb * e1,
+                    **zero}, end1
+    assert stage2 == {"gru_forward": 4 * nb * e2, "gru_backward": 4 * nb * e2,
+                      **zero}, stage2
+    assert rest == want_rest, (rest, want_rest)
+    assert not any(cr.LAUNCHES.values())
+    off, stab = res["gc_offdiag_auto"], res["gc_stability"]
+    log(f"graph recovery {name}: gc_offdiag_auto auroc={off['auroc']:.4f} "
+        f"f1={off['f1']:.4f}; gc_stability f1={stab['f1']:.4f} auroc="
+        f"{stab['auroc']:.4f} min_frac={stab['min_frac']}; threshold "
+        f"{JAX_WIN_AUROC[name] - AUROC_MARGIN:.4f} (JAX {JAX_WIN_AUROC[name]} "
+        f"- {AUROC_MARGIN}, tools/jax_win_auroc.py); prediction_mse "
+        f"{res['prediction_mse']} [{card}]")
+    assert off["auroc"] >= JAX_WIN_AUROC[name] - AUROC_MARGIN, off
+    assert all(math.isfinite(v) for k, v in stab.items()
+               if k in ("accuracy", "precision", "recall", "f1", "auroc"))
+    files = set(os.listdir(run_dir))
+    want = {f"{s}{name}{x}" for s, x in (
+        ("GC_scores_", ".npy"), ("syn_", ".npy"), ("metrics_", ".json"))}
+    want |= {"ckpt_win", "ckpt_win.gc.npy"}
+    assert _png_free(files) == want, sorted(files)
+    log(f"files of {name}: {sorted(files)}; stderr: "
+        f"{err.getvalue().strip() or '(none)'}")
+    return {"stage1": end1, "stage2": stage2, "after_fit": rest,
+            "wall_s": secs, "auroc": off["auroc"], "stability_f1": stab["f1"]}
+
+
+def henon_author_main_path(dev, card, out_dir):
+    """Phase 4j: ``cli run henon_author`` (p=2, crvae family), phase 1 at
+    its own 1000 steps and phase 2 cut from 10000 to 1000: 2 + 2 launches
+    a phase-1 step and 4 + 4 a phase-2 step, K1 and K2 on a 2-block
+    cluster (one head a block) for the two generations, the JAX package's
+    files, PNGs aside; then phase 1 at seeds 1 to AUTHOR_SEEDS - 1: the
+    seeds' mean ``gc_dynamics.auroc`` at least the JAX package's mean less
+    two standard errors (``JAX_AUTHOR_AUROCS``).  Returns the launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch.configs import run_experiment
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    # --iters sets both phases: phase 1 keeps its own 1000 steps.
+    name, (n1, n2) = "henon_author", AUTHOR_RUN
+    run_dir = os.path.join(out_dir, name)
+    tap, err = _ChunkTap(), io.StringIO()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tap), contextlib.redirect_stderr(err):
+        cli.main(["run", name, "--iters", str(n2), "--out-dir", run_dir,
+                  "--save-checkpoints", "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total, routes = dict(cuda_gru.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    res = json.load(open(os.path.join(run_dir, f"metrics_{name}.json")))
+    per1 = [c for ph, _, c in tap.snaps if ph == "phase1"][-1]
+    end2 = [c for ph, _, c in tap.snaps if ph == "phase2"][-1]
+    per2 = {k: end2[k] - per1[k] for k in total}
+    dyn = res["gc_dynamics"]
+    log(f"main path cli run {name} p=2 H={H} B={TRAIN_B} {n1} + {n2} steps "
+        f"in {secs:.3f} s: launches phase 1 {per1}, phase 2 {per2}, rollouts "
+        f"by route {routes}; gc_dynamics auroc={dyn['auroc']:.4f} accuracy="
+        f"{dyn['accuracy']:.4f} (JAX's seed 0: {JAX_WIN_AUROC[name]}), "
+        f"parity-row gc auroc={res['gc']['auroc']:.4f} [{card}]")
+    log(rollout_plan_line("crvae", 2, 256, 2, H, dev))
+    zero = {"gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert per1 == {"gru_forward": 2 * n1, "gru_backward": 2 * n1, **zero}
+    assert per2 == {"gru_forward": 4 * n2, "gru_backward": 4 * n2, **zero}
+    assert routes == {"crvae_free_run_resident": 2,
+                      "errvae_sample_resident": 2,
+                      "crvae_free_run_streamed": 0,
+                      "errvae_sample_streamed": 0}, routes
+    aurocs = [dyn["auroc"]]
+    t1 = time.perf_counter()
+    for seed in range(1, AUTHOR_SEEDS):
+        r = run_experiment(name, seed=seed, run_phase2=False,
+                           verbose=False, device=str(dev))
+        aurocs.append(r["gc_dynamics"]["auroc"])
+    jax_mean = float(np.mean(JAX_AUTHOR_AUROCS))
+    margin = 2 * float(np.std(JAX_AUTHOR_AUROCS, ddof=1)) * math.sqrt(
+        1 / len(JAX_AUTHOR_AUROCS) + 1 / AUTHOR_SEEDS)
+    mean = float(np.mean(aurocs))
+    log(f"henon_author phase 1 at seeds 0-{AUTHOR_SEEDS - 1} "
+        f"({time.perf_counter() - t1:.3f} s for seeds 1-{AUTHOR_SEEDS - 1}): "
+        f"gc_dynamics auroc {[round(a, 4) for a in aurocs]}, mean "
+        f"{mean:.4f}; threshold {jax_mean - margin:.4f} (JAX's mean "
+        f"{jax_mean:.4f} at seeds 0-{len(JAX_AUTHOR_AUROCS) - 1} - two "
+        f"standard errors {margin:.4f}, tools/jax_win_auroc.py) [{card}]")
+    assert mean >= jax_mean - margin, aurocs
+    files = set(os.listdir(run_dir))
+    want = {f"{s}{name}{x}" for s, x in (
+        ("GC_", ".npy"), ("GC_scores_", ".npy"), ("syn_", ".npy"),
+        ("syn_cond_", ".npy"), ("train_log_", ".jsonl"),
+        ("metrics_", ".json"))}
+    want |= {"ckpt_phase1", "ckpt_phase1.gc.npy", "ckpt_phase2"}
+    assert _png_free(files) == want, sorted(files)
+    log(f"files of {name}: {sorted(files)}; stderr: "
+        f"{err.getvalue().strip() or '(none)'}")
+    return {"phase1": per1, "phase2": per2, "rollouts": routes,
+            "auroc": dyn["auroc"], "seed_aurocs": aurocs,
+            "mean_auroc": mean, "wall_s": secs}
+
+
+def serve_win_main_path(dev, card, out_dir, windows):
+    """Phase 4k: ``cli export henon6d_win`` of the run's ``ckpt_win``,
+    ``cli generate --context`` on windows of the series, and
+    ``GeneratorServer`` answering three context requests and refusing a
+    malformed context with the JAX package's message; the served samples
+    equal ``WInCRVAE.generate`` on the same seed within 1e-5."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.models import WInCRVAE
+    from vae_connexe_torch.server import GeneratorServer
+    from vae_connexe_torch.utils import restore_checkpoint
+
+    name = "henon6d_win"
+    exp = get_experiment(name)
+    ckpt = os.path.join(out_dir, name, "ckpt_win")
+    art, ctx_path = (os.path.join(out_dir, "w.vcxt"),
+                     os.path.join(out_dir, "ctx.npy"))
+    batch = 8
+    ctx = windows[:batch].cpu().numpy()
+    np.save(ctx_path, ctx)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["export", name, ckpt, "--out", art, "--batch", str(batch),
+                  "--length", "20", "--device", str(dev)])
+        cli.main(["generate", art, "--seed", "5", "--context", ctx_path,
+                  "--device", str(dev)])
+    dec = json.JSONDecoder()
+    text = out.getvalue().strip()
+    _, end = dec.raw_decode(text)
+    gen_shape = dec.raw_decode(text[end:].lstrip())[0]["shape"]
+    model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                     tau=exp.tau)
+    params = restore_checkpoint(ckpt, model.init(torch.Generator(), dev))
+    srv = GeneratorServer(art, device=dev)
+    srv.start()
+    try:
+        last = ctx[:, -exp.tau:]
+        outs = [post(srv, {"seed": s, "context": last.tolist()})
+                for s in (1, 2, 3)]
+        try:
+            post(srv, {"seed": 1, "context": ctx[:2].tolist()})
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = (e.code, json.loads(e.read())["error"])
+    finally:
+        srv.shutdown()
+    with torch.no_grad():
+        ref = model.generate(params, torch.tensor(last, device=dev),
+                             torch.Generator(device=dev).manual_seed(1),
+                             20).cpu().numpy()
+    e = float(np.abs(outs[0] - ref).max())
+    log(f"main path win serving {name} (d={exp.p}, H={exp.hidden}, batch "
+        f"{batch}, 20 steps): cli generate --context shape {gen_shape}; 3 "
+        f"context requests, served vs WInCRVAE.generate max_abs_err={e:.3e} "
+        f"tol=1e-05; malformed context -> {refused} [{card}]")
+    assert gen_shape == [batch, 20, exp.p]
+    assert all(o.shape == (batch, 20, exp.p) and np.isfinite(o).all()
+               for o in outs)
+    assert e <= 1e-5, e
+    assert refused is not None and refused[0] == 400 and \
+        refused[1].startswith("context shape"), refused
+
+
+def win_discover_main_path(dev, card, out_dir):
+    """Phase 4l: ``cli discover --family win --prox row --seeds 8`` on a
+    coupled-Henon CSV made on the card (d=6, T=3000), WIN_DISCOVER_EPOCHS
+    stage-I epochs at henon6d_win's lam: one fit_many of every seed (2 + 2
+    launches a step); the seed-median scores' AUROC against
+    ``coupled_henon_truth`` off the diagonal printed.  Returns the
+    launches and the result."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.data import coupled_henon, coupled_henon_truth
+    from vae_connexe_torch.evals import auroc
+    from vae_connexe_torch.ops import cuda_gru
+
+    e1, s = WIN_DISCOVER_EPOCHS, SWEEP_SEEDS
+    series = coupled_henon(torch.Generator(device=dev).manual_seed(13),
+                           t=3000, d=WIN_D, device=dev).cpu().numpy()
+    path = os.path.join(out_dir, "henon.csv")
+    names = [f"h{i}" for i in range(WIN_D)]
+    np.savetxt(path, series, delimiter=",", header=",".join(names),
+               comments="")
+    module = sys.modules["vae_connexe_torch.discover"]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    t0 = time.perf_counter()
+    with _Taps(module, ("discover",)) as taps, \
+            contextlib.redirect_stdout(out):
+        cli.main(["discover", path, "--family", "win", "--prox", "row",
+                  "--seeds", str(s), "--iters", str(e1), "--lam", "0.03",
+                  "--device", str(dev), "--quiet"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_gru.LAUNCHES)
+    res = taps.seen["discover"][0]
+    summary = json.loads(out.getvalue())
+    truth = coupled_henon_truth(WIN_D, device="cpu")
+    off = ~torch.eye(WIN_D, dtype=torch.bool)
+    score_auroc = float(auroc(truth[off], torch.tensor(res.scores)[off]))
+    nb = (3000 - 2 * WIN_TAU + 1) // WIN_B
+    log(f"main path cli discover --family win --prox row d={WIN_D} T=3000 "
+        f"H={H} B={WIN_B} S={s}: {e1} stage-I epochs ({nb} steps an epoch, "
+        f"stage II skipped) in {secs:.3f} s; launches {launches}; scores "
+        f"off-diagonal auroc {score_auroc:.4f}, confidence "
+        f"{summary['confidence']}, {summary['n_edges']} edges [{card}]")
+    zero = {"gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert launches == {"gru_forward": 2 * nb * e1, "gru_backward": 2 * nb * e1,
+                        **zero}, launches
+    assert res.seed_scores.shape == (s, WIN_D, WIN_D)
+    assert np.isfinite(res.scores).all() and math.isfinite(score_auroc)
+    assert summary["variables"] == names
+    return {"launches": launches, "wall_s": secs, "auroc_offdiag": score_auroc,
+            "confidence": summary["confidence"]}
+
+
+def time_win(dev, card, windows):
+    """Phase 5e: stage-I and stage-II steps/s of ``henon6d_win``'s fit at
+    its shapes (host clock over WIN_RATE_EPOCHS epochs, draws included),
+    each step's device busy share under the profiler, ``fit_many``'s
+    seed-steps/s at S=8, and the win generation's latency at B=8 and
+    B=256 (20 steps) with its kernels a step."""
+    import torch
+
+    from vae_connexe_torch.utils.tree import stack_trees
+
+    out = {}
+    nb = windows.shape[0] // WIN_B
+    for s in (1, 8):
+        model, trainer = win_model_trainer()
+        params = stack_trees([model.init(torch.Generator().manual_seed(100 + i),
+                                         dev) for i in range(s)])
+        state = trainer.init_state(params, [
+            torch.Generator(device=dev).manual_seed(110 + i)
+            for i in range(s)])
+        for stage in (1, 2):
+            trainer._run_stage(stage, state, windows, 1, 1)    # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = trainer._run_stage(stage, state, windows,
+                                          WIN_RATE_EPOCHS, WIN_RATE_EPOCHS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            steps = nb * WIN_RATE_EPOCHS
+            batch = windows[:WIN_B][None].expand(s, -1, -1, -1).contiguous()
+            ez = torch.randn((s, WIN_B, WIN_Z), device=dev)
+            ee = torch.randn((s, WIN_B, WIN_Z // 2), device=dev)
+            counts = {}
+            wall, by_kernel = profile_ms(
+                lambda: trainer._update(stage, state.params, state.opt_state,
+                                        batch, ez, ee), 20, counts)
+            busy = sum(by_kernel.values())
+            row = {"steps_s": steps / secs, "seed_steps_s": s * steps / secs,
+                   "step_wall_ms": wall, "step_device_ms": busy,
+                   "busy_share": busy / wall,
+                   "kernels_a_step": sum(counts.values())}
+            out[f"stage{stage}_S{s}"] = row
+            log(f"time win stage {stage} S={s} d={WIN_D} H={H} B={WIN_B}: "
+                f"{row['steps_s']:.1f} steps/s, {row['seed_steps_s']:.1f} "
+                f"seed-steps/s over {steps} steps (host clock, draws "
+                f"included); one update under the profiler: wall "
+                f"{wall:.4f} ms, device {busy:.4f} ms, busy share "
+                f"{busy / wall:.3f}, {row['kernels_a_step']:.0f} kernels "
+                f"[{card}]")
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops.gru import init_stacked_gru
+
+    g = torch.Generator().manual_seed(130)
+    for heads in (WIN_D, 8 * WIN_D):
+        prm = init_stacked_gru(g, heads, H, H, device=dev)
+        w = (prm.w_ih, prm.b_ih, prm.w_hh, prm.b_hh)
+        x = torch.randn((heads, WIN_B, WIN_TAU, H), generator=g).to(dev)
+        h0 = torch.randn((heads, WIN_B, H), generator=g).to(dev)
+        douts = torch.randn((heads, WIN_B, WIN_TAU, H), generator=g).to(dev)
+        outs = cuda_gru._forward_launch(*w, x, h0)
+        row = {
+            "b1_ms": time_ms(lambda: cuda_gru._forward_launch(*w, x, h0), 100),
+            "b2_ms": time_ms(lambda: cuda_gru._backward_launch(
+                *w, x, h0, outs, douts, need_dx=True), 100),
+            "b1_bound_ms": bound(*gru_cost(heads, WIN_B, WIN_TAU, H, H,
+                                           False, per_head=True))[0],
+            "b2_bound_ms": bound(*gru_cost(heads, WIN_B, WIN_TAU, H, H,
+                                           True, per_head=True))[0]}
+        out[f"recurrence_P{heads}"] = row
+        log(f"time win decoder recurrence P={heads} B={WIN_B} T={WIN_TAU} "
+            f"D={H} H={H} per-head x, dx on: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" [{card}]")
+    model, _ = win_model_trainer()
+    params = model.init(torch.Generator().manual_seed(120), dev)
+    for b in (8, 256):
+        ctx = windows[:b]
+        gen = torch.Generator(device=dev).manual_seed(121)
+
+        def call():
+            with torch.no_grad():
+                return model.generate(params, ctx, gen, 20)
+
+        counts = {}
+        wall, by_kernel = profile_ms(call, 10, counts)
+        ms = time_ms(call, 20)
+        row = {"ms": ms, "profiled_wall_ms": wall,
+               "device_ms": sum(by_kernel.values()),
+               "kernels_a_step": sum(counts.values()) / 20}
+        out[f"generate_B{b}"] = row
+        log(f"time win generate d={WIN_D} H={H} B={b} 20 steps: {ms:.4f} ms "
+            f"(CUDA events), device {row['device_ms']:.4f} ms, "
+            f"{row['kernels_a_step']:.1f} kernels a step [{card}]")
+    return out
+
+
 def cr_plan(kind, p, hidden, dev) -> dict:
     """The plan (at B=3072) of a rollout as a dict for the JSON line."""
     from vae_connexe_torch.ops import cuda_rollout as cr
@@ -1878,6 +2501,8 @@ def main() -> int:
     check_training_kernels(dev, errors)
     check_step_phases(dev, errors)
     check_phase2_step(dev, errors)
+    win_windows = henon_windows(dev)
+    win_steps = check_win_steps(dev, errors, win_windows)
     series10 = lorenz_windows(dev, CRVAE_P, seed=4)
     check_sweep(dev, card, errors, series10)
     launches, served_fn = serve_main_path(dev)
@@ -1892,10 +2517,17 @@ def main() -> int:
         run_launches.update(serve_own_weights(dev, card, out_dir, trained))
         sweep_launches, sweep_rate = sweep_main_path(dev, card)
         found = discover_main_path(dev, card, out_dir)
+        win_runs = {name: win_run_main_path(dev, card, out_dir, name, extra)
+                    for name, extra in (("henon6d_win", ["--iters", "2000"]),
+                                        ("var_crvae", []))}
+        author = henon_author_main_path(dev, card, out_dir)
+        serve_win_main_path(dev, card, out_dir, win_windows)
+        win_found = win_discover_main_path(dev, card, out_dir)
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
     phase2_rates = time_phase2(dev, card, series, series10)
     sweep_rates = time_sweep(dev, card, series10, series)
+    win_rates = time_win(dev, card, win_windows)
 
     rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
                             "vae_connexe_torch/csrc/gru.cu")
@@ -1968,11 +2600,31 @@ def main() -> int:
     by_name["gru_backward"].update(sweep_main=sweep_rate,
                                    sweep_rates=sweep_rates,
                                    discover=found["discover"])
+    for name in ("gru_forward", "gru_backward"):
+        by_name[name].update(
+            launches_win_run={
+                run: {part: r[part][name] for part in
+                      ("stage1", "stage2", "after_fit")}
+                for run, r in win_runs.items()},
+            launches_win_many={k: v[name] for k, v in win_steps.items()},
+            launches_win_discover=win_found["launches"][name],
+            launches_henon_author={k: author[k][name]
+                                   for k in ("phase1", "phase2")},
+            win_step_max_abs_err=errors["win_step"])
+    by_name["gru_backward"].update(
+        win_rates=win_rates,
+        win_runs={run: {k: r[k] for k in ("wall_s", "auroc", "stability_f1")}
+                  for run, r in win_runs.items()},
+        henon_author={k: author[k] for k in
+                      ("wall_s", "auroc", "seed_aurocs", "mean_auroc")},
+        win_discover={k: win_found[k] for k in
+                      ("wall_s", "auroc_offdiag", "confidence")})
     for name in ("crvae_free_run", "errvae_sample"):
         by_name[name].update(
             launches_run=run_launches["run_rollouts"][f"{name}_resident"],
             launches_served_own=run_launches["served_own"][name],
-            launches_discover=found["discover_rollouts"][f"{name}_resident"])
+            launches_discover=found["discover_rollouts"][f"{name}_resident"],
+            launches_henon_author=author["rollouts"][f"{name}_resident"])
     kernels[-1]["phase_max_abs_err"] = {
         k.split(":", 1)[1]: v for k, v in errors.items()
         if k.startswith("phase1_step:")}

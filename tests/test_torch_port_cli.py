@@ -7,6 +7,8 @@ import dataclasses
 import json
 import pathlib
 import re
+import sys
+import unittest.mock
 
 import numpy as np
 import pytest
@@ -29,16 +31,47 @@ def test_experiments_table_matches_jax(name):
         f.name for f in dataclasses.fields(jexp.Experiment)]
 
 
-def _jax_crvae_result_keys() -> set[str]:
-    """The keys the JAX package's ``run_experiment`` puts in the results of
-    the crvae family on a dataset other than the 2-D Henon system (whose
-    ``gc_dynamics`` rows are not ported), read from its source."""
+_BRANCHES = {"crvae": ('if exp.model_family == "crvae":',
+                       'elif exp.model_family == "win":'),
+             "win": ('elif exp.model_family == "win":',
+                     'elif exp.model_family == "csrae":')}
+
+
+def _jax_branch(family: str) -> str:
+    """The source of the JAX package's ``run_experiment`` branch of
+    ``family``."""
     src = pathlib.Path(jexp.__file__).read_text()
-    body = src[src.index('if exp.model_family == "crvae":'):
-               src.index('elif exp.model_family == "win":')]
-    keys = set(re.findall(r'results\["(\w+)"\]\s*=', body))
-    return {"experiment", "seed"} | {k for k in keys
-                                     if not k.startswith("gc_dynamics")}
+    start, end = _BRANCHES[family]
+    return src[src.index(start):src.index(end)]
+
+
+def _jax_crvae_result_keys(henon: bool = False) -> set[str]:
+    """The keys the JAX package's ``run_experiment`` puts in the results of
+    the crvae family, read from its source; the ``gc_dynamics`` rows only
+    on the 2-D Henon system."""
+    keys = set(re.findall(r'results\["(\w+)"\]\s*=', _jax_branch("crvae")))
+    return {"experiment", "seed"} | {k for k in keys if henon
+                                     or not k.startswith("gc_dynamics")}
+
+
+def _jax_win_result_keys() -> set[str]:
+    return {"experiment", "seed"} | set(re.findall(
+        r'results\["(\w+)"\]\s*=', _jax_branch("win")))
+
+
+def _jax_files(family: str, name: str, pngs: bool = True) -> set[str]:
+    """The files the JAX package's run of ``family`` writes under
+    ``out_dir`` (without ``artifacts_every``, with ``save_checkpoints``),
+    read from its source: each ``out / f"<stem>{name}<ext>"`` and each
+    checkpoint (with its ``.gc.npy``)."""
+    body = _jax_branch(family)
+    files = {f"{stem}{name}{ext}" for stem, ext in re.findall(
+        r'out / f"(\w+?)\{name\}(\.\w+)"', body)
+        if pngs or ext != ".png"}
+    for ck, rest in re.findall(
+            r'save_checkpoint\(str\(out / "(\w+)"\),([^)]*\)?)', body):
+        files |= {ck, f"{ck}.gc.npy"} if "gc_matrix" in rest else {ck}
+    return files | {f"metrics_{name}.json"}
 
 
 def test_cli_list(capsys):
@@ -49,9 +82,13 @@ def test_cli_list(capsys):
 
 
 def _run(tmp_path, capsys, *extra):
+    """``cli run lorenz96_crvae`` at four steps a phase.  The figures (PCA
+    and t-SNE fits, seconds each) are left out, as on a machine without
+    matplotlib: ``test_cli_run_henon_author`` holds them."""
     out_dir = tmp_path / "run"
-    cli.main(["run", "lorenz96_crvae", "--iters", "4", "--device", "cpu",
-              "--out-dir", str(out_dir), "--quiet", *extra])
+    with unittest.mock.patch.dict(sys.modules, {"matplotlib": None}):
+        cli.main(["run", "lorenz96_crvae", "--iters", "4", "--device", "cpu",
+                  "--out-dir", str(out_dir), "--quiet", *extra])
     return out_dir, json.loads(capsys.readouterr().out)
 
 
@@ -115,13 +152,15 @@ def test_run_experiment_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A4"):
         run_experiment("vrae_demo", device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
-        run_experiment("henon_author", device="cpu")
+        run_experiment("lorenz96_crvae", overrides={"dataset": "random"},
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         run_experiment("lorenz96_crvae", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         run_experiment("lorenz96_crvae", out_of_core=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        run_experiment("lorenz96_crvae", artifacts_every=10, device="cpu")
+    with pytest.raises(ValueError, match="crvae family"):
+        run_experiment("henon6d_win", checkpoint_every=10, out_dir="o",
+                       device="cpu")
     with pytest.raises(ValueError, match="out-dir"):
         run_experiment("lorenz96_crvae", resume=True, device="cpu")
 
@@ -132,18 +171,21 @@ def test_run_experiment_unported_paths_raise():
     (["run", "lorenz96_crvae", "--sp", "2"], "A7"),
     (["run", "lorenz96_crvae", "--processes", "2"], "A7"),
     (["run", "lorenz96_crvae", "--out-of-core"], "A6"),
-    (["run", "lorenz96_crvae", "--artifacts-every", "5"], "A3"),
+    (["run", "lorenz96_crvae", "--artifacts-every", "5", "--out-of-core"],
+     "A6"),
     (["run", "lorenz96_crvae", "--debug-nans"], "A4"),
     (["export", "lorenz96_crvae", "ck", "--out", "g", "--serve-dtype",
       "bfloat16"], "A5"),
     (["export", "lorenz96_crvae", "ck", "--out", "g", "--platforms", "cpu"],
      "A5"),
-    (["export", "henon6d_win", "ck", "--out", "g", "--device", "cpu"], "A4"),
+    (["export", "henon6d_win", "ck", "--out", "g", "--serve-dtype",
+      "bfloat16", "--device", "cpu"], "A5"),
     (["eval", "vrae_demo", "ck", "--device", "cpu"], "A4"),
     (["discover", "s.csv", "--mesh"], "A7"),
     (["discover", "s.csv", "--ep", "2"], "A7"),
-    (["discover", "s.csv", "--family", "win"], "A4"),
-    (["discover", "s.csv", "--prox", "row"], "A4"),
+    (["discover", "s.csv", "--family", "win", "--mesh"], "A7"),
+    (["discover", "s.csv", "--family", "win", "--prox", "row", "--ep", "2"],
+     "A7"),
     (["sweep", "--mesh"], "A7"),
 ], ids=["mesh", "ep", "sp", "processes", "out-of-core", "artifacts-every",
         "debug-nans", "bf16", "platforms", "export-win", "eval-vrae",
@@ -154,3 +196,119 @@ def test_unported_flags_exit(argv, item):
     item that brings them; none is silently ignored."""
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(argv)
+
+
+# ---------------- the Henon and VAR experiments, the W_in family ----------
+
+
+@pytest.mark.parametrize("name", ["henon6d_win", "var_crvae"])
+def test_cli_run_win_family(tmp_path, capsys, name):
+    """``run`` of a win experiment (epochs cut by ``--iters 20``, its 8
+    stability seeds kept) returns the JAX package's keys and writes its
+    files, figures included; ``eval`` rescores ``ckpt_win`` to the run's
+    GC row; ``export`` -> ``generate --context`` samples, and a context of
+    the wrong shape is refused."""
+    exp = get_experiment(name)
+    out = tmp_path / "run"
+    cli.main(["run", name, "--iters", "20", "--device", "cpu", "--out-dir",
+              str(out), "--save-checkpoints", "--quiet"])
+    res = json.loads(capsys.readouterr().out)
+    assert set(res) == _jax_win_result_keys()
+    assert {p.name for p in out.iterdir()} == _jax_files("win", name)
+    assert json.loads((out / f"metrics_{name}.json").read_text()) == res
+    assert res["generated_shape"] == [8, 20, exp.p]
+    assert res["train"].keys() == {"loss", "recon", "kl"}
+    stab = res["gc_stability"]
+    assert stab["seeds"] == 8 and len(stab["votes_offdiag"]) == exp.p * (exp.p - 1)
+    assert res["gc_offdiag_best_threshold"]["oracle"] is True
+    assert all(np.isfinite(v) for v in res["prediction_mse"].values())
+
+    cli.main(["eval", name, str(out / "ckpt_win"), "--generate", "3",
+              "--device", "cpu"])
+    ev = json.loads(capsys.readouterr().out)
+    assert ev["gc"] == pytest.approx(res["gc"], nan_ok=True)
+    assert ev["generated_shape"] == [3, 20, exp.p]
+
+    art, ctx = str(tmp_path / "w.vcxt"), tmp_path / "ctx.npy"
+    cli.main(["export", name, str(out / "ckpt_win"), "--out", art, "--batch",
+              "2", "--length", "5", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out)["batch"] == 2
+    np.save(ctx, np.random.default_rng(0).normal(
+        size=(2, 2 * exp.tau + 1, exp.p)).astype(np.float32))   # > tau
+    cli.main(["generate", art, "--seed", "2", "--context", str(ctx),
+              "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out)["shape"] == [2, 5, exp.p]
+    with pytest.raises(SystemExit, match="context-conditioned"):
+        cli.main(["generate", art, "--device", "cpu"])
+    np.save(ctx, np.zeros((3, exp.tau, exp.p), np.float32))
+    with pytest.raises(ValueError, match="context shape"):
+        cli.main(["generate", art, "--context", str(ctx), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="serve-kernel"):
+        cli.main(["export", name, str(out / "ckpt_win"), "--out", art,
+                  "--serve-kernel", "fused", "--device", "cpu"])
+
+
+def test_cli_run_henon_author(tmp_path, capsys):
+    """The crvae family on the 2-D Henon map: the JAX package's keys with
+    its ``gc_dynamics`` rows, its files and figures, and with
+    ``--artifacts-every`` the periodic sample and its two figures at the
+    first phase-2 chunk at or after each period."""
+    name, out = "henon_author", tmp_path / "run"
+    cli.main(["run", name, "--iters", "4", "--artifacts-every", "3",
+              "--device", "cpu", "--out-dir", str(out), "--save-checkpoints",
+              "--quiet"])
+    res = json.loads(capsys.readouterr().out)
+    assert set(res) == _jax_crvae_result_keys(henon=True)
+    periodic = {f"syn_{name}_it4.npy", f"pca_{name}_it4.png",
+                f"traj_{name}_it4.png"}
+    assert {p.name for p in out.iterdir()} == (_jax_files("crvae", name)
+                                               | periodic)
+    assert np.load(out / f"syn_{name}_it4.npy").shape == (256, 10, 2)
+    assert res["gc_dynamics_best_threshold"]["accuracy"] >= \
+        res["gc_dynamics"]["accuracy"] - 1e-6
+    cli.main(["eval", name, str(out / "ckpt_phase1"), "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out)["gc"] == pytest.approx(
+        res["gc"], nan_ok=True)
+
+
+def test_run_without_matplotlib_names_the_figures_it_skips(tmp_path, capsys,
+                                                            monkeypatch):
+    """Where matplotlib cannot be imported the run writes every array and
+    metric, and one stderr line names the figures it did not write."""
+    monkeypatch.setitem(__import__("sys").modules, "matplotlib", None)
+    name, out = "henon_author", tmp_path / "run"
+    cli.main(["run", name, "--iters", "2", "--device", "cpu", "--out-dir",
+              str(out), "--quiet"])
+    cap = capsys.readouterr()
+    assert set(json.loads(cap.out)) == _jax_crvae_result_keys(henon=True)
+    pngs = sorted(f for f in _jax_files("crvae", name) if f.endswith(".png"))
+    line, = [ln for ln in cap.err.splitlines() if "figures not written" in ln]
+    assert line == (f"figures not written (matplotlib cannot be imported): "
+                    f"{', '.join(sorted(pngs, key=line.index))}")
+    assert {p.name for p in out.iterdir()} == {
+        f for f in _jax_files("crvae", name) if not f.endswith(".png")
+        and not f.startswith("ckpt")}
+
+
+def test_cli_discover_win_element(tmp_path, capsys):
+    """``discover --family win --prox element`` on a CSV, 3 seeds folded
+    into one fit, with generation and the output files."""
+    import jax
+
+    from vae_connexe_tpu.data import var_process, var_truth
+
+    series = np.asarray(var_process(jax.random.key(1), var_truth(4), n=1,
+                                    t=240))[0]
+    csv = tmp_path / "v.csv"
+    np.savetxt(csv, series, delimiter=",", header="a,b,c,d", comments="")
+    out = tmp_path / "d"
+    cli.main(["discover", str(csv), "--family", "win", "--prox", "element",
+              "--context", "8", "--iters", "3", "--batch", "64", "--seeds",
+              "3", "--generate", "4", "--out-dir", str(out), "--device",
+              "cpu", "--quiet"])
+    res = json.loads(capsys.readouterr().out)
+    assert res["family"] == "win" and res["seeds"] == 3
+    assert res["variables"] == ["a", "b", "c", "d"]
+    assert np.load(out / "generated_v.npy").shape == (4, 8, 4)
+    assert np.load(out / "GC_votes_v.npy").shape == (4, 4)
+    assert (out / "discovery_v.png").exists()

@@ -28,13 +28,16 @@ from vae_connexe_torch.utils.tree import tree_leaves
 _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.configs",
             "vae_connexe_torch.configs.experiments", "vae_connexe_torch.convert",
-            "vae_connexe_torch.data.io",
-            "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.windows",
+            "vae_connexe_torch.data.henon", "vae_connexe_torch.data.io",
+            "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.var",
+            "vae_connexe_torch.data.windows",
             "vae_connexe_torch.discover", "vae_connexe_torch.evals.gc_metrics",
             "vae_connexe_torch.evals.generation", "vae_connexe_torch.evals.viz",
             "vae_connexe_torch.losses.kl",
             "vae_connexe_torch.losses.penalties",
-            "vae_connexe_torch.models.crvae", "vae_connexe_torch.models.error_vae",
+            "vae_connexe_torch.models.crvae",
+            "vae_connexe_torch.models.crvae_win",
+            "vae_connexe_torch.models.error_vae",
             "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
             "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
             "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
@@ -43,6 +46,7 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.server",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",
+            "vae_connexe_torch.train.win_trainer",
             "vae_connexe_torch.utils.checkpoint",
             "vae_connexe_torch.utils.layers",
             "vae_connexe_torch.utils.metrics_log",
@@ -157,7 +161,7 @@ def test_kernels_match_plain_on_card(cuda_device, route, p, hidden, b,
 
 def _params_on(p, d, hidden, seed, device):
     return init_stacked_gru(torch.Generator().manual_seed(seed), p, d, hidden,
-                            device)
+                            device=device)
 
 
 @pytest.mark.cuda

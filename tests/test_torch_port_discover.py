@@ -267,8 +267,8 @@ def test_discover_validation(var_series):
         discover_fn(var_series, family="mystery", **SMALL)
     with pytest.raises(ValueError, match="win"):
         discover_fn(var_series, prox="row", **SMALL)
-    with pytest.raises(NotImplementedError, match="A4"):
-        discover_fn(var_series, family="win", **SMALL)
+    with pytest.raises(NotImplementedError, match="A7"):
+        discover_fn(var_series, family="win", seeds=2, mesh=object(), **SMALL)
     with pytest.raises(NotImplementedError, match="A7"):
         discover_fn(var_series, mesh=object(), **SMALL)
 

@@ -23,6 +23,7 @@ from vae_connexe_torch.models import (
     CRVAEParams,
     ErrorVAE,
     ErrorVAEParams,
+    WInCRVAE,
     masked_heads,
 )
 from vae_connexe_torch.serving import export_generator, export_win_generator
@@ -56,7 +57,7 @@ def test_rollout_with_parents_matches_jax(pair):
     ref = jm.rollout(jp, key, B, noise=jnp.asarray(noise),
                      parents=jnp.asarray(parents))
     h0 = torch.tensor(np.asarray(jax.random.normal(key, (B, H))))
-    got = m.rollout(tp, B, noise=torch.tensor(noise),
+    got = m.rollout(tp, None, B, noise=torch.tensor(noise),
                     parents=torch.tensor(parents), h0=h0)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -66,7 +67,7 @@ def test_error_vae_sample_matches_jax(pair):
     key = jax.random.key(7)
     ref = je.sample(jep, key, B, T)
     h0 = torch.tensor(np.asarray(jax.random.normal(key, (B, HE))))
-    got = e.sample(tep, B, length=T, h0=h0)
+    got = e.sample(tep, None, B, T, h0=h0)
     assert got.shape == (B, T + 1, P)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -140,11 +141,13 @@ def test_reduced_precision_and_win_family_not_ported(pair):
     with pytest.raises(NotImplementedError, match="bfloat16"):
         generate_with_compensation(m, e, tp, tep, g, B, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        m.rollout(tp, B, generator=g, dtype=torch.bfloat16)
+        m.rollout(tp, g, B, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         export_generator(m, e, tp, tep, batch=B, serve_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="win-family"):
-        export_win_generator(m, tp, batch=B, length=T)
+    win = WInCRVAE(d=P, hidden=4, latent=4, tau=3)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        export_win_generator(win, win.init(g, "cpu"), batch=B, length=T,
+                             serve_dtype="bfloat16")
 
 
 def test_convert_round_trips_reference_weights(pair):

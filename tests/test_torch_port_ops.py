@@ -70,7 +70,7 @@ def test_gru_step_heads_matches_jax(per_head):
 
 def test_init_is_torch_default_uniform():
     g = torch.Generator().manual_seed(0)
-    params = gru.init_stacked_gru(g, 3, 5, 16, torch.device("cpu"))
+    params = gru.init_stacked_gru(g, 3, 5, 16, device="cpu")
     assert params.w_ih.shape == (3, 48, 5) and params.w_hh.shape == (3, 48, 16)
     for leaf in (params.w_ih, params.w_hh, params.b_ih, params.b_hh):
         assert leaf.abs().max() <= 0.25 and leaf.abs().max() > 0.2

@@ -200,10 +200,10 @@ def test_cpu_recurrences_never_launch():
     """On CPU tensors the dispatch runs the plain recurrences and adds
     nothing to any kernel's launch count."""
     g = torch.Generator().manual_seed(3)
-    heads = gru.init_stacked_gru(g, P, D, H, torch.device("cpu"))
+    heads = gru.init_stacked_gru(g, P, D, H, device="cpu")
     heads = gru.GRUParams(*(v.requires_grad_(True) for v in
                             (heads.w_ih, heads.w_hh, heads.b_ih, heads.b_hh)))
-    one = gru.init_gru(g, D, H, torch.device("cpu"))
+    one = gru.init_gru(g, D, H, device="cpu")
     x, h0 = torch.randn((B, T, D), generator=g), torch.randn((1, B, H), generator=g)
     cuda_gru.reset_launches()
     outs, h_t = dispatch.heads_recurrence(heads, x, h0)
@@ -323,7 +323,7 @@ def test_gru_kernel_operands_are_validated():
     kernel reads it by (checked here on the CPU, where no launch follows);
     h0 keeps its broadcast strides."""
     g = torch.Generator().manual_seed(4)
-    p = gru.init_stacked_gru(g, P, D, H, torch.device("cpu"))
+    p = gru.init_stacked_gru(g, P, D, H, device="cpu")
     x = torch.randn((B, T, D), generator=g)
     h0 = torch.randn((B, H), generator=g).expand(P, B, H)
     shapes, _, xs, _, hs = cuda_gru._operands(p.w_ih, p.b_ih, p.w_hh, p.b_hh,

@@ -87,12 +87,15 @@ def test_artifact_rejects_bad_input(small):
     blob = small[-1]
     with pytest.raises(ValueError, match="bad magic"):
         load_generator(b"XXXXXXXX" + blob[8:], "cpu")
-    header = json.loads(blob[12:12 + int.from_bytes(blob[8:12], "little")])
-    for kind, err in (("win_conditioned_generator", NotImplementedError),
-                      ("other", ValueError)):
+    hlen = int.from_bytes(blob[8:12], "little")
+    header, body = json.loads(blob[12:12 + hlen]), blob[12 + hlen:]
+    # A win header on a compensated generator's weights, and an unknown kind.
+    for kind, err in (("win_conditioned_generator", "weight groups"),
+                      ("other", "unknown artifact kind")):
         h = json.dumps({**header, "kind": kind}).encode()
-        with pytest.raises(err):
-            load_generator(blob[:8] + len(h).to_bytes(4, "little") + h, "cpu")
+        with pytest.raises(ValueError, match=err):
+            load_generator(blob[:8] + len(h).to_bytes(4, "little") + h + body,
+                           "cpu")
     model, e, params, eparams = small[:4]
     with pytest.raises(ValueError, match="cuda"):
         export_generator(model, e, params, eparams, batch=2, platforms=["tpu"])

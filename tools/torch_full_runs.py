@@ -1,0 +1,81 @@
+"""Whole-run parity of the port on the card at the W_in experiments' full
+configurations.
+
+    python3 tools/torch_full_runs.py [--only NAME] [--out-dir DIR]
+
+Runs ``henon6d_win`` (2000 + 1000 epochs, 8 stability seeds) and
+``var_crvae`` (100 + 30 epochs, 8 seeds) through the port's ``cli run`` on
+the card at their own configurations (nothing cut), and holds each run's
+``gc_offdiag_auto.auroc`` and ``gc_stability.f1`` to the JAX package's
+committed full-config numbers (``results/<name>/metrics_<name>.json``)
+minus 0.05.  Prints the card's name and power limit, one JSON line a run
+(both numbers beside JAX's, the wall time) and exits non-zero when a run
+misses its gate.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+MARGIN = 0.05
+RUNS = ("henon6d_win", "var_crvae")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=RUNS, default=None)
+    ap.add_argument("--out-dir", default=None,
+                    help="keep each run's files under DIR/<name>")
+    args = ap.parse_args()
+    import torch
+
+    from vae_connexe_torch import cli
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        base = args.out_dir or tmp
+        for name in ([args.only] if args.only else RUNS):
+            ref = json.load(open(os.path.join(
+                ROOT, "results", name, f"metrics_{name}.json")))
+            out_dir = os.path.join(base, name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["run", name, "--out-dir", out_dir, "--quiet"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            res = json.load(open(os.path.join(out_dir,
+                                              f"metrics_{name}.json")))
+            row = {"experiment": name, "seconds": secs, "card": card}
+            for key, metric in (("gc_offdiag_auto", "auroc"),
+                                ("gc_stability", "f1")):
+                got, want = res[key][metric], ref[key][metric]
+                passed = got >= want - MARGIN
+                ok &= passed
+                row[f"{key}.{metric}"] = {"port": got, "jax": want,
+                                          "gate": want - MARGIN,
+                                          "ok": passed}
+            row["prediction_mse"] = res["prediction_mse"]
+            row["gc_stability.min_frac"] = res["gc_stability"]["min_frac"]
+            print(json.dumps(row), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -62,7 +62,7 @@ def main() -> None:
     optin, smem_sm, n_sm, threads_sm = limits
     g = torch.Generator().manual_seed(0)
     for heads in (1, 20):
-        prm = init_stacked_gru(g, heads, D, H, dev)
+        prm = init_stacked_gru(g, heads, D, H, device=dev)
         w = (prm.w_ih, prm.b_ih, prm.w_hh, prm.b_hh)
         x = torch.randn((B, T, D), generator=g).to(dev)
         h0 = torch.randn((1, B, H), generator=g).to(dev).expand(heads, B, H)

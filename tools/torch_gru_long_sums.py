@@ -57,7 +57,7 @@ def main() -> None:
     limits = cuda_gru.device_limits(dev)
     for heads, b, t, d, hidden in SHAPES:
         g = torch.Generator().manual_seed(b + heads)
-        params = init_stacked_gru(g, heads, d, hidden, dev)
+        params = init_stacked_gru(g, heads, d, hidden, device=dev)
         mask = (torch.rand((heads, d), generator=g) > 0.3).float().to(dev)
         params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
                            params.b_ih, params.b_hh)

@@ -7,18 +7,36 @@ resume, the crvae family's experiment runner and command line
 (``python -m vae_connexe_torch.cli run lorenz96_crvae``), and discovery on
 the user's own series: ``discover``, the multi-seed sweep with its seeds
 folded into the recurrence kernels' heads (``parallel``), stability
-selection, ``cli discover`` and ``cli sweep``.  The kernels
+selection, ``cli discover`` and ``cli sweep``; the explicit-W_in family
+(``WInCRVAE``, ``WInTrainer`` with its seeds folded into the kernels'
+heads, context-conditioned serving) and the Hénon and VAR datasets.  The
+kernels
 (``csrc/rollout.cu``, ``csrc/gru.cu``, ``csrc/step.cu``) are built with
 ``nvcc`` at first use.
 """
 
+__version__ = "0.1.0"
+
 from vae_connexe_torch.configs import EXPERIMENTS, get_experiment, run_experiment
 from vae_connexe_torch.discover import DiscoveryResult, discover
-from vae_connexe_torch.models import CRVAE, CRVAEParams, ErrorVAE, ErrorVAEParams
-from vae_connexe_torch.serving import export_generator, load_generator
+from vae_connexe_torch.models import (
+    CRVAE,
+    CRVAEParams,
+    ErrorVAE,
+    ErrorVAEParams,
+    WInCRVAE,
+    WInCRVAEParams,
+)
+from vae_connexe_torch.serving import (
+    export_generator,
+    export_win_generator,
+    load_generator,
+)
 from vae_connexe_torch.train import (
     Phase1Config,
     Phase2Config,
+    WInTrainConfig,
+    WInTrainer,
     fit_phase1,
     fit_phase2,
     generate_from_draws,
@@ -34,8 +52,13 @@ __all__ = [
     "ErrorVAEParams",
     "Phase1Config",
     "Phase2Config",
+    "WInCRVAE",
+    "WInCRVAEParams",
+    "WInTrainConfig",
+    "WInTrainer",
     "discover",
     "export_generator",
+    "export_win_generator",
     "fit_phase1",
     "fit_phase2",
     "generate_from_draws",

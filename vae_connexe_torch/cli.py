@@ -6,8 +6,8 @@ Subcommands:
   run        run a named experiment end to end (train, evaluate, artifacts)
   discover   Granger-causal discovery on YOUR data (.npy/.csv/...)
   sweep      multi-seed phase-1 causal-discovery sweep
-  eval       rescore / generate from a phase-1 checkpoint
-  export     phase-2 checkpoint -> generator artifact
+  eval       rescore / generate from a checkpoint
+  export     checkpoint -> generator artifact
   generate   sample from an artifact
   serve      HTTP serving daemon for artifacts
 
@@ -17,6 +17,9 @@ Examples:
   python -m vae_connexe_torch.cli export lorenz96_crvae out/ckpt_phase2 --out g.vcxt
   python -m vae_connexe_torch.cli serve g.vcxt --port 8799
   python -m vae_connexe_torch.cli discover my_series.csv --seeds 8 --out-dir out/
+  python -m vae_connexe_torch.cli run henon6d_win --out-dir out --save-checkpoints
+  python -m vae_connexe_torch.cli export henon6d_win out/ckpt_win --out w.vcxt
+  python -m vae_connexe_torch.cli generate w.vcxt --context ctx.npy
   python -m vae_connexe_torch.cli sweep --p 10 --seeds 8 --iters 1000
 
 Everything runs on the card unless ``--device cpu`` is given.  The JAX
@@ -37,14 +40,12 @@ _RUN_UNPORTED = (
     ("processes", "--processes", "A7"),
     ("devices_per_process", "--devices-per-process", "A7"),
     ("out_of_core", "--out-of-core", "A6"),
-    ("artifacts_every", "--artifacts-every", "A3"),
-    ("debug_nans", "--debug-nans", "A4"),
+    ("debug_nans", "--debug-nans", "A4f"),
 )
 # ... and of its ``discover`` and ``sweep``; a fourth entry lists the values that
 # are ported (without one: left unset).
 _DISCOVER_UNPORTED = (
     ("mesh", "--mesh", "A7"), ("ep", "--ep > 1", "A7", (1,)),
-    ("family", "--family win", "A4", ("crvae",)), ("prox", "--prox", "A4"),
 )
 _SWEEP_UNPORTED = (("mesh", "--mesh", "A7"),)
 
@@ -81,6 +82,7 @@ def _cmd_run(args):
                              out_dir=args.out_dir, overrides=overrides or None,
                              run_phase2=not args.no_phase2,
                              save_checkpoints=args.save_checkpoints,
+                             artifacts_every=args.artifacts_every,
                              checkpoint_every=args.checkpoint_every,
                              resume=args.resume, verbose=not args.quiet,
                              device=args.device)
@@ -195,55 +197,69 @@ def _cmd_discover(args):
             np.save(out / f"GC_votes_{stem}.npy", res.votes)
         if res.samples is not None:
             np.save(out / f"generated_{stem}.npy", res.samples)
-        from vae_connexe_torch.evals.viz import discovery_heatmap
+        from vae_connexe_torch.evals.viz import FigureWriter, discovery_heatmap
 
-        discovery_heatmap(res.scores, res.gc,
-                          str(out / f"discovery_{stem}.png"), names=names,
-                          threshold=res.threshold)
+        figs = FigureWriter()
+        figs.draw(discovery_heatmap, res.scores, res.gc,
+                  path=str(out / f"discovery_{stem}.png"), names=names,
+                  threshold=res.threshold)
+        figs.report()
         with open(out / f"discovery_{stem}.json", "w") as f:
             json.dump(summary, f, indent=2)
         summary["artifacts"] = str(out)
     print(json.dumps(summary, indent=2))
 
 
-def _crvae_only(exp, what: str):
-    if exp.model_family != "crvae":
+def _ported_family(exp, what: str):
+    if exp.model_family not in ("crvae", "win"):
         sys.exit(f"{what} of the {exp.model_family!r} family is not ported "
                  f"yet (ROADMAP A4)")
 
 
 def _cmd_eval(args):
-    """Restore a phase-1 checkpoint and its GC companion, rescore, and
-    optionally generate, without training."""
+    """Restore a checkpoint (crvae: ``ckpt_phase1`` and its GC companion;
+    win: ``ckpt_win``), rescore, and optionally generate, without
+    training."""
     import numpy as np
     import torch
 
     from vae_connexe_torch._device import resolve_device
     from vae_connexe_torch.configs import get_experiment
-    from vae_connexe_torch.configs.experiments import _sweep, _unported_dataset
-    from vae_connexe_torch.data import lorenz96_truth
+    from vae_connexe_torch.configs.experiments import _make_dataset, _sweep
     from vae_connexe_torch.evals import gc_metrics
-    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.models import CRVAE, WInCRVAE
     from vae_connexe_torch.utils import load_gc, restore_checkpoint
 
     exp = get_experiment(args.experiment)
-    _crvae_only(exp, "eval")
-    _unported_dataset(exp)
+    _ported_family(exp, "eval")
     dev = resolve_device(args.device)
     results = {"experiment": args.experiment, "checkpoint": args.checkpoint}
-    model = CRVAE(p=exp.p, hidden=exp.hidden)
-    params = restore_checkpoint(
-        args.checkpoint, model.init(torch.Generator().manual_seed(0), dev))
-    gc = torch.tensor(load_gc(args.checkpoint), dtype=torch.float32,
-                      device=dev)
-    scores = model.gc(params, parents=gc, threshold=False)
-    truth = lorenz96_truth(exp.p, dev)
+    series, truth = _make_dataset(
+        exp, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    init = torch.Generator().manual_seed(0)
+    if exp.model_family == "crvae":
+        model = CRVAE(p=exp.p, hidden=exp.hidden)
+        params = restore_checkpoint(args.checkpoint, model.init(init, dev))
+        gc = torch.tensor(load_gc(args.checkpoint), dtype=torch.float32,
+                          device=dev)
+        scores = model.gc(params, parents=gc, threshold=False)
+        if args.generate:
+            roll = model.rollout(params, gen, args.generate, parents=gc)
+    else:
+        model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                         tau=exp.tau)
+        params = restore_checkpoint(args.checkpoint, model.init(init, dev))
+        scores = model.granger_matrix(params, threshold=False)
+        if args.generate:
+            ctx = (series[None, : 2 * exp.tau] if series.ndim == 2
+                   else series[:1, : 2 * exp.tau])
+            ctx = ctx.expand(args.generate, -1, -1)
+            roll = model.generate(params, ctx, gen, 20)
     results["gc"] = {k: float(v) for k, v in
                      gc_metrics(truth, scores, exp.gc_threshold).items()}
     results["threshold_sweep"] = _sweep(truth, scores)
     if args.generate:
-        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        roll = model.rollout(params, args.generate, generator=gen, parents=gc)
         results["generated_shape"] = list(roll.shape)
         if args.out:
             np.save(args.out, roll.cpu().numpy())
@@ -252,15 +268,16 @@ def _cmd_eval(args):
 
 
 def _cmd_export(args):
-    """Export a phase-2 checkpoint as a generator artifact."""
+    """Export a checkpoint as a generator artifact (crvae: ``ckpt_phase2``;
+    win: ``ckpt_win``, context-conditioned)."""
     import pathlib
 
     import torch
 
     from vae_connexe_torch._device import resolve_device
     from vae_connexe_torch.configs import get_experiment
-    from vae_connexe_torch.models import CRVAE, ErrorVAE
-    from vae_connexe_torch.serving import export_generator
+    from vae_connexe_torch.models import CRVAE, ErrorVAE, WInCRVAE
+    from vae_connexe_torch.serving import export_generator, export_win_generator
     from vae_connexe_torch.utils import restore_checkpoint
 
     if args.platforms is not None:
@@ -269,17 +286,33 @@ def _cmd_export(args):
     if args.serve_dtype == "bfloat16":
         sys.exit("--serve-dtype bfloat16 is not ported yet (ROADMAP A5)")
     exp = get_experiment(args.experiment)
-    _crvae_only(exp, "export")
+    if exp.model_family not in ("crvae", "win"):
+        sys.exit(f"export supports the crvae and win families; "
+                 f"{args.experiment!r} is {exp.model_family!r}")
     dev = resolve_device(args.device)
-    model = CRVAE(p=exp.p, hidden=exp.hidden)
-    err_model = ErrorVAE(d=exp.p, hidden=exp.hidden)
     g = torch.Generator().manual_seed(0)
-    target = {"crvae": model.init(g, dev), "error_vae": err_model.init(g, dev)}
-    ckpt = restore_checkpoint(args.checkpoint, target)
-    blob = export_generator(model, err_model, ckpt["crvae"],
-                            ckpt["error_vae"], batch=args.batch,
-                            length=args.length, serve_dtype=args.serve_dtype,
-                            kernel=args.serve_kernel)
+    if exp.model_family == "crvae":
+        model = CRVAE(p=exp.p, hidden=exp.hidden)
+        err_model = ErrorVAE(d=exp.p, hidden=exp.hidden)
+        target = {"crvae": model.init(g, dev),
+                  "error_vae": err_model.init(g, dev)}
+        ckpt = restore_checkpoint(args.checkpoint, target)
+        blob = export_generator(model, err_model, ckpt["crvae"],
+                                ckpt["error_vae"], batch=args.batch,
+                                length=args.length,
+                                serve_dtype=args.serve_dtype,
+                                kernel=args.serve_kernel)
+    else:
+        if args.serve_kernel != "lax":
+            sys.exit(f"--serve-kernel {args.serve_kernel!r} is not supported "
+                     f"for the win family (context-conditioned export has no "
+                     f"fused kernel); use the default 'lax'")
+        model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                         tau=exp.tau)
+        params = restore_checkpoint(args.checkpoint, model.init(g, dev))
+        blob = export_win_generator(model, params, batch=args.batch,
+                                    length=args.length or 21,
+                                    serve_dtype=args.serve_dtype)
     pathlib.Path(args.out).write_bytes(blob)
     print(json.dumps({"artifact": args.out, "bytes": len(blob),
                       "batch": args.batch, "platforms": ["cuda"]}, indent=2))
@@ -310,7 +343,14 @@ def _cmd_generate(args):
     from vae_connexe_torch.serving import load_generator
 
     fn, meta = load_generator(args.artifact, args.device)
-    samples = fn(args.seed)
+    if meta["kind"] == "win_conditioned_generator":
+        if not args.context:
+            sys.exit("this artifact is context-conditioned; pass --context "
+                     "ctx.npy of shape (batch, >=tau, p)")
+        ctx = np.load(args.context)
+        samples = fn(args.seed, ctx[:, -meta["tau"]:, :])
+    else:
+        samples = fn(args.seed)
     result = {"artifact": args.artifact, "meta": meta, "seed": args.seed,
               "shape": list(samples.shape)}
     if args.out:
@@ -365,7 +405,10 @@ def main(argv=None):
     p_run.add_argument("--out-of-core", action="store_true",
                        dest="out_of_core", help=argparse.SUPPRESS)
     p_run.add_argument("--artifacts-every", type=int, default=None,
-                       help=argparse.SUPPRESS)
+                       dest="artifacts_every", metavar="N",
+                       help="crvae family, with --out-dir: every N phase-2 "
+                            "steps save a compensated sample with its PCA "
+                            "and trajectory figures")
     p_run.add_argument("--debug-nans", action="store_true", dest="debug_nans",
                        help=argparse.SUPPRESS)
     p_run.set_defaults(fn=_cmd_run)
@@ -406,11 +449,12 @@ def main(argv=None):
                      help="learning rate (default 5e-2)")
     p_d.add_argument("--family", choices=("crvae", "win"), default="crvae",
                      help="causal parameterisation: crvae = GRU input-"
-                          "weight column groups (win: ROADMAP A4)")
+                          "weight column groups; win = explicit per-head "
+                          "W_in matrices")
     p_d.add_argument("--prox", choices=("row", "element"), default=None,
-                     help=argparse.SUPPRESS)
+                     help="win family: sparsity groups (default row)")
     p_d.add_argument("--latent", type=int, default=32,
-                     help=argparse.SUPPRESS)
+                     help="win family: latent width")
     p_d.add_argument("--iters", type=int, default=2000)
     p_d.add_argument("--batch", type=int, default=256)
     p_d.add_argument("--seeds", type=int, default=1,
@@ -448,8 +492,8 @@ def main(argv=None):
 
     p_e = sub.add_parser("eval", help="evaluate / generate from a checkpoint")
     p_e.add_argument("experiment", help="experiment name (model geometry)")
-    p_e.add_argument("checkpoint", help="ckpt_phase1 from run "
-                                        "--save-checkpoints")
+    p_e.add_argument("checkpoint", help="ckpt_phase1 (crvae) or ckpt_win "
+                                        "(win) from run --save-checkpoints")
     p_e.add_argument("--seed", type=int, default=0)
     p_e.add_argument("--generate", type=int, default=0, metavar="BATCH",
                      help="also sample BATCH free-running rollouts")
@@ -460,8 +504,8 @@ def main(argv=None):
     p_x = sub.add_parser("export", help="export a phase-2 checkpoint as a "
                                         "generator artifact")
     p_x.add_argument("experiment", help="experiment name (model geometry)")
-    p_x.add_argument("checkpoint", help="ckpt_phase2 from run "
-                                        "--save-checkpoints")
+    p_x.add_argument("checkpoint", help="ckpt_phase2 (crvae) or ckpt_win "
+                                        "(win) from run --save-checkpoints")
     p_x.add_argument("--out", required=True, help="artifact path (.vcxt)")
     p_x.add_argument("--batch", type=int, default=64,
                      help="rollouts per call (baked into the artifact)")
@@ -482,6 +526,9 @@ def main(argv=None):
     p_g.add_argument("artifact", help="artifact path from export")
     p_g.add_argument("--seed", type=int, default=0)
     p_g.add_argument("--out", default=None, help=".npy path for samples")
+    p_g.add_argument("--context", default=None,
+                     help=".npy context windows (batch, >=tau, p) for "
+                          "context-conditioned (win-family) artifacts")
     _device_arg(p_g)
     p_g.set_defaults(fn=_cmd_generate)
 

@@ -3,12 +3,15 @@
 
 ``EXPERIMENTS`` is the JAX package's table, copied field for field (the
 comments cite each entry's source).  ``run_experiment`` runs the crvae
-family on the port: phase 1, the GC scores and metrics, phase 2 under the
-binary mask, compensated and conditioned generation, with the same ``.npy``,
-checkpoint, log and metrics files as the reference.  Only the ``lorenz96``
-dataset is ported.  Not ported yet, and raising where asked for: the other
-families and datasets (ROADMAP A4), ``artifacts_every`` and the PNG
-figures of ``evals/viz.py`` (A3), ``out_of_core`` (A6) and ``mesh`` (A7).
+family (phase 1, the GC scores and metrics, phase 2 under the binary
+mask, compensated and conditioned generation) and the win family (the
+two-stage W_in trainer, prediction MSE, the GC rows, stability selection
+over seeds folded into the kernels' heads, conditioned generation) on the
+``lorenz96``, ``henon``, ``coupled_henon`` and ``var`` datasets, with the
+reference's ``.npy``, checkpoint, log, metrics and figure files.  Not
+ported yet, and raising where asked for: the vrae and csrae families and
+the ``random`` dataset (ROADMAP A4), ``out_of_core`` (A6) and ``mesh``
+(A7).
 """
 
 from __future__ import annotations
@@ -161,6 +164,8 @@ EXPERIMENTS: dict[str, Experiment] = {
 # of a CPU generator seeded with the run's seed (the counterpart of the
 # reference's ``k_data, k_init, k_run, k_p2, k_gen`` split).
 ROLES = ("data", "init", "run", "p2", "gen")
+_PORTED_FAMILIES = ("crvae", "win")
+_PORTED_DATASETS = ("lorenz96", "henon", "coupled_henon", "var")
 
 
 def get_experiment(name: str) -> Experiment:
@@ -182,21 +187,38 @@ def _sweep(truth, scores) -> dict[str, dict[str, float]]:
 
 
 def _unported_dataset(exp: Experiment):
-    if exp.dataset != "lorenz96":
+    if exp.dataset not in _PORTED_DATASETS:
         raise NotImplementedError(
             f"dataset {exp.dataset!r} is not ported yet (ROADMAP A4); the "
-            "port makes lorenz96 only")
+            f"port makes {', '.join(_PORTED_DATASETS)}")
+
+
+def _unported_family(exp: Experiment):
+    if exp.model_family not in _PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the {exp.model_family!r} family ({exp.name!r}) is not ported "
+            "yet (ROADMAP A4); the port runs the crvae and win families")
 
 
 def _make_dataset(exp: Experiment, generator: torch.Generator, device=None):
-    """(series (t, p) on ``device``, truth (p, p)) of the experiment, the
-    series' draws from ``generator``."""
-    from vae_connexe_torch.data import lorenz96, lorenz96_truth
+    """(series on ``device``, truth (p, p) int32) of the experiment, the
+    series' draws from ``generator``: (t, p), or (500, t, p) independent
+    sequences for ``var``."""
+    from vae_connexe_torch import data as D
 
     _unported_dataset(exp)
     dev = resolve_device(device)
-    series = lorenz96(generator, p=exp.p, t=exp.t, device=dev)
-    return series, lorenz96_truth(exp.p, dev)
+    if exp.dataset == "lorenz96":
+        return (D.lorenz96(generator, p=exp.p, t=exp.t, device=dev),
+                D.lorenz96_truth(exp.p, dev))
+    if exp.dataset == "henon":
+        return D.henon_chain(t=exp.t, device=dev), D.henon_truth(exp.p, dev)
+    if exp.dataset == "coupled_henon":
+        return (D.coupled_henon(generator, t=exp.t, d=exp.p, device=dev),
+                D.coupled_henon_truth(exp.p, device=dev))
+    a = D.var_truth(exp.p, dev)
+    return (D.var_process(generator, a, n=500, t=exp.t),
+            (a > 0).to(torch.int32))
 
 
 def _floats(d: dict) -> dict[str, float]:
@@ -218,49 +240,59 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
                    checkpoint_every: int | None = None,
                    resume: bool = False,
                    log_fn=print, device=None) -> dict[str, Any]:
-    """Run a named crvae-family experiment end to end on ``device``
-    (default ``cuda``); returns the metrics dict, with the reference's
-    keys.
+    """Run a named experiment end to end on ``device`` (default ``cuda``);
+    returns the metrics dict, with the reference's keys.
 
-    ``save_checkpoints=True`` (requires ``out_dir``) writes ``ckpt_phase1``
-    with the binary GC matrix beside it (``ckpt_phase1.gc.npy``, the
-    two-phase handoff) and ``ckpt_phase2`` (``{"crvae", "error_vae"}``).
-    ``checkpoint_every=N`` (requires ``out_dir``) snapshots the running
-    phase's whole state every N steps under ``out_dir/ckpt_mid_phase{1,2}``;
-    ``resume=True`` restores the latest snapshot and continues, bitwise
-    equal to the uninterrupted run (a finished phase is a pure restore).
-    With ``out_dir`` the run also writes ``GC_<name>.npy``,
-    ``GC_scores_<name>.npy``, ``syn_<name>.npy``, ``syn_cond_<name>.npy``,
-    ``train_log_<name>.jsonl`` (one record a chunk, both phases) and
-    ``metrics_<name>.json``; the reference's PNG figures are not written
-    (``evals/viz.py``, ROADMAP A3).
+    ``save_checkpoints=True`` (requires ``out_dir``) writes, for the crvae
+    family, ``ckpt_phase1`` with the binary GC matrix beside it
+    (``ckpt_phase1.gc.npy``, the two-phase handoff) and ``ckpt_phase2``
+    (``{"crvae", "error_vae"}``); for the win family ``ckpt_win`` with its
+    ``.gc.npy``.  ``checkpoint_every=N`` (crvae family; requires
+    ``out_dir``) snapshots the running phase's whole state every N steps
+    under ``out_dir/ckpt_mid_phase{1,2}``; ``resume=True`` restores the
+    latest snapshot and continues, bitwise equal to the uninterrupted run
+    (a finished phase is a pure restore).  ``artifacts_every=N`` (crvae
+    family; requires ``out_dir``) draws a compensated sample at the first
+    phase-2 chunk at or after each period and saves
+    ``syn_<name>_it<step>.npy`` with its PCA and trajectory figures.
+
+    With ``out_dir`` the run writes the reference's files: for the crvae
+    family ``GC_<name>.npy``, ``GC_scores_<name>.npy``, ``syn_<name>.npy``,
+    ``syn_cond_<name>.npy``, ``train_log_<name>.jsonl`` (one record a
+    chunk, both phases) and the figures ``gc_heatmap_``,
+    ``gc_heatmap_auto_``, ``pca_``, ``tsne_``, ``traj_``, ``pca_cond_``,
+    ``tsne_cond_``; for the win family ``GC_scores_<name>.npy``,
+    ``syn_<name>.npy`` and the figures ``w_in_``, ``w_in_norms_``,
+    ``gc_heatmap_``; and ``metrics_<name>.json``.  Where matplotlib or
+    scikit-learn cannot be imported the figures are skipped and named on
+    one stderr line (``evals/viz.py::FigureWriter``).
 
     The draws (``utils/seeding.py::role_generators``): one CPU generator
     seeded with ``seed`` draws one seed per role of ``ROLES`` in that
-    order.  ``data`` (on the device) makes the
-    series; ``init`` (CPU) the phase-1 CRVAE, seed + 1 the phase-2 CRVAE
-    and seed + 2 the ErrorVAE (the reference's ``fold_in(k_init, 1)`` and
-    ``fold_in(k_init, 2)``); ``run`` and ``p2`` (on the device) are the
-    two fits' generators; ``gen`` (on the device) draws the compensated
-    generation and seed + 1 the conditioned one (the ErrorVAE's h0, then
-    the latent epsilon).  A rerun with the same seed rebuilds the same
-    generators, which is what resume relies on.
+    order.  ``data`` (on the device) makes the series; ``init`` (CPU) the
+    first model, seed + 1 the phase-2 CRVAE and seed + 2 the ErrorVAE (the
+    reference's ``fold_in(k_init, 1)`` and ``fold_in(k_init, 2)``); ``run``
+    and ``p2`` (on the device) are the fits' generators; ``gen`` (on the
+    device) draws the generations (the crvae family's conditioned one
+    from seed + 1, its periodic samples from seed + step).  The win
+    family's stability seed s >= 1 trains from ``init`` at offset s and
+    ``run`` at offset 100 + s (``utils/seeding.py::seed_stack_generators``)
+    and its prediction MSE draws from ``run`` at offset 1.  A rerun with
+    the same seed rebuilds the same generators, which is what resume
+    relies on.
     """
     exp = get_experiment(name)
-    if exp.model_family != "crvae":
-        raise NotImplementedError(
-            f"the {exp.model_family!r} family ({name!r}) is not ported yet "
-            "(ROADMAP A4); the port runs the crvae family")
+    _unported_family(exp)
     if mesh is not None:
         raise NotImplementedError("meshed runs are not ported yet "
                                   "(ROADMAP A7)")
     if out_of_core:
         raise NotImplementedError("out-of-core runs are not ported yet "
                                   "(ROADMAP A6)")
-    if artifacts_every:
-        raise NotImplementedError(
-            "artifacts_every (periodic samples and PCA/trajectory figures, "
-            "evals/viz.py) is not ported yet (ROADMAP A3)")
+    if (checkpoint_every or resume) and exp.model_family != "crvae":
+        raise ValueError(
+            f"--checkpoint-every/--resume support the crvae family "
+            f"(two-phase trainer); {name!r} is {exp.model_family!r}")
     if (checkpoint_every or resume) and not out_dir:
         raise ValueError("--checkpoint-every/--resume require --out-dir "
                          "(checkpoints live under it)")
@@ -272,10 +304,60 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     def gens(offset=0):
         return role_generators(seed, ROLES, ("init",), dev, offset)
 
-    g = gens()
+    series, truth = _make_dataset(exp, gens()["data"], dev)
+    out = pathlib.Path(out_dir) if out_dir else None
+    if out:
+        out.mkdir(parents=True, exist_ok=True)
+    results: dict[str, Any] = {"experiment": name, "seed": seed}
+    from vae_connexe_torch.evals.viz import FigureWriter
 
+    figs = FigureWriter()
+    run = _run_crvae if exp.model_family == "crvae" else _run_win
+    run(exp, name, seed, series, truth, gens, dev, out, figs, results,
+        run_phase2=run_phase2, verbose=verbose,
+        save_checkpoints=save_checkpoints, artifacts_every=artifacts_every,
+        checkpoint_every=checkpoint_every, resume=resume, log_fn=log_fn)
+    figs.report()
+    if out:
+        (out / f"metrics_{name}.json").write_text(json.dumps(results,
+                                                             indent=2))
+    return results
+
+
+def gc_dynamics_rows(scores: torch.Tensor) -> dict[str, dict]:
+    """``henon_author``'s corrected rows: the reference's 2-D Henon truth
+    mislabels its own generator (``data/henon.py::henon_dynamics_truth``),
+    so the scores are also held against the map's own graph, at the
+    default threshold (``gc_dynamics``) and at the best accuracy on a
+    64-point grid from 0 to the largest score
+    (``gc_dynamics_best_threshold``)."""
+    from vae_connexe_torch.data import henon_dynamics_truth
+    from vae_connexe_torch.evals import gc_metrics
+
+    dyn = henon_dynamics_truth(scores.device)
+    grid = np.linspace(0.0, float(scores.max()), 64, dtype=np.float32)
+    accs = [float(gc_metrics(dyn, scores, float(t))["accuracy"])
+            for t in grid]
+    best = float(grid[int(np.argmax(accs))])
+    return {"gc_dynamics": _floats(gc_metrics(dyn, scores)),
+            "gc_dynamics_best_threshold": {
+                "threshold": best, **_floats(gc_metrics(dyn, scores, best))}}
+
+
+def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
+               results, *,
+               run_phase2, verbose, save_checkpoints, artifacts_every,
+               checkpoint_every, resume, log_fn):
+    """The crvae family's run (``run_experiment``), results into
+    ``results``."""
     from vae_connexe_torch.data import arrange_input
     from vae_connexe_torch.evals import auto_threshold, gc_metrics, moment_match
+    from vae_connexe_torch.evals.viz import (
+        gc_heatmaps,
+        pca_comparison,
+        trajectory_overlay,
+        tsne_comparison,
+    )
     from vae_connexe_torch.models import CRVAE, ErrorVAE
     from vae_connexe_torch.train import (
         fit_phase1,
@@ -284,12 +366,7 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     )
     from vae_connexe_torch.utils import JsonlWriter, save_checkpoint
 
-    series, truth = _make_dataset(exp, g["data"], dev)
-    out = pathlib.Path(out_dir) if out_dir else None
-    if out:
-        out.mkdir(parents=True, exist_ok=True)
-    results: dict[str, Any] = {"experiment": name, "seed": seed}
-
+    g = gens()
     model = CRVAE(p=exp.p, hidden=exp.hidden)
     params = model.init(g["init"], dev)
     full = torch.ones((exp.p, exp.p), device=dev)
@@ -320,9 +397,16 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     results["gc_auto"] = {"threshold": thr_auto,
                           **_floats(gc_metrics(truth, scores, thr_auto))}
     results["threshold_sweep"] = _sweep(truth, scores)
+    if exp.dataset == "henon" and exp.p == 2:
+        results.update(gc_dynamics_rows(scores))
     if out:
         np.save(out / f"GC_{name}.npy", gc_est.cpu().numpy())
         np.save(out / f"GC_scores_{name}.npy", scores.detach().cpu().numpy())
+        truth_np = truth.cpu().numpy()
+        figs.draw(gc_heatmaps, truth_np, gc_est.cpu().numpy(),
+                  path=str(out / f"gc_heatmap_{name}.png"))
+        figs.draw(gc_heatmaps, truth_np, scores.cpu().numpy() > thr_auto,
+                  path=str(out / f"gc_heatmap_auto_{name}.png"))
     if save_checkpoints and out:
         save_checkpoint(str(out / "ckpt_phase1"), best, gc_matrix=gc_est)
 
@@ -331,12 +415,41 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
         p2_params = model.init(gens(1)["init"], dev)
         err_model = ErrorVAE(d=exp.p, hidden=exp.hidden)
         err_params = err_model.init(gens(2)["init"], dev)
+        # Real and generated segments share T for the figures: the rollout
+        # is rollout_len steps, windows give T - enc_len.
+        t_cmp = min(model.rollout_len, windows.shape[1] - model.enc_len)
+        ori = (windows[:256, model.enc_len:model.enc_len + t_cmp].cpu()
+               .numpy() if out else None)
+        callbacks = [log_phase("phase2")]
+        if artifacts_every and out:
+            fired = {"last": 0}
+
+            def artifacts(step, state, metrics):
+                # Once a chunk; fire on the first chunk at or after each
+                # period, so artifacts_every need not divide check_every.
+                if step - fired["last"] < artifacts_every:
+                    return
+                fired["last"] = step
+                gen = generate_with_compensation(
+                    model, err_model, state.params, state.err_params,
+                    gens(step)["gen"], 256, parents=mask)
+                syn = gen[:, :t_cmp].cpu().numpy()
+                np.save(out / f"syn_{name}_it{step}.npy", syn)
+                figs.draw(pca_comparison, ori, syn,
+                          path=str(out / f"pca_{name}_it{step}.png"))
+                figs.draw(trajectory_overlay, ori, syn,
+                          path=str(out / f"traj_{name}_it{step}.png"))
+
+            callbacks.append(artifacts)
+        callbacks = [c for c in callbacks if c]
+        p2_cb = ((lambda step, state, metrics: [c(step, state, metrics)
+                                                for c in callbacks])
+                 if callbacks else None)
         best2, err2, _, m2 = fit_phase2(model, err_model, p2_params,
                                         err_params, windows, mask,
                                         exp.phase2, g["p2"],
                                         verbose=verbose, log_fn=log_fn,
-                                        callback=log_phase("phase2"),
-                                        **ckpt_kw("phase2"))
+                                        callback=p2_cb, **ckpt_kw("phase2"))
         results["phase2"] = m2
         gen = generate_with_compensation(model, err_model, best2, err2,
                                          g["gen"], 256, parents=mask)
@@ -348,22 +461,151 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
         # generate_with_compensation does.
         g_cond = gens(1)["gen"]
         ctxs = windows[:256, : model.enc_len, :]
-        noise_c = err_model.sample(err2, ctxs.shape[0], generator=g_cond,
-                                   length=model.rollout_len)
+        noise_c = err_model.sample(err2, g_cond, ctxs.shape[0],
+                                   model.rollout_len)
         cond = model.conditioned_rollout(
-            best2, ctxs, generator=g_cond,
-            noise=noise_c[:, : model.rollout_len], parents=mask)
+            best2, ctxs, g_cond, noise=noise_c[:, : model.rollout_len],
+            parents=mask)
         results["generation_moment_gap_conditioned"] = _gap(
             moment_match(windows, cond))
         if out:
             np.save(out / f"syn_{name}.npy", gen.cpu().numpy())
             np.save(out / f"syn_cond_{name}.npy", cond.cpu().numpy())
+            syn_np = gen[:, :t_cmp].cpu().numpy()
+            cond_np = cond[:, :t_cmp].cpu().numpy()
+            for fn, syn, stem in ((pca_comparison, syn_np, "pca"),
+                                  (tsne_comparison, syn_np, "tsne"),
+                                  (trajectory_overlay, syn_np, "traj"),
+                                  (pca_comparison, cond_np, "pca_cond"),
+                                  (tsne_comparison, cond_np, "tsne_cond")):
+                figs.draw(fn, ori, syn, path=str(out / f"{stem}_{name}.png"))
         if save_checkpoints and out:
             save_checkpoint(str(out / "ckpt_phase2"),
                             {"crvae": best2, "error_vae": err2})
     if log_writer is not None:
         log_writer.close()
+
+
+def win_windows(series: torch.Tensor, tau: int) -> torch.Tensor:
+    """The win family's (N, 2 tau, p) training windows: every window of a
+    (t, p) series, or each (N, t, p) sequence clipped to 2 tau."""
+    from vae_connexe_torch.data import sliding_windows
+
+    if series.ndim == 2:
+        return sliding_windows(series, 2 * tau)
+    return series[:, : 2 * tau, :]
+
+
+def _run_win(exp, name, seed, series, truth, gens, dev, out, figs, results, *,
+             verbose, save_checkpoints, log_fn, **_):
+    """The win family's run (``run_experiment``), results into
+    ``results``."""
+    from vae_connexe_torch.evals import (
+        auto_threshold,
+        gc_metrics,
+        prediction_mse,
+        stability_selection,
+    )
+    from vae_connexe_torch.evals.viz import (
+        gc_heatmaps,
+        w_in_heatmaps,
+        w_in_row_norms,
+    )
+    from vae_connexe_torch.models import WInCRVAE
+    from vae_connexe_torch.train import WInTrainer
+    from vae_connexe_torch.utils import save_checkpoint
+    from vae_connexe_torch.utils.seeding import seed_stack_generators
+    from vae_connexe_torch.utils.tree import stack_trees
+
+    g = gens()
+    windows = win_windows(series, exp.tau)
+    model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                     tau=exp.tau)
+    trainer = WInTrainer(model, exp.win)
+    params, m, stage1_params = trainer.fit(
+        model.init(g["init"], dev), windows, g["run"], verbose=verbose,
+        log_fn=log_fn, return_stage1=True)
+    scores = model.granger_matrix(params, threshold=False)
+    results["train"] = m
+    # Prediction performance of the final model: its clean decode against
+    # its decode with error compensation, and the pre-prune stage-I params
+    # through the clean decode, all on the same draws.
+    x_past = windows[:, : exp.tau, :]
+    x_cur = windows[:, exp.tau: 2 * exp.tau, :]
+    g_mse = gens(1)["run"]
+    eps_z = torch.randn((x_past.shape[0], model.latent), generator=g_mse,
+                        device=g_mse.device)
+    eps_e = torch.randn((x_past.shape[0], model.err_vae.latent),
+                        generator=g_mse, device=g_mse.device)
+    with torch.no_grad():
+        pred_clean = model.forward(params, x_past, x_cur, eps_z)[0]
+        pred_comp = model.forward(params, x_past, x_cur, eps_z, 2, eps_e)[0]
+        pred_s1 = model.forward(stage1_params, x_past, x_cur, eps_z)[0]
+    mse1 = float(prediction_mse(pred_clean, x_cur))
+    mse2 = float(prediction_mse(pred_comp, x_cur))
+    results["prediction_mse"] = {
+        "phase1_forward": mse1,
+        "phase2_forward_with_compensation": mse2,
+        "improvement_pct": round((1 - mse2 / mse1) * 100, 1),
+        "stage1_params_phase1_forward": float(prediction_mse(pred_s1, x_cur)),
+    }
+    results["gc"] = _floats(gc_metrics(truth, scores, exp.gc_threshold))
+    results["threshold_sweep"] = _sweep(truth, scores)
+    thr_auto = float(auto_threshold(scores))
+    results["gc_auto"] = {"threshold": thr_auto,
+                          **_floats(gc_metrics(truth, scores, thr_auto))}
+    # Off the diagonal: the coupled-Henon and VAR truths omit self-loops the
+    # dynamics contain, so the coupling the W_in norms encode is the
+    # off-diagonal ranking.
+    offmask = ~torch.eye(exp.p, dtype=torch.bool, device=dev)
+    s_off, t_off = scores.detach()[offmask], truth[offmask]
+    thr_off = float(auto_threshold(s_off))
+    results["gc_offdiag_auto"] = {
+        "threshold": thr_off,
+        **{k: float(v) for k, v in gc_metrics(t_off, s_off, thr_off).items()
+           if k != "auroc_offdiag"}}
+    # The best off-diagonal point on a dense grid, oracle-supervised (marked
+    # as such): the ranking's potential.
+    grid = np.linspace(0.0, float(s_off.max()), 128, dtype=np.float32)
+    f1s = [float(gc_metrics(t_off, s_off, float(t))["f1"]) for t in grid]
+    best_i = int(np.argmax(f1s))
+    results["gc_offdiag_best_threshold"] = {
+        "threshold": float(grid[best_i]), "oracle": True,
+        **_floats(gc_metrics(t_off, s_off, float(grid[best_i])))}
+    if exp.stability_seeds > 1:
+        # Unsupervised stability selection: per-seed selections voted
+        # across inits.  The extra seeds train at once (fit_many, their
+        # seeds folded into the kernels' heads); stage II leaves W_in
+        # untouched unless update_w_in_stage2, so they skip it otherwise.
+        e2 = exp.win.stage2_epochs if exp.win.update_w_in_stage2 else 0
+        inits, runs = seed_stack_generators(
+            seed, range(1, exp.stability_seeds), ROLES, ("init",), dev)
+        p_stack = stack_trees([model.init(gi, dev) for gi in inits])
+        p_stack, _ = trainer.fit_many(p_stack, windows, runs,
+                                      stage2_epochs=e2)
+        stack = torch.cat([scores.detach()[None],
+                           model.granger_matrix(p_stack, threshold=False)])
+        votes, _, min_frac = stability_selection(stack, min_frac="auto",
+                                                 exclude_diagonal=True)
+        v_off = votes[offmask]
+        results["gc_stability"] = {
+            "seeds": exp.stability_seeds, "min_frac": min_frac,
+            "votes_offdiag": [round(float(v), 3) for v in v_off],
+            **{k: float(v) for k, v in
+               gc_metrics(t_off, v_off, min_frac - 1e-6).items()
+               if k != "auroc_offdiag"}}
+    gen = model.generate(params, windows[:8], gens()["gen"], 20)
+    results["generated_shape"] = list(gen.shape)
     if out:
-        (out / f"metrics_{name}.json").write_text(json.dumps(results,
-                                                             indent=2))
-    return results
+        np.save(out / f"GC_scores_{name}.npy", scores.detach().cpu().numpy())
+        np.save(out / f"syn_{name}.npy", gen.cpu().numpy())
+        w_in = params.w_in.cpu().numpy()
+        figs.draw(w_in_heatmaps, w_in, path=str(out / f"w_in_{name}.png"))
+        figs.draw(w_in_row_norms, w_in, path=str(out / f"w_in_norms_{name}.png"),
+                  threshold=exp.win.prune_threshold)
+        figs.draw(gc_heatmaps, truth.cpu().numpy(),
+                  scores.detach().cpu().numpy() > thr_auto,
+                  path=str(out / f"gc_heatmap_{name}.png"))
+    if save_checkpoints and out:
+        gc_bin = model.granger_matrix(params, thr=exp.win.prune_threshold)
+        save_checkpoint(str(out / "ckpt_win"), params, gc_matrix=gc_bin)

@@ -1,8 +1,9 @@
 """Parameters to and from nested dicts of numpy arrays.
 
 The dicts are keyed by the JAX package's field names (``enc``, ``fc_mu``,
-``fc_std``, ``heads``, ``readout``; ``z2h``, ``dec``, ``out``; ``w_ih``,
-``w_hh``, ``b_ih``, ``b_hh``; ``w``, ``b``), which is what
+``fc_std``, ``heads``, ``readout``; ``z2h``, ``dec``, ``out``; the W_in
+family's ``fc_logsig``, ``w_in`` and ``err``; ``w_ih``, ``w_hh``,
+``b_ih``, ``b_hh``; ``w``, ``b``), which is what
 ``flax.serialization.to_state_dict`` gives for the reference's parameter
 pytrees, and every leaf keeps the reference's layout (torch's).  So weights
 trained by the reference load into the port, and back.
@@ -72,3 +73,33 @@ def phase2_state_from_numpy(crvae_tree: dict, err_tree: dict, opt_tree: dict,
             "err_opt": AdamState(
                 count=count, mu=from_numpy(ErrorVAEParams, adam["mu"], dev),
                 nu=from_numpy(ErrorVAEParams, adam["nu"], dev))}
+
+
+def win_state_from_numpy(params_tree: dict, opt_tree: dict,
+                         device=None) -> dict:
+    """The JAX package's ``WInTrainState`` pieces, as nested dicts of
+    arrays, -> the port's ``WInTrainState`` fields on ``device``.
+
+    ``params_tree``: ``to_state_dict`` of the ``WInCRVAEParams`` (the error
+    VAE's ``err`` included); ``opt_tree``: ``to_state_dict`` of the
+    trainer's ``optax.multi_transform`` state, whose ``adam`` partition
+    holds ``(ScaleByAdamState, EmptyState)`` with an empty ``w_in`` (no
+    moments).  Returns ``{"params", "opt_state"}``, to which the caller
+    adds a generator and the step.
+    """
+    from vae_connexe_torch.models.crvae_win import WInCRVAEParams
+    from vae_connexe_torch.optim.adam import AdamState
+    from vae_connexe_torch.train.win_trainer import AdamLeaves
+
+    dev = resolve_device(device)
+    adam = opt_tree["inner_states"]["adam"]["inner_state"]["0"]
+
+    def moments(tree):
+        return from_numpy(AdamLeaves, {k: v for k, v in tree.items()
+                                       if k != "w_in"}, dev)
+
+    count = torch.tensor(int(np.asarray(adam["count"])), dtype=torch.int32,
+                         device=dev)
+    return {"params": from_numpy(WInCRVAEParams, params_tree, dev),
+            "opt_state": AdamState(count=count, mu=moments(adam["mu"]),
+                                   nu=moments(adam["nu"]))}

@@ -19,10 +19,19 @@ the selected graph and the error-compensation VAE, then compensated
 samples.  On the card every recurrence is a B1/B2 launch and the
 generation one B5 and one B4 launch.
 
+``family="win"`` discovers with the explicit per-head W_in matrices
+(``models/crvae_win.py``) and the two-stage trainer, row-group or
+element-wise sparsity (``prox``); with ``seeds > 1`` every init, seed 0
+included, trains in one ``WInTrainer.fit_many`` (the seeds folded into
+the kernels' heads), and ``generate`` conditions the W_in rollout on the
+series' windows, tiled.
+
 The draws: seed s's generators come from ``parallel.seed_generators(s)``
 (init, run; phase 2's inits and run; generation), so a sweep's seed s
-trains as ``discover(seed=s)`` does with one seed.  Not ported: the win
-family (ROADMAP A4) and meshes (ROADMAP A7), which raise.
+trains as ``discover(seed=s)`` does with one seed.  The win family's
+seeds follow ``utils/seeding.py::seed_stack_generators`` from ``seed``
+(index 0 the run's own init and run generators), its generation the run
+role at offset 1.  Not ported: meshes (ROADMAP A7), which raise.
 """
 
 from __future__ import annotations
@@ -176,8 +185,13 @@ def discover(series, *, context: int = 20, hidden: int = 64,
       device: where it runs (default ``cuda``; ``"cpu"`` runs the plain
         versions of the kernels).
 
-    ``family="win"`` (and its ``prox`` and ``latent``) is not ported yet
-    (ROADMAP A4), nor is ``mesh`` (ROADMAP A7): both raise.
+    For ``family="win"``, ``max_iter`` counts stage-I epochs (stage II
+    runs ``phase2_iters`` or half that), ``enc_len`` is the tau split of
+    the 2 tau window, ``prox`` the sparsity groups ("row", the default, or
+    "element"), ``latent`` the latent width, ``lr`` defaults to the W_in
+    trainer's, and ``generate`` conditions the rollout on the first
+    windows of the series.  ``mesh`` (ROADMAP A7) is not ported yet and
+    raises.
     """
     if family not in ("crvae", "win"):
         raise ValueError(f"family must be 'crvae' or 'win', got {family!r}")
@@ -186,10 +200,6 @@ def discover(series, *, context: int = 20, hidden: int = 64,
             "prox= selects the win family's group convention; the crvae "
             "family is always column-grouped (author_CRVAE.py:314) — pass "
             "family='win' to use row/element groups")
-    if family == "win":
-        raise NotImplementedError(
-            "discover(family='win') is not ported yet (ROADMAP A4): the "
-            "port discovers with the crvae family")
     if mesh is not None:
         raise NotImplementedError(
             "discover(mesh=) is not ported yet (ROADMAP A7)")
@@ -200,6 +210,14 @@ def discover(series, *, context: int = 20, hidden: int = 64,
         enc_len = max(1, context // 2)
     if not 0 < enc_len < context:
         raise ValueError(f"enc_len={enc_len} must be in (0, context={context})")
+    if family == "win":
+        return _discover_win(series, names=names, tau=enc_len, hidden=hidden,
+                             latent=latent, lam=lam, lr=lr,
+                             prox=prox or "row", max_iter=max_iter,
+                             batch_size=batch_size, seeds=seeds, seed=seed,
+                             threshold=threshold, min_frac=min_frac,
+                             generate=generate, phase2_iters=phase2_iters,
+                             verbose=verbose, log_fn=log_fn, device=dev)
     if lr is None:
         lr = 5e-2
 
@@ -258,4 +276,77 @@ def discover(series, *, context: int = 20, hidden: int = 64,
         result.params = p2_best
         result.metrics.update({f"phase2_{k}": float(v) for k, v in m2.items()})
 
+    return result
+
+
+def _discover_win(series, *, names, tau, hidden, latent, lam, lr, prox,
+                  max_iter, batch_size, seeds, seed, threshold, min_frac,
+                  generate, phase2_iters, verbose, log_fn, device):
+    """The win-family discovery path: explicit per-head W_in matrices with
+    row-group or element-wise proximal sparsity, trained by the two-stage
+    ISTA/Adam trainer.  ``max_iter`` counts stage-I epochs; stage II runs
+    ``phase2_iters`` epochs, default half of stage I.  With ``seeds > 1``
+    every init, seed 0 included, trains in one ``fit_many``."""
+    from vae_connexe_torch.data.windows import sliding_windows
+    from vae_connexe_torch.models.crvae_win import WInCRVAE
+    from vae_connexe_torch.parallel.seed_sweep import SEED_ROLES, _CPU_ROLES
+    from vae_connexe_torch.train.config import WInTrainConfig
+    from vae_connexe_torch.train.win_trainer import WInTrainer
+    from vae_connexe_torch.utils.seeding import (
+        role_generators,
+        seed_stack_generators,
+    )
+    from vae_connexe_torch.utils.tree import stack_trees, unstack_tree
+
+    p = series.shape[-1]
+    if series.ndim == 2:
+        windows = sliding_windows(series, 2 * tau)
+    else:
+        windows = torch.cat([sliding_windows(s, 2 * tau) for s in series])
+    stage2 = phase2_iters if phase2_iters is not None else max(1, max_iter // 2)
+    cfg = WInTrainConfig(lam=lam, prox_groups=prox, batch_size=batch_size,
+                         stage1_epochs=max_iter, stage2_epochs=stage2,
+                         **({} if lr is None else {"lr": lr}))
+    model = WInCRVAE(d=p, hidden=hidden, latent=latent, tau=tau)
+    trainer = WInTrainer(model, cfg)
+    inits, runs = seed_stack_generators(seed, range(max(seeds, 1)),
+                                        SEED_ROLES, _CPU_ROLES, device)
+
+    votes = seed_scores = None
+    if seeds > 1:
+        # Stage II refines the error head on the frozen support and cannot
+        # move the W_in scores unless update_w_in_stage2: the sweep skips
+        # it unless the generator (seed 0's params) needs it.
+        e2 = stage2 if (generate > 0 or cfg.update_w_in_stage2) else 0
+        p_stack = stack_trees([model.init(g, device) for g in inits])
+        p_stack, m_many = trainer.fit_many(p_stack, windows, runs,
+                                           stage2_epochs=e2)
+        seed_scores = model.granger_matrix(p_stack,
+                                           threshold=False).cpu().numpy()
+        votes, gc, thr, scores = stability_summary(seed_scores, min_frac)
+        params = unstack_tree(p_stack, 0)
+        metrics = {k: float(v[0]) for k, v in m_many.items()}
+    else:
+        params, metrics = trainer.fit(model.init(inits[0], device), windows,
+                                      runs[0], verbose=verbose, log_fn=log_fn)
+        scores_t = model.granger_matrix(params, threshold=False)
+        thr = (float(auto_threshold(scores_t)) if threshold == "auto"
+               else float(threshold))
+        scores = scores_t.cpu().numpy()
+        gc = (scores_t > thr).to(torch.int32).cpu().numpy()
+
+    result = DiscoveryResult(
+        scores=np.asarray(scores), gc=gc, threshold=float(thr), votes=votes,
+        seed_scores=seed_scores, params=params, model=model, names=names,
+        metrics={k: float(v) for k, v in metrics.items()},
+        confidence=(vote_confidence(votes) if votes is not None else None))
+
+    if generate > 0:
+        # Condition the rollout on real context windows, tiled.
+        g_gen = role_generators(seed, SEED_ROLES, _CPU_ROLES, device, 1)["run"]
+        reps = -(-generate // windows.shape[0])
+        ctx = windows.repeat(reps, 1, 1)[:generate]
+        with torch.no_grad():
+            result.samples = model.generate(params, ctx, g_gen,
+                                            2 * tau).cpu().numpy()
     return result

@@ -9,14 +9,53 @@ scikit-learn imported inside the PCA and t-SNE functions).
 - W_in weight heatmaps and row-norm bar charts.
 
 Every function takes arrays and saves to a path; nothing here touches a
-device.
+device.  ``FigureWriter`` draws a run's figures where matplotlib (and, for
+PCA and t-SNE, scikit-learn) can be imported, and otherwise names the
+figures it did not write on one stderr line: the card's machine has
+neither, and a run there still writes every array and metric.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
+import sys
 from typing import Optional
 
 import numpy as np
+
+
+# The modules each figure needs beyond numpy.
+_NEEDS = {"pca_comparison": ("matplotlib", "sklearn"),
+          "tsne_comparison": ("matplotlib", "sklearn")}
+
+
+class FigureWriter:
+    """``draw(fn, *arrays, path=..., **kw)`` calls a figure function of this
+    module when the modules it needs can be imported, and otherwise
+    records the figure as not written; ``report()`` prints the one stderr
+    line that names them and the missing modules.  Nothing is caught: the
+    check is ``importlib.util.find_spec`` before the call."""
+
+    def __init__(self):
+        self.skipped: list[str] = []
+        self.missing: set[str] = set()
+
+    def draw(self, fn, *args, path: str, **kw) -> bool:
+        absent = [m for m in _NEEDS.get(fn.__name__, ("matplotlib",))
+                  if importlib.util.find_spec(m) is None]
+        if absent:
+            self.skipped.append(pathlib.Path(path).name)
+            self.missing.update(absent)
+            return False
+        fn(*args, path=path, **kw)
+        return True
+
+    def report(self, stream=None) -> None:
+        if self.skipped:
+            print(f"figures not written ({', '.join(sorted(self.missing))} "
+                  f"cannot be imported): {', '.join(self.skipped)}",
+                  file=stream or sys.stderr)
 
 
 def _mpl():

@@ -15,7 +15,7 @@ def group_lasso_value(w: torch.Tensor, lam: float,
 
 
 def ridge_value(readout_w: torch.Tensor, w_hh: torch.Tensor,
-                lam: float, keep: int = 0) -> torch.Tensor:
+                lam: float, *, keep: int = 0) -> torch.Tensor:
     """lam * (||W_out||^2 + ||W_hh||^2), summed over any stacked head axes.
     The first ``keep`` axes (a seed axis) are kept: one value each."""
     return lam * (_sum_after(readout_w ** 2, keep)

@@ -62,7 +62,7 @@ def no_reduced_precision(dtype) -> None:
     if dtype is not None and dtype not in ("float32", torch.float32):
         raise NotImplementedError(
             f"serving dtype {dtype!r}: the port serves float32 only; "
-            "bfloat16 serving is not ported yet")
+            "bfloat16 serving is not ported yet (ROADMAP A5)")
 
 
 class CRVAE:
@@ -82,16 +82,16 @@ class CRVAE:
         dev = resolve_device(device)
         g = generator
         return CRVAEParams(
-            enc=init_gru(g, self.p, self.hidden, dev),
-            fc_mu=init_dense(g, self.hidden, self.hidden, dev),
-            fc_std=init_dense(g, self.hidden, self.hidden, dev),
-            heads=init_stacked_gru(g, self.p, self.p, self.hidden, dev),
-            readout=init_stacked_dense(g, self.p, self.hidden, 1, dev),
+            enc=init_gru(g, self.p, self.hidden, device=dev),
+            fc_mu=init_dense(g, self.hidden, self.hidden, device=dev),
+            fc_std=init_dense(g, self.hidden, self.hidden, device=dev),
+            heads=init_stacked_gru(g, self.p, self.p, self.hidden, device=dev),
+            readout=init_stacked_dense(g, self.p, self.hidden, 1, device=dev),
         )
 
     # ---------------- encode / forward ----------------
 
-    def encode(self, params: CRVAEParams, x: torch.Tensor,
+    def encode(self, params: CRVAEParams, x: torch.Tensor, *,
                sequence=gru_sequence):
         """Past window -> (mu, logvar), each (B, H).  x: (B, T, p); the
         encoder reads the first enc_len steps from h0 = 0.  ``sequence`` is
@@ -104,7 +104,7 @@ class CRVAE:
     def forward(self, params: CRVAEParams, x: torch.Tensor,
                 eps: Optional[torch.Tensor] = None,
                 parents: Optional[torch.Tensor] = None,
-                deterministic: bool = False, recurrences=None):
+                deterministic: bool = False, *, recurrences=None):
         """Teacher-forced reconstruction of the window's second half.
 
         x: (B, T, p) window, T > enc_len; eps: (B, H) standard normals of
@@ -123,7 +123,7 @@ class CRVAE:
                 "predicts the remaining T - enc_len.")
         sequence, heads_fn = recurrences or (gru_sequence, heads_recurrence)
         heads = params.heads if parents is None else masked_heads(params.heads, parents)
-        mu, logvar = self.encode(params, x, sequence)
+        mu, logvar = self.encode(params, x, sequence=sequence)
         if deterministic:
             z = mu
         elif eps is None:
@@ -157,17 +157,18 @@ class CRVAE:
         return crvae_free_run_fused(heads, params.readout, x0, h0, noise,
                                     self.noise_scale)
 
-    def rollout(self, params: CRVAEParams, batch: int,
-                generator: Optional[torch.Generator] = None,
+    def rollout(self, params: CRVAEParams,
+                generator: Optional[torch.Generator], batch: int,
                 noise: Optional[torch.Tensor] = None,
                 parents: Optional[torch.Tensor] = None,
-                length: Optional[int] = None,
-                h0: Optional[torch.Tensor] = None,
-                dtype=None) -> torch.Tensor:
+                length: Optional[int] = None, dtype=None,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Free-running generation (the reference's ``mode='test'``).
 
         Starts from x0 = 0 with one shared random h0 (B, H) for all heads,
-        drawn from ``generator`` or passed as ``h0``.  ``noise``: optional
+        drawn from ``generator`` or passed as ``h0`` (then ``generator``
+        may be None).  JAX's parameters in JAX's order, ``h0`` after them.
+        ``noise``: optional
         (B, length, p) error sequence added as ``noise_scale * noise_t`` to
         each emitted step.  Returns (B, length, p).
         """
@@ -187,17 +188,17 @@ class CRVAE:
 
     def conditioned_rollout(self, params: CRVAEParams, x_context: torch.Tensor,
                             generator: Optional[torch.Generator] = None,
-                            eps: Optional[torch.Tensor] = None,
                             noise: Optional[torch.Tensor] = None,
                             parents: Optional[torch.Tensor] = None,
-                            length: Optional[int] = None,
-                            dtype=None) -> torch.Tensor:
+                            length: Optional[int] = None, dtype=None,
+                            eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Generation conditioned on a real context window.
 
         Encodes the context's last enc_len steps, samples z = mu +
         exp(logvar / 2) * eps as every head's initial state (eps (B, H)
         passed in, or drawn from ``generator``), and continues from the
-        context's last observation.  x_context: (B, T >= enc_len, p).
+        context's last observation.  JAX's parameters in JAX's order, the
+        port's ``eps`` after them.  x_context: (B, T >= enc_len, p).
         Returns (B, length, p).
         """
         if x_context.shape[1] < self.enc_len:

@@ -67,12 +67,12 @@ class ErrorVAE:
         dev = resolve_device(device)
         g = generator
         return ErrorVAEParams(
-            enc=init_gru(g, self.d, self.hidden, dev),
-            fc_mu=init_dense(g, self.hidden, self.latent, dev),
-            fc_std=init_dense(g, self.hidden, self.latent, dev),
-            z2h=init_dense(g, self.latent, self.hidden, dev),
-            dec=init_gru(g, self.d, self.hidden, dev),
-            out=init_dense(g, self.hidden, self.d, dev),
+            enc=init_gru(g, self.d, self.hidden, device=dev),
+            fc_mu=init_dense(g, self.hidden, self.latent, device=dev),
+            fc_std=init_dense(g, self.hidden, self.latent, device=dev),
+            z2h=init_dense(g, self.latent, self.hidden, device=dev),
+            dec=init_gru(g, self.d, self.hidden, device=dev),
+            out=init_dense(g, self.hidden, self.d, device=dev),
         )
 
     def forward(self, params: ErrorVAEParams, eps_seq: torch.Tensor,
@@ -106,15 +106,16 @@ class ErrorVAE:
         outs, _ = gru_sequence(params.dec, dec_in, h_dec)
         return dense(params.out, outs), mu, logvar
 
-    def sample(self, params: ErrorVAEParams, batch: int,
-               generator: Optional[torch.Generator] = None,
-               length: Optional[int] = None,
-               h0: Optional[torch.Tensor] = None,
-               dtype=None) -> torch.Tensor:
+    def sample(self, params: ErrorVAEParams,
+               generator: Optional[torch.Generator], batch: int,
+               length: Optional[int] = None, dtype=None,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Free-running error-sequence generation from a random hidden state.
 
         Starts from x0 = 0 and h0 ~ N(0, I) (B, H), drawn from ``generator``
-        or passed as ``h0``, and rolls ``length`` steps.  The reference keeps
+        or passed as ``h0`` (then ``generator`` may be None), and rolls
+        ``length`` steps.  JAX's parameters in JAX's order, ``h0`` after
+        them.  The reference keeps
         the leading zero step and returns length + 1 steps; callers slice as
         needed.  Returns (B, length + 1, D).
         """

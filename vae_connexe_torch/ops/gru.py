@@ -50,24 +50,25 @@ class GRUParams:
 
 
 def init_gru(generator: torch.Generator, d_in: int, hidden: int,
-             device: torch.device) -> GRUParams:
-    """torch-default uniform init U(-k, k), k = 1/sqrt(hidden)."""
-    return init_stacked_gru(generator, None, d_in, hidden, device)
+             dtype=torch.float32, device=None) -> GRUParams:
+    """torch-default uniform init U(-k, k), k = 1/sqrt(hidden), on
+    ``device`` (default ``cuda``)."""
+    return init_stacked_gru(generator, None, d_in, hidden, dtype, device)
 
 
 def init_stacked_gru(generator: torch.Generator, n_heads: int | None,
-                     d_in: int, hidden: int,
-                     device: torch.device) -> GRUParams:
+                     d_in: int, hidden: int, dtype=torch.float32,
+                     device=None) -> GRUParams:
     """P independent GRUs stacked on a leading axis (``n_heads=None``: one
     GRU, no leading axis)."""
     k = 1.0 / math.sqrt(hidden)
     lead = () if n_heads is None else (n_heads,)
     g = 3 * hidden
     return GRUParams(
-        w_ih=uniform(generator, lead + (g, d_in), k, device),
-        w_hh=uniform(generator, lead + (g, hidden), k, device),
-        b_ih=uniform(generator, lead + (g,), k, device),
-        b_hh=uniform(generator, lead + (g,), k, device),
+        w_ih=uniform(generator, lead + (g, d_in), k, device, dtype),
+        w_hh=uniform(generator, lead + (g, hidden), k, device, dtype),
+        b_ih=uniform(generator, lead + (g,), k, device, dtype),
+        b_hh=uniform(generator, lead + (g,), k, device, dtype),
     )
 
 

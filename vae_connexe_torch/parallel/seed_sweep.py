@@ -49,9 +49,9 @@ from vae_connexe_torch.train.crvae_trainer import (
     _track_best,
     default_fixed_batch,
 )
-from vae_connexe_torch.utils.layers import Dense
+from vae_connexe_torch.utils.layers import dense_stacked
 from vae_connexe_torch.utils.seeding import role_generators
-from vae_connexe_torch.utils.tree import tree_map
+from vae_connexe_torch.utils.tree import stack_trees
 
 # The generators of one seed, in this order (the counterpart of the
 # reference's ``key(seed) -> k_init, k_run`` and ``fold_in(key, 1) -> k_p2,
@@ -78,11 +78,6 @@ class SweepState:
     step: int
 
 
-def stack_trees(trees):
-    """Parameter trees of one shape -> one tree with a leading axis."""
-    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
-
-
 def init_sweep_state(model: CRVAE, seeds, device=None) -> SweepState:
     """Each seed's init from its own init generator, stacked; each seed's
     run generator; best loss +inf."""
@@ -93,11 +88,6 @@ def init_sweep_state(model: CRVAE, seeds, device=None) -> SweepState:
                       best_loss=torch.full((len(gens),), float("inf"),
                                            device=dev),
                       generators=[g["run"] for g in gens], step=0)
-
-
-def _dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
-    """Seed-stacked affine layer: w (S, O, I), b (S, O), x (S, B, I)."""
-    return torch.matmul(x, layer.w.transpose(-1, -2)) + layer.b[:, None, :]
 
 
 def sweep_forward(model: CRVAE, params: CRVAEParams, batch: torch.Tensor,
@@ -120,7 +110,8 @@ def sweep_forward(model: CRVAE, params: CRVAEParams, batch: torch.Tensor,
             f"window length {batch.shape[-2]} must exceed enc_len={e}")
     h0 = torch.zeros((1, b, hidden), device=batch.device, dtype=batch.dtype)
     _, h_e = heads_recurrence(params.enc, batch[..., :e, :], h0)
-    mu, logvar = _dense(params.fc_mu, h_e), _dense(params.fc_std, h_e)
+    mu = dense_stacked(params.fc_mu, h_e)
+    logvar = dense_stacked(params.fc_std, h_e)
     z = mu + torch.exp(0.5 * logvar) * eps
     heads = masked_heads(params.heads, parents)
     flat = GRUParams(*(leaf.reshape(s * p, *leaf.shape[2:]) for leaf in

@@ -15,7 +15,10 @@ One daemon serves ONE OR MORE artifacts:
   sliding window of the last 1024 dispatches).
 - ``POST /generate[/<name>]`` with JSON body ``{"seed": <int>|null,
   "n_samples": <int>, "format": "npy"|"json",
-  "wire_dtype": "float32"|"float16"}`` → compensated-rollout samples.
+  "wire_dtype": "float32"|"float16"}`` → compensated-rollout samples; a
+  context-conditioned (win-family) artifact also needs ``"context"``, a
+  nested list of shape (batch, tau, p), and its requests are never
+  coalesced.
   ``n_samples`` defaults to the artifact's baked batch; smaller values
   slice the generated batch, larger ones loop it over sub-seeds derived
   deterministically from ``seed`` (``np.random.SeedSequence`` — the same
@@ -142,6 +145,7 @@ class _Artifact:
     def __init__(self, source, name: str, device=None):
         self.name = name
         self.fn, self.meta = load_generator(source, device)
+        self.needs_context = self.meta["kind"] == "win_conditioned_generator"
         self.requests = 0
         self.device_calls = 0              # actual generator dispatches
         self.coalesced_requests = 0        # requests served from a shared one
@@ -153,7 +157,11 @@ class _Artifact:
     def warm(self) -> float:
         """First call pays the kernels' build or load."""
         t0 = time.perf_counter()
-        self.fn(0)
+        if self.needs_context:
+            self.fn(0, np.zeros((self.meta["batch"], self.meta["tau"],
+                                 self.meta["p"]), np.float32))
+        else:
+            self.fn(0)
         return time.perf_counter() - t0
 
     def stats(self) -> dict:
@@ -316,17 +324,28 @@ class GeneratorServer:
                     n = int(req.get("n_samples", batch))
                     if n < 1:
                         raise ValueError(f"n_samples must be >= 1, got {n}")
+                    extra = ()
+                    if art.needs_context:
+                        if "context" not in req:
+                            raise ValueError(
+                                "this artifact is context-conditioned; the "
+                                "request body needs 'context': nested list "
+                                f"of shape (batch={batch}, "
+                                f"tau={art.meta['tau']}, "
+                                f"p={art.meta['p']})")
+                        extra = (np.asarray(req["context"], np.float32),)
                 except (ValueError, json.JSONDecodeError) as e:
                     self._send_json(400, {"error": str(e)})
                     return
-                coalescible = seed is None and n <= batch
+                coalescible = (seed is None and n <= batch
+                               and not art.needs_context)
                 offset = 0
                 try:
                     if coalescible:
                         samples, seed, offset = \
                             server._coalesced_generate(art, n)
                     else:
-                        if seed is None:   # auto seed: n > batch
+                        if seed is None:   # auto seed: n > batch or context
                             seed = server._next_auto_seed()
                         n_calls = -(-n // batch)
                         with server._pending_lock:
@@ -334,7 +353,7 @@ class GeneratorServer:
                         try:
                             with server._lock:
                                 t0 = time.perf_counter()
-                                parts = [art.fn(s)
+                                parts = [art.fn(s, *extra)
                                          for s in _sub_seeds(seed, n_calls)]
                                 dt = time.perf_counter() - t0
                                 art.requests += 1
@@ -345,6 +364,9 @@ class GeneratorServer:
                                 server._pending -= 1
                         samples = (parts[0][:n] if n_calls == 1
                                    else np.concatenate(parts, axis=0)[:n])
+                except ValueError as e:     # e.g. context shape mismatch
+                    self._send_json(400, {"error": str(e)})
+                    return
                 except Exception as e:      # e.g. a CUDA runtime error:
                     # a JSON 500 beats a dropped connection — clients get an
                     # error body, /meta counts it.

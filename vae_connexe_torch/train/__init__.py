@@ -1,4 +1,5 @@
-"""Trainers: the two-phase CRVAE fits and compensated generation."""
+"""Trainers: the two-phase CRVAE fits, compensated generation and the
+two-stage W_in trainer."""
 
 from vae_connexe_torch.train.config import (
     CSRAETrainConfig,
@@ -16,8 +17,10 @@ from vae_connexe_torch.train.crvae_trainer import (
     make_phase1_step,
     make_phase2_step,
 )
+from vae_connexe_torch.train.win_trainer import WInTrainer, WInTrainState
 
 __all__ = ["CSRAETrainConfig", "Phase1Config", "Phase1State", "Phase2Config",
-           "Phase2State", "WInTrainConfig", "fit_phase1", "fit_phase2",
+           "Phase2State", "WInTrainConfig", "WInTrainState", "WInTrainer",
+           "fit_phase1", "fit_phase2",
            "generate_from_draws", "generate_with_compensation",
            "make_phase1_step", "make_phase2_step"]

@@ -3,8 +3,8 @@
 Plain dataclasses with the reference's names, order and defaults.
 ``latent_reg='cs'`` (the CS-divergence hybrid) constructs, so that every
 entry of the experiments table builds; the trainers raise on it until the
-CS divergence is ported.  ``WInTrainConfig`` and ``CSRAETrainConfig`` are
-data for the experiments table: their trainers are not ported yet.
+CS divergence is ported.  ``CSRAETrainConfig`` is data for the
+experiments table: its trainer is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,8 +57,10 @@ class Phase2Config:
 
 @dataclasses.dataclass(frozen=True)
 class WInTrainConfig:
-    """Trainer config of the explicit-W_in variant (its trainer is not
-    ported yet)."""
+    """Trainer config of the explicit-W_in variant
+    (``train/win_trainer.py``): Adam at ``lr`` on every leaf but W_in, an
+    ISTA step of ``lr_prox`` (default ``lr``) with ``prox_groups`` on
+    W_in."""
 
     lr: float = 2e-3
     lr_prox: float | None = None

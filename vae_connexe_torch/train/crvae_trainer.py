@@ -117,8 +117,8 @@ def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
     target = batch[..., model.enc_len:, :]
     recon = torch.mean((pred - target) ** 2, dim=(-3, -2)).sum(dim=-1)
     ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge,
-                        keep)
-    reg = beta * kl_gaussian(mu, logvar, keep)
+                        keep=keep)
+    reg = beta * kl_gaussian(mu, logvar, keep=keep)
     loss = recon + ridge + reg
     aux = {"recon": recon, "ridge": ridge, "latent_reg": reg,
            "mean_loss": (recon + ridge) / model.p, "pred": pred}

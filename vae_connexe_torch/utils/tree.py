@@ -34,6 +34,19 @@ def tree_map(fn, tree, *rest):
         for n in names})
 
 
+def stack_trees(trees):
+    """Trees of one shape -> one tree whose leaves carry a leading axis
+    (a seed axis)."""
+    import torch
+
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def unstack_tree(tree, i: int):
+    """Entry ``i`` of a tree whose leaves carry a leading axis."""
+    return tree_map(lambda t: t[i], tree)
+
+
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` holding ``leaves`` (in field order)."""
     it = iter(leaves)
