@@ -19,6 +19,7 @@ from vae_connexe_torch import cli
 from vae_connexe_torch.configs import EXPERIMENTS, get_experiment, run_experiment
 from vae_connexe_torch.models import CRVAE, ErrorVAE
 from vae_connexe_torch.utils import load_gc, restore_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(jexp.EXPERIMENTS))
@@ -201,14 +202,24 @@ def test_unported_flags_exit(argv, item):
 # ---------------- the Henon and VAR experiments, the W_in family ----------
 
 
+# Each win run cut to a few steps an epoch (henon6d_win's series from 3000
+# steps to 600; var_crvae's batch from 16 to 128) and 3 stability seeds:
+# the keys and the files do not depend on the sizes.
+_WIN_CUTS = {"henon6d_win": lambda exp: {"t": 600},
+             "var_crvae": lambda exp: {"win": dataclasses.replace(
+                 exp.win, batch_size=128)}}
+
+
 @pytest.mark.parametrize("name", ["henon6d_win", "var_crvae"])
-def test_cli_run_win_family(tmp_path, capsys, name):
-    """``run`` of a win experiment (epochs cut by ``--iters 20``, its 8
-    stability seeds kept) returns the JAX package's keys and writes its
-    files, figures included; ``eval`` rescores ``ckpt_win`` to the run's
-    GC row; ``export`` -> ``generate --context`` samples, and a context of
-    the wrong shape is refused."""
+def test_cli_run_win_family(tmp_path, capsys, monkeypatch, name):
+    """``run`` of a win experiment (epochs cut by ``--iters 20``, the
+    series or batch and the stability seeds by ``_WIN_CUTS``) returns the
+    JAX package's keys and writes its files, figures included; ``eval``
+    rescores ``ckpt_win`` to the run's GC row; ``export`` -> ``generate
+    --context`` samples, and a context of the wrong shape is refused."""
     exp = get_experiment(name)
+    exp = dataclasses.replace(exp, stability_seeds=3, **_WIN_CUTS[name](exp))
+    monkeypatch.setitem(EXPERIMENTS, name, exp)
     out = tmp_path / "run"
     cli.main(["run", name, "--iters", "20", "--device", "cpu", "--out-dir",
               str(out), "--save-checkpoints", "--quiet"])
@@ -219,7 +230,7 @@ def test_cli_run_win_family(tmp_path, capsys, name):
     assert res["generated_shape"] == [8, 20, exp.p]
     assert res["train"].keys() == {"loss", "recon", "kl"}
     stab = res["gc_stability"]
-    assert stab["seeds"] == 8 and len(stab["votes_offdiag"]) == exp.p * (exp.p - 1)
+    assert stab["seeds"] == 3 and len(stab["votes_offdiag"]) == exp.p * (exp.p - 1)
     assert res["gc_offdiag_best_threshold"]["oracle"] is True
     assert all(np.isfinite(v) for v in res["prediction_mse"].values())
 

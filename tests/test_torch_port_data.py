@@ -31,6 +31,7 @@ from vae_connexe_tpu.losses import kl as jkl
 from vae_connexe_tpu.losses import penalties as jpen
 from vae_connexe_tpu.optim import prox as jprox
 from vae_connexe_tpu.utils import scalers as jscalers
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The modules (each package's ``evals`` re-exports a function of the name).
 tgc = importlib.import_module("vae_connexe_torch.evals.gc_metrics")

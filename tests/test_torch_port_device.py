@@ -24,6 +24,7 @@ from vae_connexe_torch.train import (
     make_phase2_step,
 )
 from vae_connexe_torch.utils.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.configs",

@@ -37,6 +37,7 @@ from vae_connexe_tpu.evals.gc_metrics import (
     auto_vote_threshold as jax_auto_vote_threshold,
 )
 from vae_connexe_tpu.utils.scalers import standardize as jax_standardize
+from torch_threads import one_torch_thread  # noqa: F401
 
 disc = sys.modules["vae_connexe_torch.discover"]
 jdisc = sys.modules["vae_connexe_tpu.discover"]

@@ -43,6 +43,7 @@ from vae_connexe_tpu.evals import gc_metrics as jgc_metrics
 from vae_connexe_tpu.losses import kl as jkl
 from vae_connexe_tpu.ops import gru as jgru
 from vae_connexe_tpu.optim import prox as jprox
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -31,6 +31,7 @@ from vae_connexe_torch.train import generate_from_draws, generate_with_compensat
 from vae_connexe_tpu.models import CRVAE as JCRVAE
 from vae_connexe_tpu.models import ErrorVAE as JErrorVAE
 from vae_connexe_tpu.train import generate_with_compensation as jax_generate
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, H, HE, B, T = 4, 8, 6, 8, 6

@@ -25,6 +25,7 @@ from vae_connexe_tpu.models import CRVAE as JCRVAE
 from vae_connexe_tpu.models import ErrorVAE as JErrorVAE
 from vae_connexe_tpu.ops import gru as jgru
 from vae_connexe_tpu.ops.pallas_rollout import crvae_free_run_fused
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, H, B, T = 4, 8, 16, 6

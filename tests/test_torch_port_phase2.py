@@ -43,6 +43,7 @@ from vae_connexe_tpu.train import fit_phase1 as jax_fit_phase1
 from vae_connexe_tpu.train import fit_phase2 as jax_fit_phase2
 from vae_connexe_tpu.train.crvae_trainer import Phase2State as JPhase2State
 from vae_connexe_tpu.train.crvae_trainer import make_phase2_step as jax_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 STEP = dict(rtol=1e-4, atol=1e-6)

@@ -23,6 +23,7 @@ from vae_connexe_torch import convert
 from vae_connexe_torch.ops import cuda_gru, cuda_step, dispatch, gru
 from vae_connexe_tpu.ops import gru as jgru
 from vae_connexe_tpu.ops import pallas_gru
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-4)

@@ -31,6 +31,7 @@ from vae_connexe_torch.utils import (
     save_checkpoint,
 )
 from vae_connexe_torch.utils.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 P, CTX = 5, 12
 

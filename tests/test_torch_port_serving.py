@@ -18,6 +18,7 @@ from vae_connexe_torch.models import CRVAE, ErrorVAE, masked_heads
 from vae_connexe_torch.server import GeneratorServer
 from vae_connexe_torch.serving import export_generator, load_generator
 from vae_connexe_torch.train import generate_from_draws
+from torch_threads import one_torch_thread  # noqa: F401
 
 P, H, HE, BATCH, T = 4, 8, 6, 6, 5
 

@@ -37,6 +37,7 @@ from vae_connexe_tpu.models import CRVAE as JCRVAE
 from vae_connexe_tpu.train import Phase1Config as JPhase1Config
 from vae_connexe_tpu.train.crvae_trainer import Phase1State as JPhase1State
 from vae_connexe_tpu.train.crvae_trainer import make_phase1_step as jax_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP = dict(rtol=1e-4, atol=1e-6)
 P, H, E, T, B, S = 4, 8, 3, 7, 16, 3      # tests/test_torch_port_train.py's

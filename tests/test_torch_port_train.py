@@ -36,6 +36,7 @@ from vae_connexe_tpu.ops.pallas_step import fused_phase1_step as jax_fused_step
 from vae_connexe_tpu.train import Phase1Config as JPhase1Config
 from vae_connexe_tpu.train.crvae_trainer import Phase1State as JPhase1State
 from vae_connexe_tpu.train.crvae_trainer import make_phase1_step as jax_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 STEP = dict(rtol=1e-4, atol=1e-6)

@@ -39,6 +39,7 @@ from vae_connexe_tpu.data import var_truth as jvar_truth
 from vae_connexe_tpu.models import WInCRVAE as JWInCRVAE
 from vae_connexe_tpu.train import WInTrainConfig as JWInTrainConfig
 from vae_connexe_tpu.train import WInTrainer as JWInTrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 STEP = dict(rtol=1e-4, atol=1e-6)
@@ -61,19 +62,28 @@ def _close(port_tree, jax_tree, tol):
 
 @pytest.fixture(scope="module")
 def setup():
+    """The JAX model, its params, the port's model, the same params
+    carried across by ``convert``, and the windows.  The params are the
+    port's init laid into the JAX package's tree (whose structure
+    ``jax.eval_shape`` gives without running its init, which compiles
+    some forty small programs on the CPU)."""
     jm = JWInCRVAE(d=D, hidden=H, latent=Z, tau=TAU)
-    jp = jm.init(jax.random.key(0))
+    m = WInCRVAE(d=D, hidden=H, latent=Z, tau=TAU)
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))
+    jp = jax.tree.unflatten(jax.tree.structure(shapes), [
+        jnp.asarray(a.numpy()) for a in
+        tree_leaves(m.init(torch.Generator().manual_seed(0), "cpu"))])
     rng = np.random.default_rng(0)
     windows = rng.normal(size=(N, 2 * TAU, D)).astype(np.float32)
-    return jm, jp, WInCRVAE(d=D, hidden=H, latent=Z, tau=TAU), _port(jp), \
-        windows
+    return jm, jp, m, _port(jp), windows
 
 
 def test_init_shapes_and_order(setup):
     jm, jp, m, tp, _ = setup
     mine = m.init(torch.Generator().manual_seed(0), "cpu")
-    for a, b in zip(tree_leaves(mine), jax.tree.leaves(jp)):
-        assert tuple(a.shape) == b.shape
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))
+    for a, b in zip(tree_leaves(mine), jax.tree.leaves(shapes), strict=True):
+        assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == b.dtype
     assert m.err_vae.hidden == H // 2 and m.err_vae.latent == Z // 2
     assert not m.err_vae.shift_decoder_input
 

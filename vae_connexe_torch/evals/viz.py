@@ -51,11 +51,11 @@ class FigureWriter:
         fn(*args, path=path, **kw)
         return True
 
-    def report(self, stream=None) -> None:
+    def report(self) -> None:
         if self.skipped:
             print(f"figures not written ({', '.join(sorted(self.missing))} "
                   f"cannot be imported): {', '.join(self.skipped)}",
-                  file=stream or sys.stderr)
+                  file=sys.stderr)
 
 
 def _mpl():

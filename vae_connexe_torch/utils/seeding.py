@@ -23,21 +23,22 @@ def role_generators(seed: int, roles, cpu_roles=(), device="cpu",
 
 
 def seed_stack_generators(seed: int, indices, roles, cpu_roles=(),
-                          device="cpu", init: str = "init",
-                          run: str = "run"):
+                          device="cpu"):
     """(init generators, run generators), one a seed index of
     ``indices``, for the inits of a multi-seed fit (the win family's
     stability seeds).
 
-    Index 0 is the run's own pair (offset 0); index s >= 1 takes the
-    ``init`` role at offset s and the ``run`` role at offset 100 + s, the
+    ``roles`` holds an ``"init"`` and a ``"run"`` role.  Index 0 is the
+    run's own pair (offset 0); index s >= 1 takes the ``init`` role at
+    offset s and the ``run`` role at offset 100 + s, the
     counterpart of the reference's ``fold_in(k_init, s)`` and
     ``fold_in(k_run, 100 + s)``.  ``run_experiment`` and ``discover``
     both draw their seeds by this rule.
     """
     inits, runs = [], []
     for s in indices:
-        inits.append(role_generators(seed, roles, cpu_roles, device, s)[init])
+        inits.append(
+            role_generators(seed, roles, cpu_roles, device, s)["init"])
         runs.append(role_generators(seed, roles, cpu_roles, device,
-                                    100 + s if s else 0)[run])
+                                    100 + s if s else 0)["run"])
     return inits, runs
