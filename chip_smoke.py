@@ -244,6 +244,18 @@ JAX_WIN_AUROC = {"henon6d_win": 1.0, "var_crvae": 1.0, "discover_win": 1.0}
 # errors of the difference of two such shares.
 AUTHOR_SEEDS, JAX_AUTHOR_SHARE = 64, 0.53125
 WIN_DISCOVER_EPOCHS, WIN_RATE_EPOCHS = 200, 5
+# lorenz96_crcsrae (p=10, ctx 20, H=64, latent_reg='cs' against a GMM prior
+# of 10 components): phase 1 at batch 2048 for its full 2000 steps, so that
+# the JAX package's committed phase-1 AUROC applies
+# (results/lorenz96_crcsrae/metrics_lorenz96_crcsrae.json: 0.9875), phase 2
+# at batch 1024 cut from 10000 steps to RUN_STEPS; csrae_binarized at its
+# own 30 epochs against the JAX package's committed recon_accuracy
+# (results/csrae_binarized/: 0.881); vrae_demo at its own 100 epochs (no
+# committed JAX result); the rate steps and epochs.
+CS_NAME, CS_B1, CS_B2 = "lorenz96_crcsrae", 2048, 1024
+JAX_CS_AUROC, JAX_CSRAE_ACC, A4_MARGIN = 0.9875, 0.881, 0.05
+CSRAE_RATE_EPOCHS, VRAE_RATE_EPOCHS = 5, 50
+VRAE_LINE = r"^\[(vrae) epoch=(\d+)\] total=([-\d.e+]+)"
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
@@ -750,6 +762,14 @@ def check_training_kernels(dev, errors):
         ("win error vae", 1, WIN_B, WIN_TAU, WIN_D, H // 2, True,
          (1, WIN_B, H // 2), False),
         ("var decoder", 5, 16, WIN_TAU, H, H, True, (5, 16, H), False),
+        # lorenz96_crcsrae's phase 1 at batch 2048 (decoder under a mask,
+        # as phase 2 runs it) and the VRAE's one-head encoder (vrae_demo:
+        # B=32, T=20, D=10).
+        ("crcsrae decoder", CRVAE_P, CS_B1, CTX - ENC, CRVAE_P, H, False,
+         (1, CS_B1, H), True),
+        ("crcsrae encoder", 1, CS_B1, ENC, CRVAE_P, H, False, (1, CS_B1, H),
+         False),
+        ("vrae encoder", 1, 32, 20, CRVAE_P, H, False, (1, 32, H), False),
     ]
     limits = cuda_gru.device_limits(dev)
     for what, heads, b, td, d, hid, per_head, h0_shape, masked in cases:
@@ -788,8 +808,14 @@ def check_training_kernels(dev, errors):
             raise AssertionError(f"{fwd} is not deterministic")
         _assert_grads(bwd, k_grads, r_grads, errors, wide,
                       f"{what} {shape} dW_ih dW_hh db_ih db_hh dx dh0")
+        # At lorenz96_crcsrae's B*T = 20,480 the float32 plain phase
+        # itself falls outside GRAD_TOL of the exact sums, where the
+        # kernel does not (tools/torch_gru_long_sums.py): there the
+        # weight-gradient kernel is held to GRAD_TOL against the plain
+        # phase in float64.
         check_backward_phases(params, x, h0.expand(heads, b, hid), k_outs,
-                              douts, errors, f"{what} {shape}", bwd, wide)
+                              douts, errors, f"{what} {shape}", bwd, wide,
+                              f64_ref=what.startswith("crcsrae"))
 
     g = torch.Generator().manual_seed(5)
     model = CRVAE(P, H, ENC)
@@ -904,11 +930,12 @@ def check_step_phases(dev, errors):
 
 
 def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
-                          long_sums=False):
+                          long_sums=False, f64_ref=False):
     """B2's two kernels, each against its plain phase on the same inputs:
     the chain's gate gradients gh and dh0, then the weight-gradient
-    kernel's dx, dW and db from the plain gh; and two whole B2 calls on the
-    same inputs give bitwise-equal gradients."""
+    kernel's dx, dW and db from the plain gh (with ``f64_ref``, against
+    the plain phase in float64 on the same float32 inputs); and two whole
+    B2 calls on the same inputs give bitwise-equal gradients."""
     import torch
 
     from vae_connexe_torch.ops import cuda_gru
@@ -917,7 +944,9 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
     k_gh, k_dh0 = cuda_gru.bwd_chain(*w, x, h0, outs, douts)
     r_gh, r_dh0 = cuda_gru.bwd_chain_plain(*w, x, h0, outs, douts)
     k_w = cuda_gru.bwd_wgrad(*w, x, h0, outs, r_gh, True)
-    r_w = cuda_gru.bwd_wgrad_plain(*w, x, h0, outs, r_gh, True)
+    r_w = cuda_gru.bwd_wgrad_plain(
+        *((t.double() for t in (*w, x, h0, outs, r_gh)) if f64_ref
+          else (*w, x, h0, outs, r_gh)), True)
     first = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
     second = cuda_gru._backward_launch(*w, x, h0, outs, douts, need_dx=True)
     torch.cuda.synchronize()
@@ -925,7 +954,7 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
                   errors, **GRAD_TOL, what=f"{what} chain kernel: gh dh0")
     _assert_grads(name, k_w, r_w, errors, long_sums,
                   f"{what} weight-gradient kernel: dx dW_ih db_ih dW_hh "
-                  "db_hh")
+                  f"db_hh{' (float64 plain)' if f64_ref else ''}")
     same = all(torch.equal(u, v) for u, v in zip(first, second))
     log(f"check {name} {what}: two calls bitwise equal: {same}")
     if not same:
@@ -1071,7 +1100,8 @@ def phase2_state(model, err, params, eparams, gen, dev):
     from vae_connexe_torch.train import Phase2State
 
     return Phase2State(params=params, err_params=eparams,
-                       err_opt=adam_init(eparams), best_params=params,
+                       err_opt=adam_init(eparams), prior=None,
+                       best_params=params,
                        best_loss=torch.tensor(float("inf"), device=dev),
                        generator=gen, step=0)
 
@@ -1560,7 +1590,7 @@ def time_training(dev, card, windows):
         + f" [{card}]")
 
     # Steps/s of the two step paths, host clock, draws included.
-    state = Phase1State(params=params, best_params=params,
+    state = Phase1State(params=params, prior=None, best_params=params,
                         best_loss=torch.tensor(float("inf"), device=dev),
                         generator=gen, step=0)
     step = make_phase1_step(model, cfg, windows, parents)
@@ -1673,7 +1703,7 @@ def check_sweep(dev, card, errors, windows):
     for seed in range(s):
         gens = seed_generators(seed, dev)
         params = model.init(gens["init"], dev)
-        state = Phase1State(params=params, best_params=params,
+        state = Phase1State(params=params, prior=None, best_params=params,
                             best_loss=torch.tensor(float("inf"), device=dev),
                             generator=gens["run"], step=0)
         for _ in range(n):
@@ -2487,6 +2517,489 @@ def time_win(dev, card, windows):
     return out
 
 
+def check_cs_steps(dev, errors):
+    """Phase 3g: ``latent_reg='cs'`` at lorenz96_crcsrae's shapes on the
+    card: one ``make_phase1_step`` with its GMM prior at B=2048 (full
+    parents) and one ``make_phase2_step`` with one at B=1024 (a random
+    binary mask), each against the same step on the CPU's plain
+    recurrences on the same batch and draws: params, prior, best params
+    (phase 2: the ErrorVAE's params and Adam's moments too) and metrics
+    STEP_TOL; exactly 2 + 2 and 4 + 4 launches on the kernel route."""
+    import torch
+
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.models import CRVAE, ErrorVAE, init_gmm_prior
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.optim import adam_init
+    from vae_connexe_torch.train import (
+        Phase1State,
+        Phase2State,
+        make_phase1_step,
+        make_phase2_step,
+    )
+    from vae_connexe_torch.utils.tree import tree_leaves, tree_map
+
+    exp = get_experiment(CS_NAME)
+    p, hid = exp.p, exp.hidden
+    g = torch.Generator().manual_seed(61)
+    model, err = CRVAE(p, hid), ErrorVAE(p, hid)
+    params, eparams = model.init(g, "cpu"), err.init(g, "cpu")
+    prior = init_gmm_prior(g, exp.phase1.gmm_components, hid, device="cpu")
+    windows = torch.randn((4096, exp.context, p), generator=g)
+    mask = (torch.rand((p, p), generator=g) > 0.3).float()
+    out = {}
+    for phase, cfg, b in (("phase1", exp.phase1, CS_B1),
+                          ("phase2", exp.phase2, CS_B2)):
+        idx = torch.randint(0, windows.shape[0], (b,), generator=g)
+        eps = torch.randn((b, hid), generator=g)
+        eps_err = torch.randn((b, hid), generator=g)
+
+        def run(on):
+            to = lambda t: t.to(on)    # noqa: E731
+            ps, pr = tree_map(to, params), tree_map(to, prior)
+            inf = torch.tensor(float("inf"), device=on)
+            if phase == "phase1":
+                step = make_phase1_step(model, cfg, to(windows),
+                                        torch.ones((p, p), device=on))
+                state, met = step(
+                    Phase1State(params=ps, prior=pr, best_params=ps,
+                                best_loss=inf, generator=torch.Generator(),
+                                step=0),
+                    batch=to(windows[idx]), eps=to(eps))
+                trees = (state.params, state.prior, state.best_params)
+            else:
+                es = tree_map(to, eparams)
+                step = make_phase2_step(model, err, cfg, to(windows),
+                                        to(mask))
+                state, met = step(
+                    Phase2State(params=ps, err_params=es,
+                                err_opt=adam_init(es), prior=pr,
+                                best_params=ps, best_loss=inf,
+                                generator=torch.Generator(), step=0),
+                    batch=to(windows[idx]), eps=to(eps),
+                    eps_err=to(eps_err))
+                trees = (state.params, state.prior, state.err_params,
+                         state.err_opt.mu, state.err_opt.nu,
+                         state.best_params)
+            return ([t for tr in trees for t in tree_leaves(tr)],
+                    torch.stack(list(met.values())))
+
+        cuda_gru.reset_launches()
+        k_leaves, k_met = run(dev)
+        torch.cuda.synchronize()
+        launches = dict(cuda_gru.LAUNCHES)
+        r_leaves, r_met = run(torch.device("cpu"))
+        n = 2 if phase == "phase1" else 4
+        what = (f"{CS_NAME} {phase} step p={p} H={hid} B={b} "
+                f"K={cfg.gmm_components} lambda_cs={cfg.lambda_cs}")
+        log(f"check cs_step {what}: launches {launches} ({n} + {n} a step)")
+        if launches != {"gru_forward": n, "gru_backward": n,
+                        "gru_forward_wide": 0, "gru_backward_wide": 0}:
+            raise AssertionError(f"the cs {phase} step took other launches")
+        _assert_close("cs_step", _flat(k_leaves).cpu(), _flat(r_leaves),
+                      errors, **STEP_TOL, what=what + ": params, prior, "
+                      + ("best params" if n == 2 else "ErrorVAE, Adam's "
+                         "moments, best params"))
+        _assert_close("cs_step", k_met.cpu(), r_met, errors, **STEP_TOL,
+                      what=what + ": metrics")
+        out[phase] = launches
+    return out
+
+
+def crcsrae_main_path(dev, card, out_dir):
+    """Phase 4n: lorenz96_crcsrae through ``run_experiment`` (the function
+    ``cli run`` calls) with checkpoints, phase 1 at its full 2000 steps,
+    phase 2 cut to RUN_STEPS: exactly 2 + 2 launches a phase-1 step and
+    4 + 4 a phase-2 step (read at each chunk's log line), K1 and K2 twice
+    on the resident route; the phase-1 AUROC against the JAX package's
+    committed one less A4_MARGIN; the mask frozen; phase-2 losses falling;
+    then ``cli eval`` of its ``ckpt_phase1``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.configs import get_experiment, run_experiment
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+    from vae_connexe_torch.utils import restore_checkpoint
+
+    exp = get_experiment(CS_NAME)
+    n1, n2 = exp.phase1.max_iter, RUN_STEPS
+    out = os.path.join(out_dir, CS_NAME)
+    tap = _ChunkTap()
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tap):
+        res = run_experiment(
+            CS_NAME, out_dir=out, save_checkpoints=True, device=dev,
+            overrides={"phase2": dataclasses.replace(exp.phase2,
+                                                     max_iter=n2)})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total, rollouts = dict(cuda_gru.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    per1 = [c for ph, _, c in tap.snaps if ph == "phase1"][-1]
+    end2 = [c for ph, _, c in tap.snaps if ph == "phase2"][-1]
+    per2 = {k: end2[k] - per1[k] for k in total}
+    log(f"main path run_experiment {CS_NAME} p={exp.p} H={exp.hidden} "
+        f"B={CS_B1}/{CS_B2} {n1} + {n2} steps in {secs:.3f} s: launches "
+        f"phase 1 {per1}, phase 2 {per2}, whole run {total}, rollouts by "
+        f"route {rollouts} [{card}]")
+    want1 = {"gru_forward": 2 * n1, "gru_backward": 2 * n1,
+             "gru_forward_wide": 0, "gru_backward_wide": 0}
+    want2 = {**want1, "gru_forward": 4 * n2, "gru_backward": 4 * n2}
+    assert per1 == want1, (per1, want1)
+    assert per2 == want2, (per2, want2)
+    assert total == {**want1, "gru_forward": 2 * n1 + 4 * n2 + 1,
+                     "gru_backward": 2 * n1 + 4 * n2}, total
+    assert rollouts == {"crvae_free_run_resident": 2,
+                        "errvae_sample_resident": 2,
+                        "crvae_free_run_streamed": 0,
+                        "errvae_sample_streamed": 0}, rollouts
+
+    ref = json.load(open(os.path.join(
+        ROOT, "results", CS_NAME, f"metrics_{CS_NAME}.json")))
+    gc, gate = res["gc"], JAX_CS_AUROC - A4_MARGIN
+    log(f"graph recovery {CS_NAME} {n1} steps: auroc={gc['auroc']:.4f} "
+        f"f1={gc['f1']:.4f} auroc_offdiag={gc['auroc_offdiag']:.4f}; phase 1 "
+        f"recon {res['phase1']['recon']:.4f} latent_reg "
+        f"{res['phase1']['latent_reg']:.4f}; gate auroc >= {gate:.4f}; the "
+        f"JAX package's committed full run: auroc {ref['gc']['auroc']:.4f} "
+        f"f1 {ref['gc']['f1']:.4f}, phase 1 recon "
+        f"{ref['phase1']['recon']:.4f} latent_reg "
+        f"{ref['phase1']['latent_reg']:.4f} [{card}]")
+    assert gc["auroc"] >= gate, gc
+
+    mask = np.load(os.path.join(out, f"GC_{CS_NAME}.npy"))
+    g = torch.Generator().manual_seed(0)
+    model, err = CRVAE(exp.p, exp.hidden), ErrorVAE(exp.p, exp.hidden)
+    ck = restore_checkpoint(os.path.join(out, "ckpt_phase2"),
+                            {"crvae": model.init(g, dev),
+                             "error_vae": err.init(g, dev)})
+    w_ih = ck["crvae"].heads.w_ih.permute(0, 2, 1)
+    frozen = bool((w_ih[torch.tensor(mask == 0, device=dev)] == 0).all())
+    rows = [json.loads(line) for line in
+            open(os.path.join(out, f"train_log_{CS_NAME}.jsonl"))]
+    p2 = [r for r in rows if r["phase"] == "phase2"]
+    first, last = p2[0], p2[-1]
+    log(f"{CS_NAME} phase 2 under the phase-1 mask ({int(mask.sum())} of "
+        f"{mask.size} edges): columns off the mask all zero: {frozen}; "
+        f"chunk at step {first['step']} -> {last['step']}: recon "
+        f"{first['recon']:.5f} -> {last['recon']:.5f}, latent_reg (CS) "
+        f"{first['latent_reg']:.5f} -> {last['latent_reg']:.5f}, loss_e "
+        f"{first['loss_e']:.5f} -> {last['loss_e']:.5f}; generation "
+        + json.dumps({k: res[k] for k in (
+            "generated_shape", "generation_moment_gap",
+            "generation_moment_gap_conditioned")})
+        + "; JAX's committed full run: phase 2 recon "
+        f"{ref['phase2']['recon']:.4f} latent_reg "
+        f"{ref['phase2']['latent_reg']:.4f}, moment gap "
+        + json.dumps(ref["generation_moment_gap"]))
+    assert frozen
+    for k in ("recon", "loss_e"):
+        assert all(math.isfinite(r[k]) for r in p2), k
+        assert last[k] < first[k], (k, first[k], last[k])
+    assert res["generated_shape"] == [256, 21, exp.p], res["generated_shape"]
+
+    cap = io.StringIO()
+    with contextlib.redirect_stdout(cap):
+        cli.main(["eval", CS_NAME, os.path.join(out, "ckpt_phase1"),
+                  "--generate", "8", "--device", str(dev)])
+    ev = json.loads(cap.getvalue())
+    log(f"cli eval {CS_NAME} ckpt_phase1: auroc {ev['gc']['auroc']:.4f}, "
+        f"generated {ev['generated_shape']}")
+    assert abs(ev["gc"]["auroc"] - gc["auroc"]) < 1e-6, (ev["gc"], gc)
+    assert ev["generated_shape"] == [8, 21, exp.p]
+    return {"phase1": per1, "phase2": per2, "rollouts": rollouts,
+            "wall_s": secs, "auroc": gc["auroc"], "f1": gc["f1"],
+            "phase1_metrics": res["phase1"], "phase2_metrics": res["phase2"],
+            "generation_moment_gap": res["generation_moment_gap"]}
+
+
+def csrae_main_path(dev, card, out_dir):
+    """Phase 4o: ``cli run csrae_binarized`` at its own 30 epochs with
+    checkpoints (no recurrence, no kernel launch: the MixtureCSRAE is MLP
+    products); recon_accuracy against the JAX package's committed one less
+    A4_MARGIN, the loss below its initial value, 64 samples of 200; then
+    ``cli eval`` of its ``ckpt_csrae``."""
+    import contextlib
+
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.ops import cuda_gru
+
+    name = "csrae_binarized"
+    out = os.path.join(out_dir, name)
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["run", name, "--out-dir", out, "--save-checkpoints",
+                  "--device", str(dev), "--quiet"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = json.load(open(os.path.join(out, f"metrics_{name}.json")))
+    gate = JAX_CSRAE_ACC - A4_MARGIN
+    log(f"main path cli run {name} ({get_experiment(name).csrae.epochs} "
+        f"epochs) in {secs:.3f} s: "
+        f"recon_accuracy {res['recon_accuracy']:.4f} (gate {gate:.4f}; JAX "
+        f"committed {JAX_CSRAE_ACC}), loss {json.dumps(res['loss'])} from "
+        f"initial {json.dumps(res['initial'])}, generated "
+        f"{res['generated_shape']}, recurrence launches "
+        f"{dict(cuda_gru.LAUNCHES)} [{card}]")
+    assert res["recon_accuracy"] >= gate, res["recon_accuracy"]
+    assert res["loss"]["total"] < res["initial"]["total"], res
+    assert res["generated_shape"] == [64, 200], res["generated_shape"]
+    assert not any(cuda_gru.LAUNCHES.values())
+    cap = io.StringIO()
+    with contextlib.redirect_stdout(cap):
+        cli.main(["eval", name, os.path.join(out, "ckpt_csrae"),
+                  "--generate", "8", "--device", str(dev)])
+    ev = json.loads(cap.getvalue())
+    log(f"cli eval {name} ckpt_csrae: recon_accuracy "
+        f"{ev['recon_accuracy']:.4f}, generated {ev['generated_shape']}")
+    assert ev["generated_shape"] == [8, 200] and ev["recon_accuracy"] > 0.5
+    return {"wall_s": secs, "recon_accuracy": res["recon_accuracy"],
+            "loss": res["loss"], "initial": res["initial"]}
+
+
+def vrae_main_path(dev, card, out_dir):
+    """Phase 4p: ``cli run vrae_demo`` at its own 100 epochs with
+    checkpoints: the GRU encoder one B1 and one B2 launch an epoch (read
+    at every tenth epoch's log line), the decoder no launch; the loss at
+    the last epoch below the first's; 5 samples of (20, 10); then ``cli
+    eval`` of its ``ckpt_vrae``."""
+    import contextlib
+
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    name = "vrae_demo"
+    out = os.path.join(out_dir, name)
+    tap = _ChunkTap(VRAE_LINE)
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tap):
+        cli.main(["run", name, "--out-dir", out, "--save-checkpoints",
+                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, rollouts = dict(cuda_gru.LAUNCHES), dict(cr.LAUNCHES)
+    res = json.load(open(os.path.join(out, f"metrics_{name}.json")))
+    first = float(re.search(VRAE_LINE, tap.text.getvalue(), re.M).group(3))
+    last = res["train"]["total"]
+    per_epoch = {e: c for _, e, c in tap.snaps}
+    log(f"main path cli run {name} (100 epochs) in {secs:.3f} s: loss "
+        f"{first:.4f} at epoch 0 -> {last:.4f} at the last, tf_ratio "
+        f"{res['train']['tf_ratio']:.4f}, generated {res['generated_shape']}"
+        f", launches {launches}, at the logged epochs "
+        f"{ {e: (c['gru_forward'], c['gru_backward']) for e, c in per_epoch.items()} }, "
+        f"rollouts {rollouts} [{card}]")
+    for e, c in per_epoch.items():
+        assert c["gru_forward"] == c["gru_backward"] == e + 1, (e, c)
+    assert launches == {"gru_forward": 100, "gru_backward": 100,
+                        "gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert math.isfinite(last) and last < first, (first, last)
+    assert res["generated_shape"] == [5, 20, 10], res["generated_shape"]
+    cap = io.StringIO()
+    cuda_gru.reset_launches()
+    with contextlib.redirect_stdout(cap):
+        cli.main(["eval", name, os.path.join(out, "ckpt_vrae"), "--generate",
+                  "5", "--device", str(dev)])
+    ev = json.loads(cap.getvalue())
+    log(f"cli eval {name} ckpt_vrae: generated {ev['generated_shape']}, "
+        f"launches {dict(cuda_gru.LAUNCHES)} (sampling decodes only)")
+    assert ev["generated_shape"] == [5, 20, 10]
+    return {"launches": launches, "rollouts": rollouts, "wall_s": secs,
+            "loss_first": first, "loss_last": last}
+
+
+def debug_nans_main_path(dev, card):
+    """Phase 4q: ``cli run lorenz96_crvae --iters 20 --no-phase2
+    --debug-nans`` on the card completes; then, still under nan debugging,
+    a phase-1 fit on windows holding a NaN raises ``FloatingPointError``
+    naming its first step."""
+    import contextlib
+
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.train import Phase1Config, fit_phase1
+    from vae_connexe_torch.utils import enable_nan_debugging, nan_debugging
+
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["run", "lorenz96_crvae", "--iters", "20", "--no-phase2",
+                      "--device", str(dev), "--quiet", "--debug-nans"])
+        on = torch.is_anomaly_enabled()
+    finally:
+        enable_nan_debugging(False)
+    secs = time.perf_counter() - t0
+    windows = lorenz_windows(dev, CRVAE_P, seed=5)[:512].clone()
+    windows[:, CTX - 2, 3] = float("nan")
+    model = CRVAE(CRVAE_P, H, ENC)
+    params = model.init(torch.Generator().manual_seed(3), dev)
+    raised = None
+    with nan_debugging():
+        try:
+            fit_phase1(model, params, windows,
+                       torch.ones((CRVAE_P, CRVAE_P), device=dev),
+                       Phase1Config(max_iter=3, batch_size=TRAIN_B),
+                       torch.Generator(device=dev).manual_seed(4))
+        except FloatingPointError as e:
+            raised = str(e)
+    log(f"debug-nans: cli run lorenz96_crvae --iters 20 --no-phase2 "
+        f"--debug-nans completed in {secs:.3f} s (anomaly mode on: {on}); a "
+        f"fit on windows holding a NaN raised FloatingPointError: "
+        f"{raised!r} [{card}]")
+    assert on and raised is not None and raised.startswith("phase1 step 1")
+    assert not torch.is_anomaly_enabled()
+
+
+def time_a4(dev, card, windows10):
+    """Phase 5g: lorenz96_crcsrae's phase-1 (B=2048) and phase-2 (B=1024)
+    steps/s through its fits with the GMM prior beside the same fits on KL
+    (two runs each, in turns, host clock), a step of each under the
+    profiler (busy share); ``fit_csrae``'s epochs/s at csrae_binarized's
+    shapes; ``fit_vrae``'s steps (epochs)/s at vrae_demo's."""
+    import torch
+
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.configs.experiments import (
+        make_csrae_inputs,
+        vrae_model,
+    )
+    from vae_connexe_torch.data import lorenz96
+    from vae_connexe_torch.models import CRVAE, ErrorVAE, init_gmm_prior
+    from vae_connexe_torch.optim import adam_init
+    from vae_connexe_torch.train import (
+        Phase1State,
+        Phase2State,
+        fit_csrae,
+        fit_phase1,
+        fit_phase2,
+        fit_vrae,
+        make_phase1_step,
+        make_phase2_step,
+    )
+
+    exp = get_experiment(CS_NAME)
+    g = torch.Generator().manual_seed(71)
+    model, err = CRVAE(exp.p, exp.hidden), ErrorVAE(exp.p, exp.hidden)
+    params, eparams = model.init(g, dev), err.init(g, dev)
+    ones = torch.ones((exp.p, exp.p), device=dev)
+    out = {}
+    for phase, cfg0 in (("phase1", exp.phase1), ("phase2", exp.phase2)):
+        rates, shares = {}, {}
+        for reg in ("cs", "kl", "cs", "kl"):
+            cfg = dataclasses.replace(cfg0, max_iter=RATE_STEPS,
+                                      latent_reg=reg)
+            gen = torch.Generator(device=dev).manual_seed(72)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if phase == "phase1":
+                fit_phase1(model, params, windows10, ones, cfg, gen)
+            else:
+                fit_phase2(model, err, params, eparams, windows10, ones, cfg,
+                           gen)
+            torch.cuda.synchronize()
+            rates.setdefault(reg, []).append(
+                RATE_STEPS / (time.perf_counter() - t0))
+        for reg in ("cs", "kl"):
+            cfg = dataclasses.replace(cfg0, latent_reg=reg)
+            gen = torch.Generator(device=dev).manual_seed(73)
+            prior = (init_gmm_prior(gen, cfg.gmm_components, exp.hidden,
+                                    device=dev) if reg == "cs" else None)
+            inf = torch.tensor(float("inf"), device=dev)
+            if phase == "phase1":
+                step = make_phase1_step(model, cfg, windows10, ones)
+                state = [Phase1State(params=params, prior=prior,
+                                     best_params=params, best_loss=inf,
+                                     generator=gen, step=0)]
+            else:
+                step = make_phase2_step(model, err, cfg, windows10, ones)
+                state = [Phase2State(params=params, err_params=eparams,
+                                     err_opt=adam_init(eparams), prior=prior,
+                                     best_params=params, best_loss=inf,
+                                     generator=gen, step=0)]
+
+            def run():
+                state[0] = step(state[0])[0]
+
+            for _ in range(4):
+                run()
+            wall, by_kernel = profile_ms(run, 20)
+            busy = sum(by_kernel.values())
+            shares[reg] = {"wall_ms": wall, "device_ms": busy,
+                           "busy_share": busy / wall}
+        out[phase] = {"steps_s": rates, "profile": shares,
+                      "batch": cfg0.batch_size}
+        log(f"time {CS_NAME} {phase} steps/s B={cfg0.batch_size} p={exp.p} "
+            f"H={exp.hidden}: cs {rates['cs'][0]:.1f}, {rates['cs'][1]:.1f}; "
+            f"kl {rates['kl'][0]:.1f}, {rates['kl'][1]:.1f} (two runs each, in "
+            f"turns); a step under the profiler: cs wall "
+            f"{shares['cs']['wall_ms']:.4f} ms, device "
+            f"{shares['cs']['device_ms']:.4f} ms, busy "
+            f"{shares['cs']['busy_share']:.3f}; kl wall "
+            f"{shares['kl']['wall_ms']:.4f}, device "
+            f"{shares['kl']['device_ms']:.4f}, busy "
+            f"{shares['kl']['busy_share']:.3f} [{card}]")
+
+    cexp = get_experiment("csrae_binarized")
+    series = lorenz96(torch.Generator(device=dev).manual_seed(74), p=cexp.p,
+                      t=cexp.t, device=dev)
+    x, cmodel = make_csrae_inputs(cexp, series)
+    cparams = cmodel.init(torch.Generator().manual_seed(75), dev)
+    cfgc = cexp.csrae
+    gen = torch.Generator(device=dev).manual_seed(76)
+    cparams, _ = fit_csrae(cmodel, cparams, x, gen, epochs=1,
+                           batch_size=cfgc.batch_size, lr=cfgc.lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_csrae(cmodel, cparams, x, gen, epochs=CSRAE_RATE_EPOCHS,
+              batch_size=cfgc.batch_size, lr=cfgc.lr)
+    torch.cuda.synchronize()
+    csrae_eps = CSRAE_RATE_EPOCHS / (time.perf_counter() - t0)
+    n_batches = x.shape[0] // cfgc.batch_size
+
+    vexp = get_experiment("vrae_demo")
+    data = torch.randn((32, vexp.t, vexp.p),
+                       generator=torch.Generator(device=dev).manual_seed(77),
+                       device=dev)
+    vmodel = vrae_model(vexp)
+    vparams = vmodel.init(torch.Generator().manual_seed(78), dev)
+    gen = torch.Generator(device=dev).manual_seed(79)
+    vparams, _ = fit_vrae(vmodel, vparams, data, gen, epochs=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_vrae(vmodel, vparams, data, gen, epochs=VRAE_RATE_EPOCHS)
+    torch.cuda.synchronize()
+    vrae_sps = VRAE_RATE_EPOCHS / (time.perf_counter() - t0)
+    out["fit_csrae"] = {"epochs_s": csrae_eps,
+                        "steps_s": csrae_eps * n_batches,
+                        "batches_an_epoch": n_batches}
+    out["fit_vrae"] = {"steps_s": vrae_sps}
+    log(f"time fit_csrae csrae_binarized ({x.shape[0]} rows of "
+        f"{x.shape[1]}, batch {cfgc.batch_size}, {n_batches} steps an "
+        f"epoch): {csrae_eps:.2f} epochs/s ({csrae_eps * n_batches:.1f} "
+        f"steps/s); fit_vrae vrae_demo (32 x {vexp.t} x {vexp.p}, full "
+        f"batch): {vrae_sps:.1f} steps/s [{card}]")
+    return out
+
+
 def cr_plan(kind, p, hidden, dev) -> dict:
     """The plan (at B=3072) of a rollout as a dict for the JSON line."""
     from vae_connexe_torch.ops import cuda_rollout as cr
@@ -2529,6 +3042,7 @@ def main() -> int:
     win_steps = check_win_steps(dev, errors, win_windows)
     series10 = lorenz_windows(dev, CRVAE_P, seed=4)
     check_sweep(dev, card, errors, series10)
+    check_cs_steps(dev, errors)
     launches, served_fn = serve_main_path(dev)
     launches.update(serve_scaled_path(dev, card))
     series = lorenz_windows(dev, P, seed=0)
@@ -2547,11 +3061,28 @@ def main() -> int:
         author = henon_author_main_path(dev, card, out_dir)
         serve_win_main_path(dev, card, out_dir, win_windows)
         win_found = win_discover_main_path(dev, card, out_dir)
+        crcsrae = crcsrae_main_path(dev, card, out_dir)
+        csrae = csrae_main_path(dev, card, out_dir)
+        vrae = vrae_main_path(dev, card, out_dir)
+        debug_nans_main_path(dev, card)
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
     phase2_rates = time_phase2(dev, card, series, series10)
     sweep_rates = time_sweep(dev, card, series10, series)
     win_rates = time_win(dev, card, win_windows)
+    a4_rates = time_a4(dev, card, series10)
+    # B1/B2 at this slice's new shapes: lorenz96_crcsrae's encoder and
+    # decoder heads at B=2048, the VRAE's one-head encoder.
+    g = torch.Generator().manual_seed(80)
+    a4_shapes = {}
+    for key, shape in (("crcsrae_encoder", (1, CS_B1, ENC, CRVAE_P, H)),
+                       ("crcsrae_decoder",
+                        (CRVAE_P, CS_B1, CTX - ENC, CRVAE_P, H)),
+                       ("vrae_encoder", (1, 32, 20, CRVAE_P, H))):
+        row = time_recurrence(dev, card, g, *shape)
+        row["fwd_bound_ms"] = bound(*gru_cost(*shape, backward=False))[0]
+        row["bwd_bound_ms"] = bound(*gru_cost(*shape, backward=True))[0]
+        a4_shapes[key] = row
 
     rollout_src, gru_src = ("vae_connexe_torch/csrc/rollout.cu",
                             "vae_connexe_torch/csrc/gru.cu")
@@ -2648,6 +3179,28 @@ def main() -> int:
                       ("wall_s", "auroc", "seed_aurocs", "share_1")},
         win_discover={k: win_found[k] for k in
                       ("wall_s", "auroc_offdiag", "confidence")})
+    fwd_keys = ("ms", "fwd_device_ms", "plain_ms", "library_ms",
+                "fwd_bound_ms")
+    for name in ("gru_forward", "gru_backward"):
+        by_name[name].update(
+            launches_crcsrae={k: crcsrae[k][name]
+                              for k in ("phase1", "phase2")},
+            launches_vrae=vrae["launches"][name],
+            cs_step_max_abs_err=errors["cs_step"],
+            a4_shapes={k: {f: r.get(f) for f in r if (f in fwd_keys) ==
+                           (name == "gru_forward")}
+                       for k, r in a4_shapes.items()})
+    by_name["gru_backward"].update(
+        a4_rates=a4_rates,
+        crcsrae={k: crcsrae[k] for k in (
+            "wall_s", "auroc", "f1", "phase1_metrics", "phase2_metrics",
+            "generation_moment_gap")},
+        csrae=csrae,
+        vrae={k: vrae[k] for k in ("wall_s", "loss_first", "loss_last")})
+    for name in ("crvae_free_run", "errvae_sample"):
+        by_name[name].update(
+            launches_crcsrae=crcsrae["rollouts"][f"{name}_resident"],
+            launches_vrae=vrae["rollouts"][name])
     for name in ("crvae_free_run", "errvae_sample"):
         by_name[name].update(
             launches_run=run_launches["run_rollouts"][f"{name}_resident"],

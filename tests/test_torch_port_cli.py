@@ -1,7 +1,8 @@
 """The port's experiments table and command line against the JAX package's:
 the table field for field, ``list``, ``run`` -> ``export`` -> ``generate``
-and ``eval`` on the CPU at four steps a phase, resume, and the reference's
-flags that the port does not have yet."""
+and ``eval`` on the CPU at four steps a phase, resume, ``run`` -> ``eval``
+of the cs, csrae and vrae experiments, ``run --debug-nans``, and the
+reference's flags that the port does not have yet."""
 
 import dataclasses
 import json
@@ -18,7 +19,12 @@ import vae_connexe_tpu.configs.experiments as jexp
 from vae_connexe_torch import cli
 from vae_connexe_torch.configs import EXPERIMENTS, get_experiment, run_experiment
 from vae_connexe_torch.models import CRVAE, ErrorVAE
-from vae_connexe_torch.utils import load_gc, restore_checkpoint
+from vae_connexe_torch.utils import (
+    enable_nan_debugging,
+    load_gc,
+    restore_checkpoint,
+)
+from vae_connexe_torch.utils.debug import nan_debugging_enabled
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -35,7 +41,11 @@ def test_experiments_table_matches_jax(name):
 _BRANCHES = {"crvae": ('if exp.model_family == "crvae":',
                        'elif exp.model_family == "win":'),
              "win": ('elif exp.model_family == "win":',
-                     'elif exp.model_family == "csrae":')}
+                     'elif exp.model_family == "csrae":'),
+             "csrae": ('elif exp.model_family == "csrae":',
+                       'elif exp.model_family == "vrae":'),
+             "vrae": ('elif exp.model_family == "vrae":',
+                      'raise ValueError(f"unknown model family')}
 
 
 def _jax_branch(family: str) -> str:
@@ -55,9 +65,12 @@ def _jax_crvae_result_keys(henon: bool = False) -> set[str]:
                                      or not k.startswith("gc_dynamics")}
 
 
-def _jax_win_result_keys() -> set[str]:
-    return {"experiment", "seed"} | set(re.findall(
-        r'results\["(\w+)"\]\s*=', _jax_branch("win")))
+def _jax_win_result_keys(family: str = "win") -> set[str]:
+    """The keys of the JAX package's ``family`` branch (win, csrae, vrae),
+    with ``csrae_eval_metrics``'s two for the csrae family."""
+    extra = {"recon_accuracy", "loss"} if family == "csrae" else set()
+    return {"experiment", "seed"} | extra | set(re.findall(
+        r'results\["(\w+)"\]\s*=', _jax_branch(family)))
 
 
 def _jax_files(family: str, name: str, pngs: bool = True) -> set[str]:
@@ -150,11 +163,6 @@ def test_cli_run_resume_after_finish_is_pure_restore(tmp_path, capsys):
 
 
 def test_run_experiment_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A4"):
-        run_experiment("vrae_demo", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        run_experiment("lorenz96_crvae", overrides={"dataset": "random"},
-                       device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         run_experiment("lorenz96_crvae", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
@@ -166,37 +174,117 @@ def test_run_experiment_unported_paths_raise():
         run_experiment("lorenz96_crvae", resume=True, device="cpu")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["run", "lorenz96_crvae", "--mesh"], "A7"),
-    (["run", "lorenz96_crvae", "--ep", "2"], "A7"),
-    (["run", "lorenz96_crvae", "--sp", "2"], "A7"),
-    (["run", "lorenz96_crvae", "--processes", "2"], "A7"),
-    (["run", "lorenz96_crvae", "--out-of-core"], "A6"),
+@pytest.mark.parametrize("argv,message", [
+    (["run", "lorenz96_crvae", "--mesh"], "ROADMAP A7"),
+    (["run", "lorenz96_crvae", "--ep", "2"], "ROADMAP A7"),
+    (["run", "lorenz96_crvae", "--sp", "2"], "ROADMAP A7"),
+    (["run", "lorenz96_crvae", "--processes", "2"], "ROADMAP A7"),
+    (["run", "lorenz96_crvae", "--out-of-core"], "ROADMAP A6"),
     (["run", "lorenz96_crvae", "--artifacts-every", "5", "--out-of-core"],
-     "A6"),
-    (["run", "lorenz96_crvae", "--debug-nans"], "A4"),
+     "ROADMAP A6"),
     (["export", "lorenz96_crvae", "ck", "--out", "g", "--serve-dtype",
-      "bfloat16"], "A5"),
+      "bfloat16"], "ROADMAP A5"),
     (["export", "lorenz96_crvae", "ck", "--out", "g", "--platforms", "cpu"],
-     "A5"),
+     "ROADMAP A5"),
     (["export", "henon6d_win", "ck", "--out", "g", "--serve-dtype",
-      "bfloat16", "--device", "cpu"], "A5"),
-    (["eval", "vrae_demo", "ck", "--device", "cpu"], "A4"),
-    (["discover", "s.csv", "--mesh"], "A7"),
-    (["discover", "s.csv", "--ep", "2"], "A7"),
-    (["discover", "s.csv", "--family", "win", "--mesh"], "A7"),
+      "bfloat16", "--device", "cpu"], "ROADMAP A5"),
+    (["export", "csrae_binarized", "ck", "--out", "g", "--device", "cpu"],
+     "export supports the crvae and win families; 'csrae_binarized' is "
+     "'csrae'"),
+    (["discover", "s.csv", "--mesh"], "ROADMAP A7"),
+    (["discover", "s.csv", "--ep", "2"], "ROADMAP A7"),
+    (["discover", "s.csv", "--family", "win", "--mesh"], "ROADMAP A7"),
     (["discover", "s.csv", "--family", "win", "--prox", "row", "--ep", "2"],
-     "A7"),
-    (["sweep", "--mesh"], "A7"),
+     "ROADMAP A7"),
+    (["sweep", "--mesh"], "ROADMAP A7"),
 ], ids=["mesh", "ep", "sp", "processes", "out-of-core", "artifacts-every",
-        "debug-nans", "bf16", "platforms", "export-win", "eval-vrae",
+        "bf16", "platforms", "export-win", "export-csrae",
         "discover-mesh", "discover-ep", "discover-win", "discover-prox",
         "sweep-mesh"])
-def test_unported_flags_exit(argv, item):
+def test_unported_flags_exit(argv, message):
     """The reference's flags the port does not have exit with the ROADMAP
-    item that brings them; none is silently ignored."""
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+    item that brings them, and an export of a family without a generator
+    artifact with the JAX package's message; none is silently ignored."""
+    with pytest.raises(SystemExit, match=message):
         cli.main(argv)
+
+
+# Each A4 run cut where a CPU run would take long (the keys and files do
+# not depend on the cuts): lorenz96_crcsrae to 4 steps a phase at batch
+# 256 (from 2048 and 1024), csrae_binarized's 30 epochs to 2; vrae_demo
+# runs its own 100 epochs.
+_A4_RUNS = {
+    "lorenz96_crcsrae": ("crvae", ["--iters", "4"], lambda exp: {
+        "phase1": dataclasses.replace(exp.phase1, batch_size=256),
+        "phase2": dataclasses.replace(exp.phase2, batch_size=256)}),
+    "csrae_binarized": ("csrae", [], lambda exp: {
+        "csrae": dataclasses.replace(exp.csrae, epochs=2)}),
+    "vrae_demo": ("vrae", [], lambda exp: {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_A4_RUNS))
+def test_cli_run_eval_a4_experiments(tmp_path, capsys, monkeypatch, name):
+    """``run`` of the cs, csrae and vrae experiments returns the JAX
+    package's keys and writes its files (figures aside: matplotlib made
+    unimportable, as on the card's machine); ``eval`` of the checkpoint it
+    saved rescores it and samples."""
+    family, argv, cut = _A4_RUNS[name]
+    exp = get_experiment(name)
+    monkeypatch.setitem(EXPERIMENTS, name,
+                        dataclasses.replace(exp, **cut(exp)))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = tmp_path / "run"
+    cli.main(["run", name, *argv, "--device", "cpu", "--out-dir", str(out),
+              "--save-checkpoints", "--quiet"])
+    res = json.loads(capsys.readouterr().out)
+    want = (_jax_crvae_result_keys() if family == "crvae"
+            else _jax_win_result_keys(family))
+    assert set(res) == want
+    assert {p.name for p in out.iterdir()} == _jax_files(family, name,
+                                                         pngs=False)
+    assert json.loads((out / f"metrics_{name}.json").read_text()) == res
+
+    ckpt = {"crvae": "ckpt_phase1", "csrae": "ckpt_csrae",
+            "vrae": "ckpt_vrae"}[family]
+    cli.main(["eval", name, str(out / ckpt), "--generate", "3", "--device",
+              "cpu"])
+    ev = json.loads(capsys.readouterr().out)
+    if family == "crvae":
+        assert res["generated_shape"] == [256, 21, 10]
+        assert res["phase1"]["latent_reg"] >= 0
+        assert EXPERIMENTS[name].phase2.latent_reg == "cs"
+        assert ev["gc"] == pytest.approx(res["gc"], nan_ok=True)
+        assert ev["generated_shape"] == [3, 21, 10]
+    elif family == "csrae":
+        assert res["generated_shape"] == [64, 200]
+        assert res["train"].keys() == res["initial"].keys() == {
+            "total", "bce", "cs"}
+        assert res["loss"]["total"] < res["initial"]["total"]
+        assert set(ev) == {"experiment", "checkpoint", "recon_accuracy",
+                           "loss", "generated_shape"}
+        assert 0.5 < ev["recon_accuracy"] <= 1 and ev["generated_shape"] == [
+            3, 200]
+    else:
+        assert res["generated_shape"] == [5, 20, 10]
+        assert res["train"].keys() == {"total", "rec", "kld", "tf_ratio"}
+        assert res["train"]["tf_ratio"] == pytest.approx(0.98 ** 99)
+        assert ev == {"experiment": name, "checkpoint": str(out / ckpt),
+                      "generated_shape": [3, 20, 10]}
+
+
+def test_cli_run_debug_nans(capsys, monkeypatch):
+    """``run --debug-nans`` turns nan debugging on for the run (the loops'
+    checks, autograd's anomaly mode) and the run completes."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    try:
+        cli.main(["run", "lorenz96_crvae", "--iters", "2", "--no-phase2",
+                  "--device", "cpu", "--quiet", "--debug-nans"])
+        assert nan_debugging_enabled() and torch.is_anomaly_enabled()
+    finally:
+        enable_nan_debugging(False)
+    res = json.loads(capsys.readouterr().out)
+    assert np.isfinite(res["phase1"]["loss"]) and "phase2" not in res
 
 
 # ---------------- the Henon and VAR experiments, the W_in family ----------

@@ -30,27 +30,38 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.configs",
             "vae_connexe_torch.configs.experiments", "vae_connexe_torch.convert",
             "vae_connexe_torch.data.henon", "vae_connexe_torch.data.io",
-            "vae_connexe_torch.data.lorenz96", "vae_connexe_torch.data.var",
+            "vae_connexe_torch.data.lorenz96",
+            "vae_connexe_torch.data.timegan_utils",
+            "vae_connexe_torch.data.var",
             "vae_connexe_torch.data.windows",
             "vae_connexe_torch.discover", "vae_connexe_torch.evals.gc_metrics",
             "vae_connexe_torch.evals.generation", "vae_connexe_torch.evals.viz",
+            "vae_connexe_torch.losses.cs_divergence",
             "vae_connexe_torch.losses.kl",
             "vae_connexe_torch.losses.penalties",
             "vae_connexe_torch.models.crvae",
             "vae_connexe_torch.models.crvae_win",
+            "vae_connexe_torch.models.csrae",
             "vae_connexe_torch.models.error_vae",
+            "vae_connexe_torch.models.gmm_prior",
+            "vae_connexe_torch.models.vrae",
             "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
             "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
             "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
+            "vae_connexe_torch.ops.rnn_cells",
             "vae_connexe_torch.optim.adam", "vae_connexe_torch.optim.prox",
             "vae_connexe_torch.parallel", "vae_connexe_torch.parallel.seed_sweep",
             "vae_connexe_torch.server",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",
+            "vae_connexe_torch.train.csrae_trainer",
+            "vae_connexe_torch.train.vrae_trainer",
             "vae_connexe_torch.train.win_trainer",
             "vae_connexe_torch.utils.checkpoint",
+            "vae_connexe_torch.utils.debug",
             "vae_connexe_torch.utils.layers",
             "vae_connexe_torch.utils.metrics_log",
+            "vae_connexe_torch.utils.profiling",
             "vae_connexe_torch.utils.scalers", "vae_connexe_torch.utils.seeding",
             "vae_connexe_torch.utils.tree"]
 
@@ -397,7 +408,7 @@ def test_phase2_step_matches_plain_on_card(cuda_device):
         ps, es = tree_map(to, params), tree_map(to, eparams)
         step = make_phase2_step(model, err, cfg, to(windows), to(parents))
         state = Phase2State(params=ps, err_params=es, err_opt=adam_init(es),
-                            best_params=ps,
+                            prior=None, best_params=ps,
                             best_loss=torch.tensor(float("inf"), device=dev),
                             generator=torch.Generator(), step=0)
         for idx, eps, eps_err in draws:
@@ -416,6 +427,29 @@ def test_phase2_step_matches_plain_on_card(cuda_device):
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-6)
+
+
+def test_a4_entry_points_default_to_cuda(monkeypatch):
+    """The GMM prior, the MixtureCSRAE, the VRAE and its cells, and the
+    commands that run them resolve to ``cuda`` and raise without a card
+    unless the caller names the CPU."""
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.models import VRAE, MixtureCSRAE, init_gmm_prior
+    from vae_connexe_torch.ops import init_lstm_cell, init_rnn_cell
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    for make in (lambda: init_gmm_prior(g, 3, 4),
+                 lambda: MixtureCSRAE(6, (5,), 2, 3).init(g),
+                 lambda: VRAE(3, 4, 2, "lstm").init(g),
+                 lambda: init_rnn_cell(g, 3, 4),
+                 lambda: init_lstm_cell(g, 3, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for name in ("lorenz96_crcsrae", "csrae_binarized", "vrae_demo"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["run", name, "--iters", "1", "--quiet"])
+    assert init_gmm_prior(g, 3, 4, device="cpu").mu.device.type == "cpu"
 
 
 def test_discovery_entry_points_default_to_cuda(monkeypatch):

@@ -190,7 +190,7 @@ def _port_state(js) -> Phase2State:
         _sd(js.params), _sd(js.err_params), _sd(js.err_opt), "cpu")
     best = convert.phase2_state_from_numpy(
         _sd(js.best_params), _sd(js.err_params), _sd(js.err_opt), "cpu")
-    return Phase2State(**fields, best_params=best["params"],
+    return Phase2State(**fields, prior=None, best_params=best["params"],
                        best_loss=torch.tensor(float(js.best_loss)),
                        generator=torch.Generator(), step=int(js.step))
 
@@ -291,7 +291,8 @@ def test_step_draws_in_order(setup):
 
     def fresh(seed):
         return Phase2State(params=params, err_params=eparams,
-                           err_opt=adam_init(eparams), best_params=params,
+                           err_opt=adam_init(eparams), prior=None,
+                           best_params=params,
                            best_loss=torch.tensor(float("inf")),
                            generator=torch.Generator().manual_seed(seed),
                            step=0)
@@ -334,7 +335,8 @@ def test_fit_phase2_runs_max_iter_keeps_the_mask_and_the_best(setup):
 
     step = make_phase2_step(m, e, cfg, _t(windows), _t(parents))
     replay = Phase2State(params=params, err_params=eparams,
-                         err_opt=adam_init(eparams), best_params=params,
+                         err_opt=adam_init(eparams), prior=None,
+                         best_params=params,
                          best_loss=torch.tensor(float("inf")),
                          generator=torch.Generator().manual_seed(3), step=0)
     history = []
@@ -351,16 +353,28 @@ def test_fit_phase2_runs_max_iter_keeps_the_mask_and_the_best(setup):
 
 
 def test_cs_raises_where_phase2_training_starts(setup):
+    """Where phase 2's training starts, latent_reg='cs' now trains: the fit
+    draws a GMM prior of gmm_components x hidden from its generator first
+    and moves it every step, the KL stays on the ErrorVAE; a regulariser
+    that is neither 'kl' nor 'cs', and a mesh, raise."""
     _, _, _, _, windows, parents = setup
     m, e = CRVAE(P, H, E), ErrorVAE(P, HE, Z)
-    cfg = Phase2Config(latent_reg="cs", lambda_cs=0.1, gmm_components=10)
-    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        make_phase2_step(m, e, cfg, _t(windows), _t(parents))
+    cfg = Phase2Config(latent_reg="cs", lambda_cs=0.1, gmm_components=10,
+                       max_iter=3, check_every=3, batch_size=B)
     params = m.init(torch.Generator().manual_seed(1), "cpu")
     eparams = e.init(torch.Generator().manual_seed(2), "cpu")
-    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        fit_phase2(m, e, params, eparams, _t(windows), _t(parents), cfg,
-                   torch.Generator())
+    _, _, state, metrics = fit_phase2(m, e, params, eparams, _t(windows),
+                                      _t(parents), cfg,
+                                      torch.Generator().manual_seed(3))
+    first = 0.05 * torch.randn((10, H),
+                               generator=torch.Generator().manual_seed(3))
+    assert state.prior.mu.shape == state.prior.logvar.shape == (10, H)
+    assert not torch.equal(state.prior.mu, first)
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert metrics["latent_reg"] >= 0
+    with pytest.raises(ValueError, match="latent_reg"):
+        fit_phase2(m, e, params, eparams, _t(windows), _t(parents),
+                   Phase2Config(latent_reg="l1"), torch.Generator())
     with pytest.raises(NotImplementedError, match="mesh"):
         fit_phase2(m, e, params, eparams, _t(windows), _t(parents),
                    Phase2Config(), torch.Generator(), mesh=object())

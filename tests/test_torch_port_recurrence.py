@@ -276,8 +276,14 @@ def test_pick_tile(batch, heads, kernel, want):
     (40, 512, 40, 128, "wide", 16, 8),     # lorenz96_scaled's heads
     (1, 512, 40, 128, "wide", 4, 4),       # ... and its encoder
     (128, 64, 128, 128, "wide", 12, 4),    # lorenz96_xl's heads
+    (10, 2048, 10, 64, "kernel", 32, 28),  # lorenz96_crcsrae's phase-1 heads
+    (1, 2048, 10, 64, "kernel", 16, 8),    # ... its encoder
+    (10, 1024, 10, 64, "kernel", 16, 20),  # ... its phase-2 heads
+    (1, 1024, 10, 64, "kernel", 8, 4),     # ... its phase-2 encoder, ErrorVAE
+    (1, 32, 10, 64, "kernel", 8, 4),       # vrae_demo's encoder
 ], ids=["main-heads", "main-encoder", "crvae-error-vae", "scaled-heads",
-        "scaled-encoder", "xl-heads"])
+        "scaled-encoder", "xl-heads", "crcsrae-heads", "crcsrae-encoder",
+        "crcsrae-phase2-heads", "crcsrae-phase2-encoder", "vrae-encoder"])
 def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     """The kernels' variant is chosen from shapes and the card's limits
     alone: both weights in shared memory where B1's tile and B2's chain

@@ -152,7 +152,8 @@ def test_checkpoint_round_trip(setup, tmp_path):
     g = _gen(11)
     torch.randn(3, generator=g)
     state = Phase2State(params=params, err_params=eparams,
-                        err_opt=adam_init(eparams), best_params=params,
+                        err_opt=adam_init(eparams), prior=None,
+                        best_params=params,
                         best_loss=torch.tensor(0.5), generator=g, step=7)
     gc = np.eye(P, dtype=np.int32)
     path = str(tmp_path / "ck" / "state")
@@ -160,7 +161,8 @@ def test_checkpoint_round_trip(setup, tmp_path):
     want = torch.randn(4, generator=g)
     template = Phase2State(
         params=model.init(_gen(2), "cpu"), err_params=err_model.init(_gen(3), "cpu"),
-        err_opt=adam_init(eparams), best_params=model.init(_gen(4), "cpu"),
+        err_opt=adam_init(eparams), prior=None,
+        best_params=model.init(_gen(4), "cpu"),
         best_loss=torch.tensor(0.0), generator=_gen(0), step=0)
     back = restore_checkpoint(path, template)
     assert back.step == 7 and float(back.best_loss) == 0.5

@@ -30,10 +30,9 @@ import pkgutil
 import vae_connexe_torch
 
 DRAWS = {"generator", "eps", "h0", "noise", "idx", "x0_draw", "noise_draw",
-         "eps_z", "eps_e", "eps_err"}
+         "eps_z", "eps_e", "eps_err", "coins", "comp"}
 PORT_EXTRAS = DRAWS | {"device"}
 UNPORTED = {
-    "prior": "A4c (latent_reg='cs', the GMM prior)",
     "batch_sharding": "A7 (meshes)",
     "stream": "A6 (out-of-core streaming)",
     "interpret": "Pallas interpret mode: the CPU runs the plain versions",
@@ -125,7 +124,18 @@ def test_shared_callables_take_jax_positional_parameters():
                  "train.win_trainer.WInTrainer.fit_many",
                  "data.henon.coupled_henon", "data.var.var_process",
                  "optim.prox.proximal_sgd", "losses.kl.kl_gaussian_logsigma",
-                 "serving.export_win_generator", "discover.discover"):
+                 "serving.export_win_generator", "discover.discover",
+                 "train.crvae_trainer.Phase1State.__init__",
+                 "train.crvae_trainer.Phase2State.__init__",
+                 "losses.cs_divergence.cs_divergence_gmm",
+                 "models.gmm_prior.init_gmm_prior",
+                 "models.csrae.MixtureCSRAE.sample",
+                 "train.csrae_trainer.fit_csrae", "ops.rnn_cells.lstm_scan",
+                 "models.vrae.VRAE.decode", "models.vrae.VRAE.forward",
+                 "train.vrae_trainer.fit_vrae",
+                 "data.timegan_utils.train_test_divide",
+                 "utils.debug.nan_debugging", "utils.profiling.trace",
+                 "utils.scalers.minmax_scale"):
         assert f"vae_connexe_torch.{name}" in checked, name
     bad = {name: why for name, f, g in pairs
            if (why := mismatch(name, f, g)) is not None}

@@ -115,7 +115,7 @@ def _single_loops(model, cfg, windows, parents, seeds):
         gens = seed_generators(s, "cpu")
         params = model.init(gens["init"], "cpu")
         step = make_phase1_step(model, cfg, windows, parents)
-        state = Phase1State(params=params, best_params=params,
+        state = Phase1State(params=params, prior=None, best_params=params,
                             best_loss=torch.tensor(float("inf")),
                             generator=gens["run"], step=0)
         for _ in range(cfg.max_iter):
@@ -202,10 +202,15 @@ def test_kept_seed_axis_losses_are_per_seed_values():
 
 
 def test_unported_sweep_options_raise():
+    """A mesh raises (A7); latent_reg='cs' builds (it trains on KL, as the
+    JAX package's sweep: tests/test_torch_port_cs.py); another name
+    raises."""
     model, windows = CRVAE(4, 8, 5), _windows()
     with pytest.raises(NotImplementedError, match="A7"):
         make_sweep_fn(model, windows, torch.ones((4, 4)), Phase1Config(),
                       mesh=object())
-    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        make_sweep_step(model, Phase1Config(latent_reg="cs"), windows,
+    assert callable(make_sweep_step(model, Phase1Config(latent_reg="cs"),
+                                    windows, torch.ones((4, 4))))
+    with pytest.raises(ValueError, match="latent_reg"):
+        make_sweep_step(model, Phase1Config(latent_reg="l1"), windows,
                         torch.ones((4, 4)))

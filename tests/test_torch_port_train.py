@@ -75,8 +75,8 @@ def test_crvae_positional_signature_matches_jax(args):
 
 def test_phase1_config_fields_match_jax():
     """Phase1Config's fields in JAX's names, order and defaults; the CS
-    keywords and latent_reg='cs' construct, so every crvae configuration
-    builds, and 'cs' raises where training starts."""
+    keywords and latent_reg='cs' construct and build a step; a regulariser
+    that is neither 'kl' nor 'cs' raises where training starts."""
     got = [(f.name, f.default) for f in dataclasses.fields(Phase1Config)]
     want = [(f.name, f.default) for f in dataclasses.fields(JPhase1Config)]
     assert got == want
@@ -84,8 +84,10 @@ def test_phase1_config_fields_match_jax():
                         cs_variant="symmetric").lambda_cs == 0.1
     cfg = Phase1Config(latent_reg="cs", lambda_cs=0.1)
     windows, parents = torch.zeros((4, T, P)), torch.ones((P, P))
-    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        make_phase1_step(CRVAE(P, H, E), cfg, windows, parents)
+    assert callable(make_phase1_step(CRVAE(P, H, E), cfg, windows, parents))
+    with pytest.raises(ValueError, match="latent_reg 'l1'"):
+        make_phase1_step(CRVAE(P, H, E), Phase1Config(latent_reg="l1"),
+                         windows, parents)
 
 
 def test_encode_matches_jax(setup):
@@ -146,7 +148,7 @@ def test_jax_initialised_params_take_the_same_step(setup, masked):
                                             jax.random.key(42))
     step = make_phase1_step(m, Phase1Config(**CFG), _t(batch), _t(parents),
                             fixed_batch=_t(batch))
-    state = Phase1State(params=tp, best_params=tp,
+    state = Phase1State(params=tp, prior=None, best_params=tp,
                         best_loss=torch.tensor(float("inf")),
                         generator=torch.Generator(), step=0)
     got_state, got = step(state, eps=_t(eps))
@@ -301,7 +303,7 @@ def test_fit_phase1_runs_max_iter_and_keeps_the_best():
                                  "gru_backward_wide": 0}
 
     step = make_phase1_step(m, cfg, windows, parents)
-    replay = Phase1State(params=params, best_params=params,
+    replay = Phase1State(params=params, prior=None, best_params=params,
                          best_loss=torch.tensor(float("inf")),
                          generator=torch.Generator().manual_seed(3), step=0)
     history = []
@@ -329,7 +331,7 @@ def test_fit_phase1_fixed_batch_draws_once():
     ref = torch.Generator().manual_seed(6)
     idx = torch.randint(0, windows.shape[0], (8,), generator=ref)
     fixed = windows[idx]
-    replay = Phase1State(params=params, best_params=params,
+    replay = Phase1State(params=params, prior=None, best_params=params,
                          best_loss=torch.tensor(float("inf")), generator=ref,
                          step=0)
     step = make_phase1_step(m, cfg, windows, parents, fixed_batch=fixed)
@@ -340,14 +342,11 @@ def test_fit_phase1_fixed_batch_draws_once():
 
 
 def test_unported_options_raise(tmp_path):
-    """latent_reg='cs' and a mesh raise where the fit starts; a checkpoint
-    directory now works: a fit resumed from its own finished snapshot is a
-    pure restore."""
+    """A mesh raises where the fit starts; a checkpoint directory works: a
+    fit resumed from its own finished snapshot is a pure restore."""
     m = CRVAE(P, H, E)
     params = m.init(torch.Generator().manual_seed(1), "cpu")
     args = (m, params, _windows(5), torch.ones((P, P)))
-    with pytest.raises(NotImplementedError, match="latent_reg='cs'"):
-        fit_phase1(*args, Phase1Config(latent_reg="cs"), torch.Generator())
     with pytest.raises(NotImplementedError, match="mesh"):
         fit_phase1(*args, Phase1Config(), torch.Generator(), mesh=object())
     cfg = Phase1Config(max_iter=4, check_every=2, batch_size=8)

@@ -9,10 +9,15 @@ in float32 and the plain version in float64.  For the outputs and every
 gradient it prints the largest magnitude, the largest absolute difference
 of each pair, and how many elements of the kernel (against float32 plain)
 and of float32 plain (against float64 plain) fall outside ``chip_smoke.py``'s
-GRAD_TOL (rtol 1e-3, atol 1e-4).  Shapes: the main path's decoder heads,
-``lorenz96_scaled``'s (the wide kernels) and the same B*T at hidden 64 (the
-kernels with both weights in shared memory): the evidence behind
-``chip_smoke.py``'s LONG_SUM_TOL.  Needs a CUDA device and nvcc.
+GRAD_TOL (rtol 1e-3, atol 1e-4).  Then the same for B2's weight-gradient
+kernel alone, as ``chip_smoke.py``'s phase check runs it: dx, dW and db
+from the plain float32 gate gradients, against the plain phase in float32
+and in float64 on the same gate gradients.  Shapes: the main path's
+decoder heads, ``lorenz96_scaled``'s (the wide kernels), the same B*T at
+hidden 64 (the kernels with both weights in shared memory), and
+``lorenz96_crcsrae``'s decoder heads and encoder at batch 2048: the
+evidence behind ``chip_smoke.py``'s LONG_SUM_TOL.  Needs a CUDA device and
+nvcc.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru  # noqa: E402
 
 RTOL, ATOL = 1e-3, 1e-4
 # (heads, batch, steps, D, H)
-SHAPES = [(20, 256, 10, 20, 64), (40, 512, 30, 40, 128), (40, 512, 30, 20, 64)]
+SHAPES = [(20, 256, 10, 20, 64), (40, 512, 30, 40, 128), (40, 512, 30, 20, 64),
+          (10, 2048, 10, 10, 64), (1, 2048, 10, 10, 64)]
 NAMES = ("outs", "dW_ih", "dW_hh", "db_ih", "db_hh", "dx", "dh0")
+PHASE_NAMES = ("dx", "dW_ih", "db_ih", "dW_hh", "db_hh")
 
 
 def outs_and_grads(fn, params, x, h0, douts, dtype):
@@ -73,12 +80,30 @@ def main() -> None:
         print(f"P={heads} B={b} T={t} D={d} H={hidden} (B*T={b * t}, "
               f"route {route}):", flush=True)
         for name, k, r, e in zip(NAMES, kern, p32, p64):
-            print(f"  {name}: |ref| <= {r.abs().max().item():.4e}; "
-                  f"kernel-plain32 {(k - r).abs().max().item():.4e}, "
-                  f"kernel-plain64 {(k - e).abs().max().item():.4e}, "
-                  f"plain32-plain64 {(r - e).abs().max().item():.4e}; "
-                  f"outside GRAD_TOL: kernel {outside(k, r)}, plain32 "
-                  f"{outside(r, e)}", flush=True)
+            report(name, k, r, e)
+        # The weight-gradient kernel alone, on the plain float32 gh.
+        w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+        outs, hb = kern[0].float(), h0.expand(heads, b, hidden)
+        gh, _ = cuda_gru.bwd_chain_plain(*w, x, hb, outs, douts)
+        k_w = cuda_gru.bwd_wgrad(*w, x, hb, outs, gh, True)
+        r32 = cuda_gru.bwd_wgrad_plain(*w, x, hb, outs, gh, True)
+        r64 = cuda_gru.bwd_wgrad_plain(
+            *(t.double() for t in (*w, x, hb, outs, gh)), True)
+        print("  weight-gradient kernel from the plain gh:", flush=True)
+        for name, k, r, e in zip(PHASE_NAMES, k_w, r32, r64):
+            report("  " + name, k.double(), r.double(), e)
+
+
+def report(name, k, r, e) -> None:
+    """One line: the largest magnitude, the three pairs' largest
+    differences and the elements outside GRAD_TOL."""
+    print(f"  {name}: |ref| <= {r.abs().max().item():.4e}; "
+          f"kernel-plain32 {(k - r).abs().max().item():.4e}, "
+          f"kernel-plain64 {(k - e).abs().max().item():.4e}, "
+          f"plain32-plain64 {(r - e).abs().max().item():.4e}; "
+          f"outside GRAD_TOL: kernel {outside(k, r)}, plain32 "
+          f"{outside(r, e)}, kernel against plain64 {outside(k, e)}",
+          flush=True)
 
 
 if __name__ == "__main__":

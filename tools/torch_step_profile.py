@@ -95,7 +95,7 @@ def main() -> int:
           lambda: fused_phase1_step(model, cfg, params, parents, batch, eps),
           card)
     step = make_phase1_step(model, cfg, windows, parents)
-    state = [Phase1State(params=params, best_params=params,
+    state = [Phase1State(params=params, prior=None, best_params=params,
                          best_loss=torch.tensor(float("inf"), device=dev),
                          generator=g, step=0)]
 
@@ -109,7 +109,8 @@ def main() -> int:
     step2 = make_phase2_step(model, err, Phase2Config(batch_size=B), windows,
                              parents)
     state2 = [Phase2State(params=params, err_params=eparams,
-                          err_opt=adam_init(eparams), best_params=params,
+                          err_opt=adam_init(eparams), prior=None,
+                          best_params=params,
                           best_loss=torch.tensor(float("inf"), device=dev),
                           generator=g, step=0)]
 

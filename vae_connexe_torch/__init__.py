@@ -9,8 +9,11 @@ the user's own series: ``discover``, the multi-seed sweep with its seeds
 folded into the recurrence kernels' heads (``parallel``), stability
 selection, ``cli discover`` and ``cli sweep``; the explicit-W_in family
 (``WInCRVAE``, ``WInTrainer`` with its seeds folded into the kernels'
-heads, context-conditioned serving) and the Hénon and VAR datasets.  The
-kernels
+heads, context-conditioned serving) and the Hénon and VAR datasets; the
+CS-divergence regulariser against a learnable GMM prior
+(``latent_reg='cs'``), the MixtureCSRAE, the plain VRAE with its RNN, GRU
+and LSTM cells, nan debugging (``cli run --debug-nans``), profiling and
+the TimeGAN helpers.  The kernels
 (``csrc/rollout.cu``, ``csrc/gru.cu``, ``csrc/step.cu``) are built with
 ``nvcc`` at first use.
 """
@@ -24,6 +27,10 @@ from vae_connexe_torch.models import (
     CRVAEParams,
     ErrorVAE,
     ErrorVAEParams,
+    MixtureCSRAE,
+    MixtureCSRAEParams,
+    VRAE,
+    VRAEParams,
     WInCRVAE,
     WInCRVAEParams,
 )
@@ -37,8 +44,10 @@ from vae_connexe_torch.train import (
     Phase2Config,
     WInTrainConfig,
     WInTrainer,
+    fit_csrae,
     fit_phase1,
     fit_phase2,
+    fit_vrae,
     generate_from_draws,
     generate_with_compensation,
 )
@@ -50,8 +59,12 @@ __all__ = [
     "EXPERIMENTS",
     "ErrorVAE",
     "ErrorVAEParams",
+    "MixtureCSRAE",
+    "MixtureCSRAEParams",
     "Phase1Config",
     "Phase2Config",
+    "VRAE",
+    "VRAEParams",
     "WInCRVAE",
     "WInCRVAEParams",
     "WInTrainConfig",
@@ -59,8 +72,10 @@ __all__ = [
     "discover",
     "export_generator",
     "export_win_generator",
+    "fit_csrae",
     "fit_phase1",
     "fit_phase2",
+    "fit_vrae",
     "generate_from_draws",
     "generate_with_compensation",
     "get_experiment",

@@ -21,6 +21,10 @@ Examples:
   python -m vae_connexe_torch.cli export henon6d_win out/ckpt_win --out w.vcxt
   python -m vae_connexe_torch.cli generate w.vcxt --context ctx.npy
   python -m vae_connexe_torch.cli sweep --p 10 --seeds 8 --iters 1000
+  python -m vae_connexe_torch.cli run lorenz96_crcsrae --out-dir out --save-checkpoints
+  python -m vae_connexe_torch.cli run csrae_binarized --out-dir out --save-checkpoints
+  python -m vae_connexe_torch.cli eval csrae_binarized out/ckpt_csrae --generate 8
+  python -m vae_connexe_torch.cli run vrae_demo --debug-nans
 
 Everything runs on the card unless ``--device cpu`` is given.  The JAX
 package's flags that the port does not have yet exit with the ROADMAP item
@@ -40,7 +44,6 @@ _RUN_UNPORTED = (
     ("processes", "--processes", "A7"),
     ("devices_per_process", "--devices-per-process", "A7"),
     ("out_of_core", "--out-of-core", "A6"),
-    ("debug_nans", "--debug-nans", "A4f"),
 )
 # ... and of its ``discover`` and ``sweep``; a fourth entry lists the values that
 # are ported (without one: left unset).
@@ -68,6 +71,10 @@ def _cmd_run(args):
     from vae_connexe_torch.configs import get_experiment, run_experiment
 
     _unported(args, _RUN_UNPORTED)
+    if args.debug_nans:
+        from vae_connexe_torch.utils import enable_nan_debugging
+
+        enable_nan_debugging()
     overrides = {}
     if args.iters is not None:
         exp = get_experiment(args.experiment)
@@ -210,28 +217,28 @@ def _cmd_discover(args):
     print(json.dumps(summary, indent=2))
 
 
-def _ported_family(exp, what: str):
-    if exp.model_family not in ("crvae", "win"):
-        sys.exit(f"{what} of the {exp.model_family!r} family is not ported "
-                 f"yet (ROADMAP A4)")
-
-
 def _cmd_eval(args):
     """Restore a checkpoint (crvae: ``ckpt_phase1`` and its GC companion;
-    win: ``ckpt_win``), rescore, and optionally generate, without
-    training."""
+    win: ``ckpt_win``; vrae: ``ckpt_vrae``; csrae: ``ckpt_csrae``),
+    rescore (the csrae family: its reconstruction metrics; the vrae family
+    has no graph to score), and optionally generate, without training."""
     import numpy as np
     import torch
 
     from vae_connexe_torch._device import resolve_device
     from vae_connexe_torch.configs import get_experiment
-    from vae_connexe_torch.configs.experiments import _make_dataset, _sweep
+    from vae_connexe_torch.configs.experiments import (
+        _make_dataset,
+        _sweep,
+        csrae_eval_metrics,
+        make_csrae_inputs,
+        vrae_model,
+    )
     from vae_connexe_torch.evals import gc_metrics
     from vae_connexe_torch.models import CRVAE, WInCRVAE
     from vae_connexe_torch.utils import load_gc, restore_checkpoint
 
     exp = get_experiment(args.experiment)
-    _ported_family(exp, "eval")
     dev = resolve_device(args.device)
     results = {"experiment": args.experiment, "checkpoint": args.checkpoint}
     series, truth = _make_dataset(
@@ -246,7 +253,7 @@ def _cmd_eval(args):
         scores = model.gc(params, parents=gc, threshold=False)
         if args.generate:
             roll = model.rollout(params, gen, args.generate, parents=gc)
-    else:
+    elif exp.model_family == "win":
         model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
                          tau=exp.tau)
         params = restore_checkpoint(args.checkpoint, model.init(init, dev))
@@ -256,9 +263,29 @@ def _cmd_eval(args):
                    else series[:1, : 2 * exp.tau])
             ctx = ctx.expand(args.generate, -1, -1)
             roll = model.generate(params, ctx, gen, 20)
-    results["gc"] = {k: float(v) for k, v in
-                     gc_metrics(truth, scores, exp.gc_threshold).items()}
-    results["threshold_sweep"] = _sweep(truth, scores)
+    elif exp.model_family == "vrae":
+        model = vrae_model(exp)
+        params = restore_checkpoint(args.checkpoint, model.init(init, dev))
+        truth = None   # no causal graph for the plain VRAE
+        if args.generate:
+            with torch.no_grad():
+                roll = model.sample(params, gen, args.generate, exp.t)
+    elif exp.model_family == "csrae":
+        x, model = make_csrae_inputs(exp, series)
+        params = restore_checkpoint(args.checkpoint, model.init(init, dev))
+        truth = None   # no causal graph for the CS-RAE
+        results.update(csrae_eval_metrics(
+            model, params, x,
+            torch.Generator(device=dev).manual_seed(args.seed)))
+        if args.generate:
+            with torch.no_grad():
+                roll = model.sample(params, gen, args.generate)
+    else:
+        sys.exit(f"eval does not support the {exp.model_family!r} family")
+    if truth is not None:
+        results["gc"] = {k: float(v) for k, v in
+                         gc_metrics(truth, scores, exp.gc_threshold).items()}
+        results["threshold_sweep"] = _sweep(truth, scores)
     if args.generate:
         results["generated_shape"] = list(roll.shape)
         if args.out:
@@ -410,7 +437,11 @@ def main(argv=None):
                             "steps save a compensated sample with its PCA "
                             "and trajectory figures")
     p_run.add_argument("--debug-nans", action="store_true", dest="debug_nans",
-                       help=argparse.SUPPRESS)
+                       help="stop at the first NaN/Inf a training step makes "
+                            "(autograd anomaly detection, the B1/B2 backward "
+                            "included; each step's loss and updated "
+                            "parameters checked, FloatingPointError naming "
+                            "the step)")
     p_run.set_defaults(fn=_cmd_run)
 
     p_sw = sub.add_parser("sweep", help="multi-seed causal-discovery sweep")
@@ -492,8 +523,9 @@ def main(argv=None):
 
     p_e = sub.add_parser("eval", help="evaluate / generate from a checkpoint")
     p_e.add_argument("experiment", help="experiment name (model geometry)")
-    p_e.add_argument("checkpoint", help="ckpt_phase1 (crvae) or ckpt_win "
-                                        "(win) from run --save-checkpoints")
+    p_e.add_argument("checkpoint", help="ckpt_phase1 (crvae), ckpt_win "
+                                        "(win), ckpt_vrae or ckpt_csrae from "
+                                        "run --save-checkpoints")
     p_e.add_argument("--seed", type=int, default=0)
     p_e.add_argument("--generate", type=int, default=0, metavar="BATCH",
                      help="also sample BATCH free-running rollouts")

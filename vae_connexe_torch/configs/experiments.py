@@ -2,16 +2,17 @@
 ``vae_connexe_tpu/configs/experiments.py``).
 
 ``EXPERIMENTS`` is the JAX package's table, copied field for field (the
-comments cite each entry's source).  ``run_experiment`` runs the crvae
-family (phase 1, the GC scores and metrics, phase 2 under the binary
-mask, compensated and conditioned generation) and the win family (the
-two-stage W_in trainer, prediction MSE, the GC rows, stability selection
-over seeds folded into the kernels' heads, conditioned generation) on the
-``lorenz96``, ``henon``, ``coupled_henon`` and ``var`` datasets, with the
-reference's ``.npy``, checkpoint, log, metrics and figure files.  Not
-ported yet, and raising where asked for: the vrae and csrae families and
-the ``random`` dataset (ROADMAP A4), ``out_of_core`` (A6) and ``mesh``
-(A7).
+comments cite each entry's source).  ``run_experiment`` runs every family
+of it: crvae (phase 1, the GC scores and metrics, phase 2 under the
+binary mask, compensated and conditioned generation; with
+``latent_reg='cs'`` both phases against a GMM prior), win (the two-stage
+W_in trainer, prediction MSE, the GC rows, stability selection over seeds
+folded into the kernels' heads, conditioned generation), csrae (the
+MixtureCSRAE on binarised windows) and vrae (the plain VRAE on random
+sequences), on the ``lorenz96``, ``henon``, ``coupled_henon``, ``var``
+and ``random`` datasets, with the reference's ``.npy``, checkpoint, log,
+metrics and figure files.  Not ported yet, and raising where asked for:
+``out_of_core`` (ROADMAP A6) and ``mesh`` (A7).
 """
 
 from __future__ import annotations
@@ -164,8 +165,6 @@ EXPERIMENTS: dict[str, Experiment] = {
 # of a CPU generator seeded with the run's seed (the counterpart of the
 # reference's ``k_data, k_init, k_run, k_p2, k_gen`` split).
 ROLES = ("data", "init", "run", "p2", "gen")
-_PORTED_FAMILIES = ("crvae", "win")
-_PORTED_DATASETS = ("lorenz96", "henon", "coupled_henon", "var")
 
 
 def get_experiment(name: str) -> Experiment:
@@ -186,27 +185,13 @@ def _sweep(truth, scores) -> dict[str, dict[str, float]]:
             for t, a, s in zip(thrs, acc, sparsity)}
 
 
-def _unported_dataset(exp: Experiment):
-    if exp.dataset not in _PORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {exp.dataset!r} is not ported yet (ROADMAP A4); the "
-            f"port makes {', '.join(_PORTED_DATASETS)}")
-
-
-def _unported_family(exp: Experiment):
-    if exp.model_family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {exp.model_family!r} family ({exp.name!r}) is not ported "
-            "yet (ROADMAP A4); the port runs the crvae and win families")
-
-
 def _make_dataset(exp: Experiment, generator: torch.Generator, device=None):
-    """(series on ``device``, truth (p, p) int32) of the experiment, the
-    series' draws from ``generator``: (t, p), or (500, t, p) independent
-    sequences for ``var``."""
+    """(series on ``device``, truth (p, p) int32 or None) of the
+    experiment, the series' draws from ``generator``: (t, p), or (500, t,
+    p) independent sequences for ``var``, or (32, t, p) standard normals
+    with no truth for ``random``."""
     from vae_connexe_torch import data as D
 
-    _unported_dataset(exp)
     dev = resolve_device(device)
     if exp.dataset == "lorenz96":
         return (D.lorenz96(generator, p=exp.p, t=exp.t, device=dev),
@@ -216,9 +201,52 @@ def _make_dataset(exp: Experiment, generator: torch.Generator, device=None):
     if exp.dataset == "coupled_henon":
         return (D.coupled_henon(generator, t=exp.t, d=exp.p, device=dev),
                 D.coupled_henon_truth(exp.p, device=dev))
-    a = D.var_truth(exp.p, dev)
-    return (D.var_process(generator, a, n=500, t=exp.t),
-            (a > 0).to(torch.int32))
+    if exp.dataset == "var":
+        a = D.var_truth(exp.p, dev)
+        return (D.var_process(generator, a, n=500, t=exp.t),
+                (a > 0).to(torch.int32))
+    if exp.dataset == "random":
+        return torch.randn((32, exp.t, exp.p), generator=generator,
+                           device=generator.device).to(dev), None
+    raise ValueError(f"unknown dataset {exp.dataset!r}")
+
+
+def make_csrae_inputs(exp: Experiment, series: torch.Tensor):
+    """Binarised flattened windows and the configured MixtureCSRAE.
+
+    Shared by ``run_experiment`` and ``cli eval``, so the model at eval
+    time is built as the checkpoint's was: windows of ``exp.context``
+    flattened to (N, context * p) and binarised at 0 (the series is
+    standardised per variable, so the split is balanced), Bernoulli data
+    for the BCE-with-logits decoder.
+    """
+    from vae_connexe_torch.data import arrange_input
+    from vae_connexe_torch.models import MixtureCSRAE
+
+    windows, _ = arrange_input(series, exp.context)
+    x = (windows.reshape(windows.shape[0], -1) > 0).to(torch.float32)
+    cfgc = exp.csrae
+    model = MixtureCSRAE(input_dim=x.shape[-1], hidden_dims=cfgc.hidden_dims,
+                         latent_dim=cfgc.latent_dim, k=cfgc.k,
+                         lambda_cs=cfgc.lambda_cs, cs_variant=cfgc.cs_variant)
+    return x, model
+
+
+def csrae_eval_metrics(model, params, x: torch.Tensor,
+                       generator: torch.Generator) -> dict:
+    """Reconstruction accuracy and the loss's parts on the first 512 rows,
+    the forward and the loss on one epsilon drawn from ``generator``."""
+    rows = x[:512]
+    eps = torch.randn((rows.shape[0], model.latent_dim), generator=generator,
+                      device=generator.device).to(x.device)
+    with torch.no_grad():
+        logits, _, _ = model.forward(params, rows, eps)
+        total, bce, cs = model.loss(params, rows, eps)
+    return {
+        "recon_accuracy": float(((logits > 0).to(torch.float32) == rows)
+                                .to(torch.float32).mean()),
+        "loss": {"total": float(total), "bce": float(bce), "cs": float(cs)},
+    }
 
 
 def _floats(d: dict) -> dict[str, float]:
@@ -263,7 +291,10 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     ``gc_heatmap_auto_``, ``pca_``, ``tsne_``, ``traj_``, ``pca_cond_``,
     ``tsne_cond_``; for the win family ``GC_scores_<name>.npy``,
     ``syn_<name>.npy`` and the figures ``w_in_``, ``w_in_norms_``,
-    ``gc_heatmap_``; and ``metrics_<name>.json``.  Where matplotlib or
+    ``gc_heatmap_``; for the csrae family ``syn_<name>.npy`` and the
+    figures ``pca_``, ``tsne_`` (with ``save_checkpoints``,
+    ``ckpt_csrae``); for the vrae family ``syn_<name>.npy`` (and
+    ``ckpt_vrae``); and ``metrics_<name>.json``.  Where matplotlib or
     scikit-learn cannot be imported the figures are skipped and named on
     one stderr line (``evals/viz.py::FigureWriter``).
 
@@ -277,12 +308,15 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     from seed + 1, its periodic samples from seed + step).  The win
     family's stability seed s >= 1 trains from ``init`` at offset s and
     ``run`` at offset 100 + s (``utils/seeding.py::seed_stack_generators``)
-    and its prediction MSE draws from ``run`` at offset 1.  A rerun with
+    and its prediction MSE draws from ``run`` at offset 1.  The csrae
+    family draws its initial loss's epsilon and then its fit from
+    ``run``, and its eval metrics' epsilon and then its samples from
+    ``gen``; the vrae family its fit from ``run`` and its samples from
+    ``gen``.  A rerun with
     the same seed rebuilds the same generators, which is what resume
     relies on.
     """
     exp = get_experiment(name)
-    _unported_family(exp)
     if mesh is not None:
         raise NotImplementedError("meshed runs are not ported yet "
                                   "(ROADMAP A7)")
@@ -298,7 +332,10 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
                          "(checkpoints live under it)")
     if overrides:
         exp = dataclasses.replace(exp, **overrides)
-    _unported_dataset(exp)
+    runners = {"crvae": _run_crvae, "win": _run_win, "csrae": _run_csrae,
+               "vrae": _run_vrae}
+    if exp.model_family not in runners:
+        raise ValueError(f"unknown model family {exp.model_family!r}")
     dev = resolve_device(device)
 
     def gens(offset=0):
@@ -312,8 +349,8 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     from vae_connexe_torch.evals.viz import FigureWriter
 
     figs = FigureWriter()
-    run = _run_crvae if exp.model_family == "crvae" else _run_win
-    run(exp, name, seed, series, truth, gens, dev, out, figs, results,
+    runners[exp.model_family](
+        exp, name, seed, series, truth, gens, dev, out, figs, results,
         run_phase2=run_phase2, verbose=verbose,
         save_checkpoints=save_checkpoints, artifacts_every=artifacts_every,
         checkpoint_every=checkpoint_every, resume=resume, log_fn=log_fn)
@@ -609,3 +646,80 @@ def _run_win(exp, name, seed, series, truth, gens, dev, out, figs, results, *,
     if save_checkpoints and out:
         gc_bin = model.granger_matrix(params, thr=exp.win.prune_threshold)
         save_checkpoint(str(out / "ckpt_win"), params, gc_matrix=gc_bin)
+
+
+def _run_csrae(exp, name, seed, series, truth, gens, dev, out, figs,
+               results, *, verbose, save_checkpoints, log_fn, **_):
+    """The csrae family's run (``run_experiment``): the MixtureCSRAE on
+    binarised windows, results into ``results``."""
+    from vae_connexe_torch.evals.viz import pca_comparison, tsne_comparison
+    from vae_connexe_torch.train import fit_csrae
+    from vae_connexe_torch.utils import save_checkpoint
+
+    g = gens()
+    x, model = make_csrae_inputs(exp, series)
+    cfgc = exp.csrae
+    params = model.init(g["init"], dev)
+    with torch.no_grad():
+        init_total, init_bce, init_cs = model.loss(params, x[:512],
+                                                   generator=g["run"])
+    params, m = fit_csrae(model, params, x, g["run"], epochs=cfgc.epochs,
+                          batch_size=cfgc.batch_size, lr=cfgc.lr,
+                          verbose=verbose, log_fn=log_fn)
+    results["train"] = m
+    results["initial"] = {"total": float(init_total),
+                          "bce": float(init_bce), "cs": float(init_cs)}
+    results.update(csrae_eval_metrics(model, params, x, g["gen"]))
+    with torch.no_grad():
+        samples = model.sample(params, g["gen"], 64)
+    results["generated_shape"] = list(samples.shape)
+    if out:
+        syn = samples.cpu().numpy()
+        np.save(out / f"syn_{name}.npy", syn)
+        # The reference's PCA and t-SNE comparison on the flattened
+        # binarised windows, reshaped back to (N, context, p).
+        shape3 = (-1, exp.context, exp.p)
+        ori3 = x[:512].cpu().numpy().reshape(shape3)
+        syn3 = syn.reshape(shape3)
+        figs.draw(pca_comparison, ori3, syn3,
+                  path=str(out / f"pca_{name}.png"))
+        figs.draw(tsne_comparison, ori3, syn3,
+                  path=str(out / f"tsne_{name}.png"))
+    if save_checkpoints and out:
+        save_checkpoint(str(out / "ckpt_csrae"), params)
+
+
+def vrae_model(exp: Experiment):
+    """The vrae family's VRAE (tanh head), shared by ``run_experiment``
+    and ``cli eval``."""
+    from vae_connexe_torch.models import VRAE
+
+    return VRAE(input_dim=exp.p, hidden_dim=exp.hidden,
+                latent_dim=exp.latent, output_activation="tanh")
+
+
+def _run_vrae(exp, name, seed, series, truth, gens, dev, out, figs, results,
+              *, verbose, save_checkpoints, log_fn, **_):
+    """The vrae family's run (``run_experiment``): 100 full-batch epochs
+    at beta 0.5 with the exponential teacher-forcing decay of 0.02, then 5
+    sampled sequences; results into ``results``."""
+    from vae_connexe_torch.models.vrae import exponential_teacher_forcing_schedule
+    from vae_connexe_torch.train import fit_vrae
+    from vae_connexe_torch.utils import save_checkpoint
+
+    g = gens()
+    model = vrae_model(exp)
+    params = model.init(g["init"], dev)
+    params, m = fit_vrae(
+        model, params, series, g["run"], epochs=100, lr=1e-3, beta=0.5,
+        teacher_forcing_schedule=lambda e:
+            exponential_teacher_forcing_schedule(e, decay_rate=0.02),
+        verbose=verbose, log_fn=log_fn)
+    results["train"] = m
+    with torch.no_grad():
+        samples = model.sample(params, g["gen"], 5, exp.t)
+    results["generated_shape"] = list(samples.shape)
+    if out:
+        np.save(out / f"syn_{name}.npy", samples.cpu().numpy())
+    if save_checkpoints and out:
+        save_checkpoint(str(out / "ckpt_vrae"), params)

@@ -147,13 +147,16 @@ def encoder_douts(dhe: torch.Tensor, enc_len: int) -> torch.Tensor:
 def fused_phase1_step_plain(model: CRVAE, cfg, params: CRVAEParams,
                             parents: torch.Tensor, batch: torch.Tensor,
                             eps: torch.Tensor):
-    """Plain PyTorch version of B3: one ``make_phase1_step`` body on the
-    given batch and eps, with the plain recurrences (``gru_scan``,
-    ``gru_scan_heads``) called directly."""
+    """Plain PyTorch version of B3: one ``make_phase1_step`` body without
+    a prior (B3 is the KL step, as the JAX package's) on the given batch
+    and eps, with the plain recurrences (``gru_scan``, ``gru_scan_heads``)
+    called directly."""
     from vae_connexe_torch.train.crvae_trainer import _phase1_update
 
-    return _phase1_update(model, cfg, params, parents, batch, eps,
-                          recurrences=(gru_scan, gru_scan_heads))
+    new, _, metrics = _phase1_update(model, cfg, params, None, parents,
+                                     batch, eps,
+                                     recurrences=(gru_scan, gru_scan_heads))
+    return new, metrics
 
 
 def _flat_views(flat: torch.Tensor, shapes: dict) -> dict:

@@ -26,6 +26,13 @@ The kernels sum in another order at S * p heads than at p, so a sweep's
 seed agrees with its single fit to rounding, not bitwise; two sweeps of
 the same seeds are bitwise equal.
 
+With ``cfg.latent_reg='cs'`` a sweep trains with no prior, on beta *
+KL, as the JAX package's does: its ``sweep_phase1`` starts every seed
+from ``Phase1State(prior=None, ...)``
+(``vae_connexe_tpu/parallel/seed_sweep.py:37``) and its step takes the
+KL branch whenever the prior is None.  Only the single fits
+(``fit_phase1``, ``fit_phase2``) train against the GMM prior.
+
 Not ported: meshes (``mesh=`` raises, ROADMAP A7) and the JAX package's
 TPU-only ``batched_dispatch`` hint (the port's dispatch goes by device and
 shape).
@@ -138,8 +145,9 @@ def make_sweep_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     Unless given, each seed draws from its run generator its batch indices
     (unless the batch is fixed) and then its epsilon.  ``batch`` may be the
     (S, B) indices into ``windows``, the (S, B, T, p) windows or one
-    (B, T, p) batch for every seed; ``eps`` (S, B, H).
-    ``cfg.latent_reg='cs'`` raises (ROADMAP A4).
+    (B, T, p) batch for every seed; ``eps`` (S, B, H).  Every
+    ``latent_reg`` trains on beta * KL, with no prior (module doc); a name
+    other than 'kl' and 'cs' raises.
     """
     check_latent_reg(cfg)
     n = windows.shape[0]
@@ -162,9 +170,12 @@ def make_sweep_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
             eps = torch.stack([
                 torch.randn((batch.shape[-3], model.hidden), generator=g,
                             device=g.device) for g in gens])
-        params, metrics = _phase1_update(model, cfg, state.params, parents,
-                                         batch, eps.to(batch.device),
-                                         forward=forward)
+        # No prior, whatever cfg.latent_reg says: the JAX package's sweep
+        # (vae_connexe_tpu/parallel/seed_sweep.py:37).
+        params, _, metrics = _phase1_update(model, cfg, state.params, None,
+                                            parents, batch,
+                                            eps.to(batch.device),
+                                            forward=forward)
         best_params, best_loss = _track_best(state, state.params,
                                              metrics["mean_loss"])
         return SweepState(params=params, best_params=best_params,

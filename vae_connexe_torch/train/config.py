@@ -1,10 +1,9 @@
 """Training configuration (port of ``vae_connexe_tpu/train/config.py``).
 
 Plain dataclasses with the reference's names, order and defaults.
-``latent_reg='cs'`` (the CS-divergence hybrid) constructs, so that every
-entry of the experiments table builds; the trainers raise on it until the
-CS divergence is ported.  ``CSRAETrainConfig`` is data for the
-experiments table: its trainer is not ported yet.
+``latent_reg`` is ``'kl'`` (beta * KL) or ``'cs'`` (``lambda_cs`` times
+the CS divergence against a learnable GMM prior of ``gmm_components``
+components, ``losses/cs_divergence.py``).
 """
 
 from __future__ import annotations
@@ -75,8 +74,8 @@ class WInTrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CSRAETrainConfig:
-    """Trainer config of the MixtureCSRAE (its trainer is not ported
-    yet)."""
+    """Model and trainer config of the MixtureCSRAE
+    (``train/csrae_trainer.py::fit_csrae``)."""
 
     hidden_dims: tuple[int, ...] = (400,)
     latent_dim: int = 20
@@ -89,11 +88,7 @@ class CSRAETrainConfig:
 
 
 def check_latent_reg(cfg) -> None:
-    """Raise where training would start on a latent regulariser the port
-    does not have."""
-    if cfg.latent_reg == "cs":
-        raise NotImplementedError(
-            "latent_reg='cs' (CS divergence against a GMM prior) is not "
-            "ported yet (ROADMAP A4); the port trains with latent_reg='kl'")
-    if cfg.latent_reg != "kl":
+    """Raise where training would start on a latent regulariser that is
+    neither 'kl' nor 'cs'."""
+    if cfg.latent_reg not in ("kl", "cs"):
         raise ValueError(f"unknown latent_reg {cfg.latent_reg!r}")

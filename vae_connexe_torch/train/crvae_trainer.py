@@ -2,14 +2,17 @@
 ``vae_connexe_tpu/train/crvae_trainer.py``).
 
 Phase 1, structure learning: each step computes the loss (sum of the
-per-variable MSEs + ridge + beta * KL) and its gradient at the incoming
-parameters, takes a manual SGD step, projects the head input weights onto
-the parents mask and group-soft-thresholds their columns; the surviving
-columns are the learned Granger graph.  Phase 2, generation: the same
-step with lam = 0 on the pruned CRVAE under the binary GC mask, plus the
-error VAE trained by Adam on the detached residuals.  The best model is
-the one with the lowest ``mean_loss``, snapshotted at the parameters that
-achieved it.
+per-variable MSEs + ridge + the latent regulariser) and its gradient at
+the incoming parameters, takes a manual SGD step, projects the head input
+weights onto the parents mask and group-soft-thresholds their columns;
+the surviving columns are the learned Granger graph.  The latent
+regulariser is beta * KL, or with ``latent_reg='cs'`` ``lambda_cs`` times
+the mean CS divergence against a learnable GMM prior, which the state
+carries (``prior``) and each step moves by plain SGD at ``cfg.lr``.
+Phase 2, generation: the same step with lam = 0 on the pruned CRVAE under
+the binary GC mask, plus the error VAE trained by Adam on the detached
+residuals.  The best model is the one with the lowest ``mean_loss``,
+snapshotted at the parameters that achieved it.
 
 PyTorch runs eagerly, so each fit is a Python loop over steps in chunks of
 ``check_every`` (``_run_chunked``, shared by both fits); the host reads the
@@ -20,7 +23,8 @@ one-head launches).  The whole phase-1 step in one kernel family (B3) is
 the separate entry point ``ops.cuda_step.fused_phase1_step``, as in the
 JAX package, where ``fit_phase1`` does not call it either.
 
-Random draws come from the ``torch.Generator`` a fit is given: a phase-1
+Random draws come from the ``torch.Generator`` a fit is given: with
+``latent_reg='cs'`` a fit first draws the prior's means, then a phase-1
 step draws its batch indices first and its reparameterisation epsilon
 second (with a fixed batch, only epsilon); a phase-2 step draws the
 indices, epsilon (B, H), then the error VAE's epsilon (B, Z), the order of
@@ -43,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from vae_connexe_torch.losses.cs_divergence import cs_divergence_gmm
 from vae_connexe_torch.losses.kl import kl_gaussian
 from vae_connexe_torch.losses.penalties import ridge_value
 from vae_connexe_torch.models.crvae import (
@@ -52,6 +57,7 @@ from vae_connexe_torch.models.crvae import (
     no_reduced_precision,
 )
 from vae_connexe_torch.models.error_vae import ErrorVAE, ErrorVAEParams
+from vae_connexe_torch.models.gmm_prior import GMMPrior, init_gmm_prior
 from vae_connexe_torch.ops.cuda_rollout import (
     crvae_free_run_fused,
     errvae_sample_fused,
@@ -64,6 +70,7 @@ from vae_connexe_torch.train.config import (
     Phase2Config,
     check_latent_reg,
 )
+from vae_connexe_torch.utils import debug
 from vae_connexe_torch.utils.checkpoint import TrainCheckpointer
 from vae_connexe_torch.utils.layers import Dense
 from vae_connexe_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -74,6 +81,7 @@ KERNELS = ("lax", "fused", "auto")
 @dataclasses.dataclass
 class Phase1State:
     params: CRVAEParams
+    prior: Optional[GMMPrior]      # present when latent_reg == 'cs'
     best_params: CRVAEParams
     best_loss: torch.Tensor        # 0-d
     generator: torch.Generator
@@ -85,6 +93,7 @@ class Phase2State:
     params: CRVAEParams
     err_params: ErrorVAEParams
     err_opt: AdamState
+    prior: Optional[GMMPrior]
     best_params: CRVAEParams
     best_loss: torch.Tensor        # 0-d
     generator: torch.Generator
@@ -97,16 +106,18 @@ def _no_mesh(mesh, what: str) -> None:
             f"meshed {what} fits are not ported yet (ROADMAP A7)")
 
 
-def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
+def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams,
+                prior: Optional[GMMPrior], batch: torch.Tensor,
                 eps: torch.Tensor, parents: torch.Tensor, beta: float,
                 recurrences=None, forward=None):
     """Smooth loss: sum over variables of each variable's MSE + ridge +
-    beta * KL.  Returns (loss, aux).
+    the latent regulariser, beta * KL without a prior and
+    ``cfg.lambda_cs`` * mean D_CS(q || GMM) with one.  Returns (loss, aux).
 
     ``forward(params, batch, eps, parents)`` stands in for
-    ``model.forward``: a seed-stacked one (``parallel/seed_sweep.py``)
-    gives a leading seed axis to its outputs and to every term here, one
-    loss a seed.
+    ``model.forward``: a seed-stacked one (``parallel/seed_sweep.py``,
+    which has no prior) gives a leading seed axis to its outputs and to
+    every term here, one loss a seed.
     """
     if forward is None:
         pred, mu, logvar = model.forward(params, batch, eps, parents,
@@ -118,7 +129,12 @@ def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams, batch: torch.Tensor,
     recon = torch.mean((pred - target) ** 2, dim=(-3, -2)).sum(dim=-1)
     ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge,
                         keep=keep)
-    reg = beta * kl_gaussian(mu, logvar, keep=keep)
+    if prior is None:
+        reg = beta * kl_gaussian(mu, logvar, keep=keep)
+    else:
+        reg = cfg.lambda_cs * cs_divergence_gmm(
+            mu, torch.exp(logvar), prior.mu, prior.var,
+            variant=cfg.cs_variant).mean()
     loss = recon + ridge + reg
     aux = {"recon": recon, "ridge": ridge, "latent_reg": reg,
            "mean_loss": (recon + ridge) / model.p, "pred": pred}
@@ -143,6 +159,16 @@ def _chunk_lengths(max_iter: int, check_every: int) -> list[int]:
     return [check_every] * full + ([rem] if rem else [])
 
 
+def _init_prior(cfg, model: CRVAE, generator: torch.Generator,
+                device) -> Optional[GMMPrior]:
+    """The GMM prior of a ``latent_reg='cs'`` fit (latent width
+    ``model.hidden``), drawn from ``generator``; None for 'kl'."""
+    if cfg.latent_reg != "cs":
+        return None
+    return init_gmm_prior(generator, cfg.gmm_components, model.hidden,
+                          device=device)
+
+
 def _make_checkpointer(checkpoint_dir, checkpoint_every):
     if checkpoint_dir is None:
         return None
@@ -159,13 +185,17 @@ def _restore_if_resuming(ckpt, state, resume: bool):
     return state, None
 
 
-def _stepper(step):
+def _stepper(step, phase: str):
     """``run_chunk(state, length)``: ``length`` steps; returns the state
-    and the last step's metrics."""
+    and the last step's metrics.  Under nan debugging each step's metrics
+    and updated parameters are checked (``utils/debug.py``)."""
     def run_chunk(state, length):
         last = {}
         for _ in range(length):
-            state, last = step(state)
+            with debug.at_step(f"{phase} step {state.step + 1}"):
+                state, last = step(state)
+                debug.check_finite("the metrics and updated parameters",
+                                   last, state.params, state.prior)
         return state, last
     return run_chunk
 
@@ -225,31 +255,46 @@ def _track_best(state, candidate_params: CRVAEParams,
     return best_params, torch.minimum(mean_loss, state.best_loss)
 
 
+def _live(tree):
+    """A copy of ``tree`` (None stays None) whose leaves require grad."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def _sgd(tree, grads, lr: float):
+    """``tree`` - lr * ``grads`` leaf by leaf (None stays None)."""
+    return tree_map(lambda p, g: p - lr * g, tree, tree_unflatten(tree, grads))
+
+
 def _phase1_update(model: CRVAE, cfg: Phase1Config, params: CRVAEParams,
-                   parents: torch.Tensor, batch: torch.Tensor,
-                   eps: torch.Tensor, recurrences=None, forward=None):
+                   prior: Optional[GMMPrior], parents: torch.Tensor,
+                   batch: torch.Tensor, eps: torch.Tensor, recurrences=None,
+                   forward=None):
     """One phase-1 update on a given batch and epsilon: the loss and its
-    gradient at ``params``, SGD on every leaf, then the mask projection and
-    the prox.  Returns (new params, metrics of 0-d tensors).  With a
-    seed-stacked ``forward`` (``_crvae_loss``) the parameters carry a
-    leading seed axis: one backward of the sum of the seeds' losses gives
-    each seed its own gradient, since their parameters are disjoint, and
-    the metrics are (S,)."""
+    gradient at ``params`` and ``prior``, SGD on every leaf of both, then
+    the mask projection and the prox.  Returns (new params, new prior,
+    metrics of 0-d tensors).  With a seed-stacked ``forward``
+    (``_crvae_loss``) the parameters carry a leading seed axis and there
+    is no prior: one backward of the sum of the seeds' losses gives each
+    seed its own gradient, since their parameters are disjoint, and the
+    metrics are (S,)."""
     with torch.enable_grad():
-        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss, aux = _crvae_loss(model, cfg, live, batch, eps, parents,
-                                cfg.beta, recurrences, forward)
-        grads = torch.autograd.grad(loss.sum(), tree_leaves(live))
+        live, live_prior = _live(params), _live(prior)
+        loss, aux = _crvae_loss(model, cfg, live, live_prior, batch, eps,
+                                parents, cfg.beta, recurrences, forward)
+        debug.check_finite("the loss", loss)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss.sum(),
+                                    leaves + tree_leaves(live_prior))
     with torch.no_grad():
-        new = tree_map(lambda p, g: p - cfg.lr * g, params,
-                       tree_unflatten(params, grads))
+        new = _sgd(params, grads[:len(leaves)], cfg.lr)
+        new_prior = _sgd(prior, grads[len(leaves):], cfg.lr)
         new = _project_and_prox(new, parents, cfg.lam, cfg.lr)
         usage = (torch.linalg.vector_norm(new.heads.w_ih, dim=-2) > 0
                  ).float().mean(dim=(-2, -1))
     metrics = {"loss": loss.detach(), "recon": aux["recon"].detach(),
                "latent_reg": aux["latent_reg"].detach(),
                "mean_loss": aux["mean_loss"].detach(), "variable_usage": usage}
-    return new, metrics
+    return new, new_prior, metrics
 
 
 def default_fixed_batch(windows: torch.Tensor,
@@ -272,9 +317,10 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     fixed batch is set or ``batch`` is given), then epsilon (B, H) (unless
     ``eps`` is given).  Without a ``fixed_batch`` and with
     ``cfg.resample_batches`` false, the fixed batch is one random gather
-    drawn here from a generator seeded 0.  The best-model pick sees the
-    pre-update parameters; ``variable_usage`` is read after the update.
-    ``cfg.latent_reg='cs'`` raises (ROADMAP A4).
+    drawn here from a generator seeded 0.  The latent regulariser follows
+    ``state.prior`` (KL without one), as the JAX package's step does.  The
+    best-model pick sees the pre-update parameters; ``variable_usage`` is
+    read after the update.
     """
     check_latent_reg(cfg)
     n = windows.shape[0]
@@ -294,13 +340,14 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
         if eps is None:
             eps = torch.randn((batch.shape[0], model.hidden), generator=g,
                               device=g.device)
-        params, metrics = _phase1_update(model, cfg, state.params, parents,
-                                         batch, eps.to(batch.device))
+        params, prior, metrics = _phase1_update(
+            model, cfg, state.params, state.prior, parents, batch,
+            eps.to(batch.device))
         best_params, best_loss = _track_best(state, state.params,
                                              metrics["mean_loss"])
-        return Phase1State(params=params, best_params=best_params,
-                           best_loss=best_loss, generator=g,
-                           step=state.step + 1), metrics
+        return Phase1State(params=params, prior=prior,
+                           best_params=best_params, best_loss=best_loss,
+                           generator=g, step=state.step + 1), metrics
 
     return step
 
@@ -316,8 +363,10 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
     floats).
 
     ``windows`` (N, T, p) lie on the device the fit runs on.  With
-    ``cfg.resample_batches`` false, the one fixed batch is drawn from
-    ``generator`` before the first step.  The host reads the metrics once
+    ``cfg.latent_reg='cs'`` the GMM prior (``cfg.gmm_components``
+    components of width ``model.hidden``) is drawn from ``generator``
+    first; with ``cfg.resample_batches`` false, the one fixed batch is
+    drawn from it next, before the first step.  The host reads the metrics once
     per chunk of ``cfg.check_every`` steps; ``callback(step, state,
     metrics)`` fires then.
 
@@ -330,19 +379,20 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
     """
     check_latent_reg(cfg)
     _no_mesh(mesh, "phase-1")
+    prior = _init_prior(cfg, model, generator, windows.device)
     fixed_batch = None
     if not cfg.resample_batches:
         idx = torch.randint(0, windows.shape[0], (cfg.batch_size,),
                             generator=generator, device=generator.device)
         fixed_batch = windows[idx.to(windows.device)]
     step = make_phase1_step(model, cfg, windows, parents, fixed_batch)
-    state = Phase1State(params=params, best_params=params,
+    state = Phase1State(params=params, prior=prior, best_params=params,
                         best_loss=torch.tensor(float("inf"),
                                                device=windows.device),
                         generator=generator, step=0)
     ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
-    state, metrics = _run_chunked(_stepper(step), state, cfg, ckpt,
+    state, metrics = _run_chunked(_stepper(step, "phase1"), state, cfg, ckpt,
                                   resume_metrics, verbose, log_fn, callback,
                                   "phase1")
     return state.best_params, state, metrics
@@ -353,16 +403,15 @@ def _phase2_update(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
                    batch: torch.Tensor, eps: torch.Tensor,
                    eps_err: torch.Tensor):
     """One phase-2 update on a given batch and draws: one backward of the
-    CRVAE loss plus the error VAE's loss over the leaves of both models,
-    SGD and the mask projection on the CRVAE, Adam on the error VAE.
-    Returns (params, err_params, err_opt, metrics of 0-d tensors)."""
+    CRVAE loss plus the error VAE's loss over the leaves of both models
+    and of the prior, SGD and the mask projection on the CRVAE, SGD on the
+    prior, Adam on the error VAE.  Returns (params, prior, err_params,
+    err_opt, metrics of 0-d tensors)."""
     with torch.enable_grad():
-        live = tree_map(lambda t: t.detach().requires_grad_(True),
-                        state.params)
-        err_live = tree_map(lambda t: t.detach().requires_grad_(True),
-                            state.err_params)
-        main_loss, aux = _crvae_loss(model, cfg, live, batch, eps, parents,
-                                     cfg.beta)
+        live, live_prior = _live(state.params), _live(state.prior)
+        err_live = _live(state.err_params)
+        main_loss, aux = _crvae_loss(model, cfg, live, live_prior, batch, eps,
+                                     parents, cfg.beta)
         # The gradient firewall: the error VAE trains on the residuals as
         # data, so its loss sends no gradient into the CRVAE.
         error = (batch[:, model.enc_len:, :] - aux["pred"]).detach()
@@ -370,22 +419,26 @@ def _phase2_update(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
         loss_e = torch.mean((recon_e - error) ** 2)
         kl_e = kl_gaussian(mu_e, logvar_e)
         smooth_e = loss_e + cfg.beta_error * kl_e
+        debug.check_finite("the loss", main_loss, smooth_e)
         leaves, err_leaves = tree_leaves(live), tree_leaves(err_live)
+        prior_leaves = tree_leaves(live_prior)
         # The two losses are gradient-disjoint, so one backward of their
         # sum serves both optimisers.
-        grads = torch.autograd.grad(main_loss + smooth_e, leaves + err_leaves)
+        grads = torch.autograd.grad(main_loss + smooth_e,
+                                    leaves + prior_leaves + err_leaves)
     with torch.no_grad():
-        g_params = tree_unflatten(state.params, grads[:len(leaves)])
-        params = tree_map(lambda p, g: p - cfg.lr * g, state.params, g_params)
+        n, m = len(leaves), len(leaves) + len(prior_leaves)
+        params = _sgd(state.params, grads[:n], cfg.lr)
         params = _project_and_prox(params, parents, 0.0, cfg.lr)
-        g_err = tree_unflatten(state.err_params, grads[len(leaves):])
+        prior = _sgd(state.prior, grads[n:m], cfg.lr)
+        g_err = tree_unflatten(state.err_params, grads[m:])
         err_params, err_opt = adam_update(g_err, state.err_opt,
                                           state.err_params, cfg.lr_error)
     metrics = {"recon": aux["recon"].detach(),
                "latent_reg": aux["latent_reg"].detach(),
                "mean_loss": aux["mean_loss"].detach(),
                "loss_e": smooth_e.detach(), "kl_e": kl_e.detach()}
-    return params, err_params, err_opt, metrics
+    return params, prior, err_params, err_opt, metrics
 
 
 def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
@@ -396,11 +449,12 @@ def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
     Each call draws from ``state.generator`` the batch indices (unless
     ``batch`` is given), then epsilon (B, H) (unless ``eps``), then the
     error VAE's epsilon (B, Z) (unless ``eps_err``).  The loss is the CRVAE
-    loss at beta = ``cfg.beta`` plus the error VAE's ``mean((recon -
-    error)^2) + beta_error * KL`` on the detached residuals; SGD with the
-    mask projection (lam = 0) updates the CRVAE, Adam at ``cfg.lr_error``
-    the error VAE.  The best-model pick sees the pre-update CRVAE params.
-    ``cfg.latent_reg='cs'`` raises (ROADMAP A4).
+    loss (its latent regulariser beta * KL at ``cfg.beta``, or the CS
+    divergence against ``state.prior`` when there is one) plus the error
+    VAE's ``mean((recon - error)^2) + beta_error * KL`` on the detached
+    residuals; SGD with the mask projection (lam = 0) updates the CRVAE,
+    SGD the prior, Adam at ``cfg.lr_error`` the error VAE.  The best-model
+    pick sees the pre-update CRVAE params.
     """
     check_latent_reg(cfg)
     n = windows.shape[0]
@@ -419,15 +473,15 @@ def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
         if eps_err is None:
             eps_err = torch.randn((b, err_model.latent), generator=g,
                                   device=g.device)
-        params, err_params, err_opt, metrics = _phase2_update(
+        params, prior, err_params, err_opt, metrics = _phase2_update(
             model, err_model, cfg, state, parents, batch,
             eps.to(batch.device), eps_err.to(batch.device))
         best_params, best_loss = _track_best(state, state.params,
                                              metrics["mean_loss"])
         return Phase2State(params=params, err_params=err_params,
-                           err_opt=err_opt, best_params=best_params,
-                           best_loss=best_loss, generator=g,
-                           step=state.step + 1), metrics
+                           err_opt=err_opt, prior=prior,
+                           best_params=best_params, best_loss=best_loss,
+                           generator=g, step=state.step + 1), metrics
 
     return step
 
@@ -443,23 +497,27 @@ def fit_phase2(model: CRVAE, err_model: ErrorVAE, params: CRVAEParams,
     params of the lowest ``mean_loss``, the final error-VAE params, the
     final state, the last metrics as floats).
 
-    ``parents`` is the binary GC mask from phase 1, held fixed.  Every step
-    resamples its batch from ``generator``.  ``callback``, checkpoints and
-    ``resume`` as in ``fit_phase1``; a snapshot carries both models, Adam's
-    state, the best params and loss, the generator's state and the step.
+    ``parents`` is the binary GC mask from phase 1, held fixed.  With
+    ``cfg.latent_reg='cs'`` a fresh GMM prior is drawn from ``generator``
+    first, as in ``fit_phase1``.  Every step resamples its batch from
+    ``generator``.  ``callback``, checkpoints and ``resume`` as in
+    ``fit_phase1``; a snapshot carries both models, Adam's state, the
+    prior, the best params and loss, the generator's state and the step.
     ``mesh`` (ROADMAP A7) is not ported yet and raises.
     """
     check_latent_reg(cfg)
     _no_mesh(mesh, "phase-2")
+    prior = _init_prior(cfg, model, generator, windows.device)
     step = make_phase2_step(model, err_model, cfg, windows, parents)
     state = Phase2State(params=params, err_params=err_params,
-                        err_opt=adam_init(err_params), best_params=params,
+                        err_opt=adam_init(err_params), prior=prior,
+                        best_params=params,
                         best_loss=torch.tensor(float("inf"),
                                                device=windows.device),
                         generator=generator, step=0)
     ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
-    state, metrics = _run_chunked(_stepper(step), state, cfg, ckpt,
+    state, metrics = _run_chunked(_stepper(step, "phase2"), state, cfg, ckpt,
                                   resume_metrics, verbose, log_fn, callback,
                                   "phase2")
     return state.best_params, state.err_params, state, metrics

@@ -49,6 +49,7 @@ from vae_connexe_torch.ops.gru import GRUParams
 from vae_connexe_torch.optim.adam import AdamState, adam_init, adam_update
 from vae_connexe_torch.optim.prox import PROX_FNS
 from vae_connexe_torch.train.config import WInTrainConfig
+from vae_connexe_torch.utils import debug
 from vae_connexe_torch.utils.layers import Dense
 from vae_connexe_torch.utils.tree import (
     stack_trees,
@@ -128,6 +129,7 @@ class WInTrainer:
             loss, aux = self._loss(live, batch[:, :, :tau],
                                    batch[:, :, tau:2 * tau], eps_z, eps_e,
                                    stage)
+            debug.check_finite("the loss", loss)
             # Stage I leaves the error VAE out of the loss: its gradients
             # are zeros, as JAX's, so its Adam moments stay zero and its
             # leaves unchanged.
@@ -233,7 +235,7 @@ class WInTrainer:
         done = 0
         while done < epochs:
             k = min(epochs_per_dispatch, epochs - done)
-            for _ in range(k):
+            for epoch in range(done, done + k):
                 perm = torch.stack([
                     torch.randperm(n_win, generator=g, device=g.device)
                     for g in gens]).to(windows.device)
@@ -242,8 +244,12 @@ class WInTrainer:
                     batch = windows[perm[:, i * bs:(i + 1) * bs]]
                     eps_z, eps_e = self._draws(gens, bs, stage,
                                                windows.device)
-                    params, opt, met = self._update(stage, params, opt, batch,
-                                                    eps_z, eps_e)
+                    with debug.at_step(f"stage{stage} epoch {epoch} batch "
+                                       f"{i}"):
+                        params, opt, met = self._update(stage, params, opt,
+                                                        batch, eps_z, eps_e)
+                        debug.check_finite(
+                            "the metrics and updated parameters", met, params)
                     sums = met if sums is None else {
                         key: sums[key] + v for key, v in met.items()}
                 if sums is not None:

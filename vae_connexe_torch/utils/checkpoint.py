@@ -1,9 +1,10 @@
 """Checkpoints and resume (port of ``vae_connexe_tpu/utils/checkpoint.py``).
 
 A checkpoint is one file written by ``torch.save`` and read back with
-``torch.load(..., weights_only=True)``: the state's tree (dataclasses and
-dicts of tensors, ints and floats) as nested dicts of CPU tensors,
-and each ``torch.Generator`` as its ``get_state()`` bytes, CPU or CUDA.
+``torch.load(..., weights_only=True)``: the state's tree (dataclasses,
+dicts and tuples of tensors, ints, floats and None, such as an absent
+prior) as nested dicts and lists of CPU tensors, and each
+``torch.Generator`` as its ``get_state()`` bytes, CPU or CUDA.
 Restoring walks a template of the same structure and puts every tensor
 back on the template's device.  The binary GC matrix, the phase-1 to
 phase-2 handoff, is saved beside a checkpoint as ``<path>.gc.npy``.
@@ -36,11 +37,13 @@ def _saveable(tree):
                 for f in dataclasses.fields(tree)}
     if isinstance(tree, dict):
         return {k: _saveable(v) for k, v in tree.items()}
+    if type(tree) is tuple:
+        return [_saveable(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     if isinstance(tree, torch.Generator):
         return {_GEN: tree.get_state()}
-    if isinstance(tree, (int, float)):
+    if tree is None or isinstance(tree, (int, float)):
         return tree
     raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
 
@@ -59,6 +62,16 @@ def _restore(template, saved, where: str = "state"):
         vals = {n: _restore(get(n), saved[n], f"{where}.{n}") for n in names}
         return type(template)(**vals) if dataclasses.is_dataclass(
             template) else vals
+    if type(template) is tuple:
+        if not isinstance(saved, list) or len(saved) != len(template):
+            raise ValueError(f"{where}: expected {len(template)} entries")
+        return tuple(_restore(t, s, f"{where}[{i}]")
+                     for i, (t, s) in enumerate(zip(template, saved)))
+    if template is None or saved is None:
+        if template is not saved:
+            raise ValueError(f"{where}: expected {template!r}, got "
+                             f"{type(saved).__name__}")
+        return None
     if isinstance(template, torch.Tensor):
         if tuple(saved.shape) != tuple(template.shape):
             raise ValueError(f"{where}: expected shape {tuple(template.shape)},"

@@ -1,4 +1,6 @@
-"""Maps over nested parameter dataclasses (the port's pytrees)."""
+"""Maps over nested parameter dataclasses and tuples of them (the port's
+pytrees).  None is an empty tree, as in JAX: an absent prior has no
+leaves and maps to None."""
 
 from __future__ import annotations
 
@@ -16,7 +18,12 @@ def _fields(cls) -> tuple[str, ...] | None:
 
 
 def tree_leaves(tree) -> list:
-    """The tensors of a nested dataclass, in field order."""
+    """The tensors of a nested dataclass, in field order (a tuple's in
+    its order)."""
+    if tree is None:
+        return []
+    if type(tree) is tuple:
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     names = _fields(type(tree))
     if names is None:
         return [tree]
@@ -26,6 +33,11 @@ def tree_leaves(tree) -> list:
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf to ``tree`` and the same-shaped ``rest``;
     returns a tree of the same classes."""
+    if tree is None:
+        return None
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     names = _fields(type(tree))
     if names is None:
         return fn(tree, *rest)
