@@ -66,6 +66,18 @@
      stage-I step and 4 + 4 a stage-II step at S = 1, 3, 8; a 3-seed
      ``fit_many`` against the three single ``fit``s on the card (same
      tolerance), bitwise repeatable.
+   - K1/K2's bf16 instantiations (bf16 weights and carries, float32
+     products) at the serving width (p=20, H=64) and lorenz96_scaled's
+     (p=40, H=128), B = 3072 and 1, against their plain bf16 versions
+     (``bf16_agreement``): every output element a bf16 value, at least
+     BF16_SAME of them equal to the plain version's bit for bit, each
+     within BF16_TOL * (|plain| + 1); the float32 kernels on the same
+     inputs fail that check (the control); two calls bitwise
+     equal, on the route the plan names (printed for both storage types:
+     in bf16 K2 at H=128 is resident, K1 there stays streamed); the bf16
+     generation against the float32 kernels' on the same draws within the
+     JAX package's bounds (tests/test_serve_dtype.py); timed by CUDA
+     events beside the float32 kernels and the bf16 bound.
    - B1/B2 at the sweep's call sites: five steps of a 3-seed sweep at
      lorenz96_crvae's width (the encoder one 3-head launch, the decoder
      one 30-head launch a step) against each seed's single-seed step loop
@@ -79,7 +91,9 @@
      every launch on the resident route;
    - serving at lorenz96_scaled's width (p=40, H=128, batch 512): three
      generations through the loaded artifact, every launch on the streamed
-     route, held against the plain versions;
+     route, held against the plain versions; three through its bf16
+     artifact (K1 bf16 streamed, K2 bf16 resident), held against the
+     plain bf16 versions;
    - training: ``fit_phase1`` on a Lorenz-96 series made on the card (p=20,
      T=2048, windows of 20) at H=64, B=256 for 300 steps: 2 B1 and 2 B2
      launches a step, every recurrence on the kernel route, a finite loss
@@ -108,7 +122,13 @@
    - the port's own weights served: ``cli export`` of the run's
      ``ckpt_phase2``, ``GeneratorServer`` answering three ``/generate``
      requests on the resident route, held against the plain versions on
-     the same draws;
+     the same draws; the same for ``--serve-dtype bfloat16`` (bf16
+     launches only, /meta's serve_dtype, held against the plain bf16
+     version by ``trained_ok`` beside a plain version with exact sums,
+     equal to in-process bf16 generation); both artifacts (``torch.export`` programs over the
+     kernels' custom ops) loaded in a fresh process that must import no
+     model, trainer or config module, the float32 samples within 1e-4 of
+     in-process generation;
    - the sweep: ``cli sweep`` at its defaults (lorenz96_crvae's width, 8
      seeds of 1000 steps): exactly 2 B1 + 2 B2 launches a sweep step,
      every seed's AUROC against the circulant truth at least the JAX
@@ -138,12 +158,19 @@
      ``cli generate --context`` on windows of the series, and
      ``GeneratorServer`` answering three context requests (equal to
      ``WInCRVAE.generate`` on the same seed within 1e-5) and refusing a
-     malformed context with a 400;
+     malformed context with a 400; its float32 and bf16 artifacts loaded
+     in a fresh process (no model or trainer module), each within 1e-5 of
+     ``WInCRVAE.generate`` at its dtype;
    - win discovery: ``cli discover --family win --prox row --seeds 8`` on
      a coupled-Henon CSV made on the card, 200 stage-I epochs: 2 + 2
      launches a step of the one folded fit; the seed-median scores'
      off-diagonal AUROC at least the JAX package's at the same counts
      minus the margin.
+   - out of core: ``cli run lorenz96_crvae`` at OOC_STEPS steps a phase in
+     memory and with ``--out-of-core`` (the series in a file behind the
+     native window loader): results, both checkpoints and launches bit
+     for bit equal; a streamed phase 1 from that file killed at half and
+     resumed, bitwise the uninterrupted streamed fit and ``fit_phase1``.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
@@ -161,7 +188,11 @@
    trainer's stage-I and stage-II steps/s at henon6d_win's shapes and
    their busy share, ``fit_many``'s seed-steps/s at S=8, B1/B2 at the W_in
    decoder's shapes (6 and 48 heads) beside their bound, and the win
-   generation's latency at B=8 and 256 with its kernels a step.
+   generation's latency at B=8 and 256 with its kernels a step; the
+   exported program's ``fn(seed)`` host time beside in-process
+   generation's; a streamed phase-1 fit at p=20 from an 800 MB series
+   file (windows of 16 GB in memory) beside the in-memory fit, steps/s
+   and ``gather_wait_s``.
 6. Print one JSON line of per-kernel results, the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -172,6 +203,7 @@ device is present.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import io
 import json
 import math
@@ -256,9 +288,39 @@ CS_NAME, CS_B1, CS_B2 = "lorenz96_crcsrae", 2048, 1024
 JAX_CS_AUROC, JAX_CSRAE_ACC, A4_MARGIN = 0.9875, 0.881, 0.05
 CSRAE_RATE_EPOCHS, VRAE_RATE_EPOCHS = 5, 50
 VRAE_LINE = r"^\[(vrae) epoch=(\d+)\] total=([-\d.e+]+)"
+# bf16 serving (K1/K2's bf16 instantiations, bf16 weights and carries):
+# a kernel's output against its plain bf16 version on the same inputs
+# (bf16_agreement).  Every output element is a bf16 value (the emitted x
+# is a bf16 carry); at least BF16_SAME of the elements equal the plain
+# version's bit for bit; each is within BF16_TOL * (|plain| + 1).  The two
+# sum the products in other orders, so a sum that lands on the other side
+# of a bf16 rounding moves that carry by one bf16 step.  On an H100 with
+# random weights (chip_smoke.py runs, PERF.md): 0.962-1.0 of the elements
+# bit-equal and at most 2.58e-3 of (|plain| + 1) apart over BF16_SHAPES,
+# while bf16 generation lies up to 6.1e-3 from the float32 kernels on the
+# same draws.  The float32 kernel on the same inputs is the control and
+# must fail the check: as it is (no bf16 values) and rounded to bf16 once
+# at the output (0.44-0.59 bit-equal).  The bf16 samples are
+# also held against the float32 kernels' within the JAX package's bounds
+# (tests/test_serve_dtype.py: elementwise 0.15 * (max |f32| + 1), each
+# series' mean within 0.02, its standard deviation rtol 0.05 / atol 0.02).
+# A trained generator (lorenz96_crvae's weights) carries a flipped
+# rounding on through its later steps (2.08e-2 after 21 steps), so there
+# each row is held to BF16_TOL at the step where it first departs from
+# the plain version, and the rows beyond BF16_TOL to at most twice those
+# of a second plain version that sums exactly (float64) before each bf16
+# rounding: summing in another order departs that far by itself.
+BF16_TOL, BF16_SAME = 2.0 ** -8, 0.9
+BF16_SHAPES = ((P, H, SERVE_B), (P, H, 1), (SCALED_P, SCALED_H, SERVE_B),
+               (SCALED_P, SCALED_H, 1))
+# Out of core: cli run lorenz96_crvae in memory and --out-of-core at
+# OOC_STEPS a phase; the throughput fit at p=20 from a file of OOC_ROWS
+# steps (a Lorenz-96 simulation of OOC_SIM steps tiled: 800 MB, whose
+# windows of 20 would take 16 GB), OOC_RATE_STEPS steps a fit.
+OOC_STEPS, OOC_ROWS, OOC_SIM, OOC_RATE_STEPS = 300, 10_000_000, 20_000, 400
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth.
-F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# cores, bf16 in them, and HBM3 bandwidth.
+F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 
 
 def log(*a):
@@ -273,17 +335,19 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rollout_cost(b, t, heads, hidden, d, outs, noise: bool, x0: bool):
+def rollout_cost(b, t, heads, hidden, d, outs, noise: bool, x0: bool,
+                 weight_bytes: int = 4):
     """(flops, bytes) the card must at least spend on one rollout launch:
     the multiply-adds of the input, hidden and readout products (the gate
     math, ~2% more, is not counted), and every input read once and the
-    output written once."""
+    output written once; the weights at ``weight_bytes`` each (2 for the
+    bf16 instantiations), the rest float32."""
     g = 3 * hidden
     flops = 2 * b * t * heads * (g * d + g * hidden + outs * hidden)
     weights = heads * (g * d + g * hidden + 2 * g + outs * hidden + outs)
-    elems = (weights + b * hidden + (b * d if x0 else 0)
+    elems = (b * hidden + (b * d if x0 else 0)
              + (b * t * d if noise else 0) + b * t * d)
-    return flops, 4 * elems
+    return flops, 4 * elems + weight_bytes * weights
 
 
 def gru_cost(p, b, t, d, hidden, backward: bool, per_head: bool = False):
@@ -326,8 +390,8 @@ def step_cost(p, b, t, e, hidden):
     return flops, 4 * (b * t * p + b * hidden + p * p + 2 * params + 5)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+def bound(flops, nbytes, peak=F32_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -418,6 +482,16 @@ def ptxas_summary(report: str) -> list[str]:
             for n, d in zip(names, shown)]
 
 
+def route_counts(counts=None, **nonzero) -> dict:
+    """The whole rollout count dict ``counts`` (default
+    ``cuda_rollout.ROUTE_LAUNCHES``: both kernels, both storage types and
+    both routes) a phase should leave: ``nonzero``'s counts, 0 elsewhere."""
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    return {k: nonzero.get(k, 0)
+            for k in (cr.ROUTE_LAUNCHES if counts is None else counts)}
+
+
 def make_models(p, hidden, seed, dev):
     import torch
 
@@ -428,19 +502,21 @@ def make_models(p, hidden, seed, dev):
     return model, err, model.init(g, dev), err.init(g, dev), g
 
 
-def rollout_plan_line(kind, p, b, d, hidden, dev) -> str:
-    """The plan a rollout of these shapes takes on ``dev``, with the
-    card's cudaOccupancyMaxActiveClusters for a resident K1."""
+def rollout_plan_line(kind, p, b, d, hidden, dev, elem=4) -> str:
+    """The plan a rollout of these shapes takes on ``dev`` with weights of
+    ``elem`` bytes (2: bf16), with the card's
+    cudaOccupancyMaxActiveClusters for a resident K1."""
     from vae_connexe_torch.ops import cuda_rollout as cr
 
-    plan, n_clusters = cr._plan(kind, p, b, d, hidden, dev)
-    line = (f"plan {kind} p={p} H={hidden} B={b}: route={plan.route} "
+    plan, n_clusters = cr._plan(kind, p, b, d, hidden, dev, elem)
+    line = (f"plan {kind}{'' if elem == 4 else ' bf16'} p={p} H={hidden} "
+            f"B={b}: route={plan.route} "
             f"cluster={plan.cluster} heads_per_block={plan.heads_per_block} "
             f"bt={plan.bt} split={plan.split} threads={plan.threads} "
             f"smem={plan.smem}")
     if kind == "crvae" and plan.route == "resident":
         line += (f" n_clusters={n_clusters} cudaOccupancyMaxActiveClusters="
-                 f"{cr.max_active_clusters(dev, plan, p, hidden)}")
+                 f"{cr.max_active_clusters(dev, plan, p, hidden, elem)}")
     return line
 
 
@@ -568,11 +644,11 @@ def serve_main_path(dev):
     assert meta["requests"] == 6 and meta["coalesced_requests"] == 2, meta
     assert meta["device_calls"] == 5 and meta["errors"] == 0, meta
     # 1 warm-up call + 5 dispatches, one launch of each kernel apiece.
-    assert launches == {"crvae_free_run": 6, "errvae_sample": 6}, launches
+    assert launches == route_counts(cr.LAUNCHES, crvae_free_run=6,
+                                    errvae_sample=6), launches
     # ... all of them on the resident route at the serving width.
-    assert routes == {"crvae_free_run_resident": 6, "errvae_sample_resident": 6,
-                      "crvae_free_run_streamed": 0,
-                      "errvae_sample_streamed": 0}, routes
+    assert routes == route_counts(
+        crvae_free_run_resident=6, errvae_sample_resident=6), routes
 
     # The served samples against the plain versions on the seed's draws.
     ref = plain_generation(model, err, params, eparams, 7, SERVE_B, dev)
@@ -587,32 +663,85 @@ def serve_main_path(dev):
     return launches, fn
 
 
-def plain_generation(model, err, params, eparams, seed, batch, dev):
+def plain_generation(model, err, params, eparams, seed, batch, dev,
+                     dtype=None):
     """The plain versions of K2 then K1 on the draws ``fn(seed)`` of a
-    loaded artifact makes (the ErrorVAE's h0 first, the rollout's second)."""
+    loaded artifact makes (the ErrorVAE's h0 first, the rollout's second),
+    with the weights in ``dtype`` (default float32; bfloat16: the plain
+    bf16 versions)."""
     import torch
 
     from vae_connexe_torch.ops.cuda_rollout import (
+        cast_weights,
         crvae_free_run_plain,
         errvae_sample_plain,
     )
 
+    heads, readout, dec, out = (params.heads, params.readout, eparams.dec,
+                                eparams.out)
+    if dtype is not None:
+        heads, readout, dec, out = (cast_weights(w, dtype)
+                                    for w in (heads, readout, dec, out))
     gen = torch.Generator(device=dev).manual_seed(seed)
     h0_err = torch.randn((batch, err.hidden), generator=gen, device=dev)
     h0 = torch.randn((batch, model.hidden), generator=gen, device=dev)
-    errs = errvae_sample_plain(eparams.dec, eparams.out, h0_err, model.p, T)
+    errs = errvae_sample_plain(dec, out, h0_err, model.p, T)
     noise = torch.cat([torch.zeros((batch, 1, model.p), device=dev), errs],
                       dim=1)[:, :T]
-    return crvae_free_run_plain(params.heads, params.readout,
+    return crvae_free_run_plain(heads, readout,
                                 torch.zeros((batch, model.p), device=dev), h0,
                                 noise, model.noise_scale).cpu().numpy()
+
+
+def plain_generation_exact(model, err, params, eparams, seed, batch, dev):
+    """``plain_generation`` in bf16 with exact sums: the same bf16 weights,
+    draws and carries, every product summed and every gate computed in
+    float64 before the bf16 rounding.  A second plain bf16 version that
+    differs from the first only in how its sums round."""
+    import torch
+
+    from vae_connexe_torch.ops.cuda_rollout import cast_weights
+    from vae_connexe_torch.ops.gru import gru_cell, gru_step_heads
+    from vae_connexe_torch.utils.layers import dense
+
+    f64 = torch.float64
+    heads, readout, dec, out = (
+        cast_weights(cast_weights(w, torch.bfloat16), f64)
+        for w in (params.heads, params.readout, eparams.dec, eparams.out))
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(f64)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h0_err = torch.randn((batch, err.hidden), generator=gen, device=dev)
+    h0 = torch.randn((batch, model.hidden), generator=gen, device=dev)
+    h, x, errs = rnd(h0_err), torch.zeros((batch, model.p), device=dev,
+                                          dtype=f64), []
+    for _ in range(T):
+        h = rnd(gru_cell(dec, x, h))
+        x = rnd(dense(out, h))
+        errs.append(x)
+    noise = torch.cat([torch.zeros((batch, 1, model.p), device=dev,
+                                   dtype=f64), torch.stack(errs, 1)],
+                      dim=1)[:, :T]
+    h = rnd(h0).expand(model.p, *h0.shape)
+    x, outs = torch.zeros((batch, model.p), device=dev, dtype=f64), []
+    for t in range(T):
+        h = rnd(gru_step_heads(heads, x, h))
+        o = torch.einsum("pbh,poh->pbo", h, readout.w) + readout.b[:, None]
+        x = rnd(o[..., 0].T + model.noise_scale * noise[:, t])
+        outs.append(x)
+    return torch.stack(outs, 1).float().cpu().numpy()
 
 
 def serve_scaled_path(dev, card):
     """Phase 4a': three generations through a loaded artifact at
     lorenz96_scaled's width (p=40, H=128, batch 512), whose weights do not
-    fit a block: every launch on the streamed route; returns its launches
-    by route."""
+    fit a block: every launch on the streamed route; then three through a
+    bf16 artifact of the same weights: K1's bf16 launches streamed (its 40
+    heads need more blocks than a cluster holds), K2's resident (one head
+    of bf16 weights fits a block), held against the plain bf16 versions by
+    ``bf16_ok``.  Returns its launches by route."""
     import numpy as np
 
     from vae_connexe_torch.ops import cuda_rollout as cr
@@ -631,12 +760,33 @@ def serve_scaled_path(dev, card):
         f"max_abs_err={e2e:.3e} tol={TOL:g} [{card}]")
     assert all(o.shape == (SCALED_B, T, SCALED_P) and np.isfinite(o).all()
                for o in outs)
-    assert routes == {"crvae_free_run_resident": 0, "errvae_sample_resident": 0,
-                      "crvae_free_run_streamed": 3,
-                      "errvae_sample_streamed": 3}, routes
+    assert routes == route_counts(
+        crvae_free_run_streamed=3, errvae_sample_streamed=3), routes
     assert e2e <= TOL, "scaled generation disagrees with the plain path"
-    return {k: routes[k] for k in ("crvae_free_run_streamed",
-                                   "errvae_sample_streamed")}
+
+    import torch
+
+    fn16, _ = load_generator(export_generator(
+        model, err, params, eparams, batch=SCALED_B,
+        serve_dtype="bfloat16"), dev)
+    cr.reset_launches()
+    outs16 = [fn16(s) for s in (21, 22, 23)]
+    routes16 = dict(cr.ROUTE_LAUNCHES)
+    ref16 = plain_generation(model, err, params, eparams, 21, SCALED_B, dev,
+                             torch.bfloat16)
+    agree = bf16_agreement(outs16[0], ref16)
+    log(f"main path lorenz96_scaled bf16 serving p={SCALED_P} "
+        f"H={SCALED_H} B={SCALED_B}: 3 generations, launches by route "
+        f"{routes16}, vs plain bf16: {agreement_text(agree)} [{card}]")
+    assert all(o.shape == (SCALED_B, T, SCALED_P) and np.isfinite(o).all()
+               for o in outs16)
+    assert routes16 == route_counts(crvae_free_run_bf16_streamed=3,
+                                    errvae_sample_bf16_resident=3), routes16
+    assert bf16_ok(agree), "scaled bf16 generation disagrees"
+    return {**{k: routes[k] for k in ("crvae_free_run_streamed",
+                                      "errvae_sample_streamed")},
+            **{k: routes16[k] for k in ("crvae_free_run_bf16_streamed",
+                                        "errvae_sample_bf16_resident")}}
 
 
 def time_all(dev, card, served_fn):
@@ -686,14 +836,27 @@ def time_all(dev, card, served_fn):
                 else:
                     res.setdefault(key, {"extra": {}})["extra"].update(
                         b1_ms=ms, b1_plain_ms=plain, b1_generation_ms=gen_ms)
-    t0 = time.perf_counter()
-    n = 5
-    for s in range(n):
-        served_fn(s)
-    served_ms = (time.perf_counter() - t0) / n * 1e3
+    from vae_connexe_torch.train import generate_with_compensation
+
+    model, err, params, eparams, _ = make_models(P, H, 0, dev)
+    n, host = 5, {}
+    for what, fn in (
+            ("artifact", served_fn),
+            ("in_process", lambda s: generate_with_compensation(
+                model, err, params, eparams,
+                torch.Generator(device=dev).manual_seed(s),
+                SERVE_B).cpu().numpy())):
+        fn(0)
+        t0 = time.perf_counter()
+        for s in range(n):
+            fn(s)
+        host[what] = (time.perf_counter() - t0) / n * 1e3
     log(f"time served fn(seed) B={SERVE_B} incl. copy to host: "
-        f"{served_ms:.3f} ms, {SERVE_B / served_ms * 1e3:.1f} samples/s "
-        f"[{card}]")
+        f"{host['artifact']:.3f} ms, {SERVE_B / host['artifact'] * 1e3:.1f} "
+        f"samples/s (the exported program through the ops); in-process "
+        f"generate_with_compensation incl. copy to host "
+        f"{host['in_process']:.3f} ms [{card}]")
+    res["crvae_free_run"]["extra"]["host_ms"] = host
     return res
 
 
@@ -1232,10 +1395,8 @@ def run_main_path(dev, card, out_dir):
     # two generations (compensated, conditioned) of one K2 and one K1.
     assert total == {**want1, "gru_forward": 6 * n + 1,
                      "gru_backward": 6 * n}, total
-    assert rollouts == {"crvae_free_run_resident": 2,
-                        "errvae_sample_resident": 2,
-                        "crvae_free_run_streamed": 0,
-                        "errvae_sample_streamed": 0}, rollouts
+    assert rollouts == route_counts(
+        crvae_free_run_resident=2, errvae_sample_resident=2), rollouts
 
     gc = res["gc"]
     log(f"graph recovery {name} p={CRVAE_P} H={H} B={TRAIN_B} {n} steps: "
@@ -1335,7 +1496,14 @@ def kill_resume_main_path(dev, card, windows, out_dir):
 def serve_own_weights(dev, card, out_dir, trained):
     """Phase 4f: ``cli export`` of the run's ``ckpt_phase2``, served by
     ``GeneratorServer`` for three requests; the samples held against the
-    plain versions on the same draws; returns the launches."""
+    plain versions on the same draws; the same with ``--serve-dtype
+    bfloat16`` (every launch a bf16 one on the resident route, held
+    against the plain bf16 version by ``trained_ok``, the float32 kernel
+    as the control; the JAX package's bf16 bounds; bit for bit to
+    in-process bf16 generation); both artifacts loaded
+    and sampled in a fresh process
+    that imports no model or trainer code, the float32 samples within TOL
+    of in-process generation.  Returns the launches."""
     import contextlib
 
     import numpy as np
@@ -1344,6 +1512,10 @@ def serve_own_weights(dev, card, out_dir, trained):
     from vae_connexe_torch.ops import cuda_rollout as cr
     from vae_connexe_torch.server import GeneratorServer
     from vae_connexe_torch.serving import load_generator
+
+    import torch
+
+    from vae_connexe_torch.train import generate_with_compensation
 
     model, err, ck = trained
     art, batch = os.path.join(out_dir, "g.vcxt"), TRAIN_B
@@ -1371,11 +1543,82 @@ def serve_own_weights(dev, card, out_dir, trained):
         f"[{card}]")
     assert all(o.shape == (batch, T, CRVAE_P) and np.isfinite(o).all()
                for o in outs)
-    assert routes == {"crvae_free_run_resident": 4, "errvae_sample_resident": 4,
-                      "crvae_free_run_streamed": 0,
-                      "errvae_sample_streamed": 0}, routes
+    assert routes == route_counts(
+        crvae_free_run_resident=4, errvae_sample_resident=4), routes
     assert e2e <= TOL and same, "served own weights disagree"
-    return {"served_own": launches}
+
+    art16 = os.path.join(out_dir, "g16.vcxt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export", "lorenz96_crvae",
+                  os.path.join(out_dir, "ckpt_phase2"), "--out", art16,
+                  "--batch", str(batch), "--serve-dtype", "bfloat16",
+                  "--device", str(dev)])
+    cr.reset_launches()
+    srv = GeneratorServer(art16, device=dev)
+    srv.start()
+    try:
+        outs16 = [post(srv, {"seed": s}) for s in (1, 2, 3)]
+        with urllib.request.urlopen(
+                f"http://{srv.host}:{srv.port}/meta", timeout=60) as r:
+            meta16 = json.loads(r.read())
+    finally:
+        srv.shutdown()
+    launches16, routes16 = dict(cr.LAUNCHES), dict(cr.ROUTE_LAUNCHES)
+    ref16 = plain_generation(model, err, ck["crvae"], ck["error_vae"], 1,
+                             batch, dev, torch.bfloat16)
+    exact16 = plain_generation_exact(model, err, ck["crvae"],
+                                     ck["error_vae"], 1, batch, dev)
+    dist_ok, gaps = bf16_in_distribution(outs16[0], ref16)
+    in_proc = {sd: generate_with_compensation(
+        model, err, ck["crvae"], ck["error_vae"],
+        torch.Generator(device=dev).manual_seed(1), batch,
+        dtype=sd).cpu().numpy() for sd in ("float32", "bfloat16")}
+    same16 = np.array_equal(outs16[0], in_proc["bfloat16"])
+    agree = bf16_agreement(outs16[0], ref16)
+    witness = bf16_agreement(exact16, ref16)
+    vs_exact = bf16_agreement(outs16[0], exact16)
+    control = bf16_agreement(in_proc["float32"], ref16)
+    rounded = bf16_agreement(torch.from_numpy(in_proc["float32"]).to(
+        torch.bfloat16).float(), ref16)
+    agree_ok = (trained_ok(agree, witness) and not trained_ok(control, witness)
+                and not trained_ok(rounded, witness))
+    fresh = load_in_fresh_process([(art, 1, None), (art16, 1, None)])
+    e_fresh = float(np.abs(np.load(art + ".npy") - in_proc["float32"]).max())
+    same_fresh16 = np.array_equal(np.load(art16 + ".npy"),
+                                  in_proc["bfloat16"])
+    log(f"main path serving the port's own weights as bf16 (batch {batch}): "
+        f"3 requests, launches {launches16}, by route {routes16}, /meta "
+        f"serve_dtype {meta16['serve_dtype']}; served vs plain bf16: "
+        f"{agreement_text(agree)} (need bf16 values, share >= "
+        f"{BF16_SAME}, first departure <= {BF16_TOL:g}, rows beyond at most "
+        f"twice the exact sums', the controls failing: "
+        f"{'ok' if agree_ok else 'FAIL'}); plain with exact sums vs plain "
+        f"bf16: {agreement_text(witness)}; served vs plain with exact sums: "
+        f"{agreement_text(vs_exact)}; control float32 kernel: bf16 values "
+        f"{control['bf16']}, rounded to bf16 at the output: share "
+        f"{rounded['same']:.5f}, max {rounded['worst']:.3e}; JAX package's "
+        f"bf16 bounds: max |d| {gaps[0]:.4e} limit {gaps[3]:.4f}, mean gap "
+        f"{gaps[1]:.3e}, std gap {gaps[2]:.3e}: "
+        f"{'ok' if dist_ok else 'FAIL'}; equal to in-process bf16 "
+        f"generation: {same16} [{card}]")
+    log(f"artifacts in a fresh process (loader only): model/trainer modules "
+        f"imported {fresh['modules']}; float32 samples vs in-process "
+        f"generation max_abs_err={e_fresh:.3e} tol={TOL:g}; bf16 samples "
+        f"equal to in-process bf16: {same_fresh16}; fn(seed) host ms "
+        f"{ {fresh[a]['serve_dtype']: round(fresh[a]['fn_ms'], 3) for a in (art, art16)} } "
+        f"[{card}]")
+    assert routes16 == route_counts(
+        crvae_free_run_bf16_resident=4, errvae_sample_bf16_resident=4), \
+        routes16
+    assert meta16["serve_dtype"] == "bfloat16", meta16
+    assert agree_ok and dist_ok and same16, "served bf16 weights disagree"
+    assert fresh["modules"] == [], fresh["modules"]
+    assert e_fresh <= TOL and same_fresh16, "fresh-process samples disagree"
+    return {"served_own": launches, "served_own_bf16": launches16,
+            "fresh_process": {"f32_max_abs_err": e_fresh,
+                              "fn_ms": {fresh[a]["serve_dtype"]:
+                                        fresh[a]["fn_ms"]
+                                        for a in (art, art16)}}}
 
 
 def time_phase2(dev, card, windows20, windows10):
@@ -1823,7 +2066,7 @@ def discover_main_path(dev, card, out_dir):
     path = os.path.join(out_dir, "lorenz96.csv")
     np.savetxt(path, series, delimiter=",", header=",".join(names),
                comments="")
-    module = sys.modules["vae_connexe_torch.discover"]
+    module = importlib.import_module("vae_connexe_torch.discover")
     out = io.StringIO()
     torch.cuda.synchronize()
     cuda_gru.reset_launches()
@@ -1855,10 +2098,8 @@ def discover_main_path(dev, card, out_dir):
     assert swept == {"gru_forward": 2 * n, "gru_backward": 2 * n, **zero}
     assert p2 == {"gru_forward": 4 * n2, "gru_backward": 4 * n2, **zero}, p2
     assert not any(gen.values()), gen
-    assert rollouts == {"crvae_free_run_resident": 1,
-                        "errvae_sample_resident": 1,
-                        "crvae_free_run_streamed": 0,
-                        "errvae_sample_streamed": 0}, rollouts
+    assert rollouts == route_counts(
+        crvae_free_run_resident=1, errvae_sample_resident=1), rollouts
     assert score_auroc >= JAX_AUROC - AUROC_MARGIN, score_auroc
     assert res.samples.shape == (DISCOVER_GEN, T, CRVAE_P)
     assert np.isfinite(res.samples).all()
@@ -2249,10 +2490,8 @@ def henon_author_main_path(dev, card, out_dir):
     zero = {"gru_forward_wide": 0, "gru_backward_wide": 0}
     assert per1 == {"gru_forward": 2 * n1, "gru_backward": 2 * n1, **zero}
     assert per2 == {"gru_forward": 4 * n2, "gru_backward": 4 * n2, **zero}
-    assert routes == {"crvae_free_run_resident": 2,
-                      "errvae_sample_resident": 2,
-                      "crvae_free_run_streamed": 0,
-                      "errvae_sample_streamed": 0}, routes
+    assert routes == route_counts(
+        crvae_free_run_resident=2, errvae_sample_resident=2), routes
     exp = get_experiment(name)
     windows, _ = arrange_input(henon_chain(t=exp.t, device=dev), exp.context)
     t1 = time.perf_counter()
@@ -2355,6 +2594,28 @@ def serve_win_main_path(dev, card, out_dir, windows):
     assert refused is not None and refused[0] == 400 and \
         refused[1].startswith("context shape"), refused
 
+    art16 = os.path.join(out_dir, "w16.vcxt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export", name, ckpt, "--out", art16, "--batch",
+                  str(batch), "--length", "20", "--serve-dtype", "bfloat16",
+                  "--device", str(dev)])
+    last_path = os.path.join(out_dir, "ctx_last.npy")
+    np.save(last_path, last)
+    fresh = load_in_fresh_process([(art, 1, last_path),
+                                   (art16, 1, last_path)])
+    with torch.no_grad():
+        ref16 = model.generate(params, torch.tensor(last, device=dev),
+                               torch.Generator(device=dev).manual_seed(1), 20,
+                               dtype=torch.bfloat16).cpu().numpy()
+    e32 = float(np.abs(np.load(art + ".npy") - ref).max())
+    e16 = float(np.abs(np.load(art16 + ".npy") - ref16).max())
+    log(f"win artifacts in a fresh process (loader only): modules "
+        f"{fresh['modules']}; float32 vs WInCRVAE.generate max_abs_err="
+        f"{e32:.3e}, bf16 vs generate(dtype=bfloat16) max_abs_err={e16:.3e} "
+        f"tol=1e-05 [{card}]")
+    assert fresh["modules"] == [], fresh["modules"]
+    assert e32 <= 1e-5 and e16 <= 1e-5, (e32, e16)
+
 
 def win_discover_main_path(dev, card, out_dir):
     """Phase 4l: ``cli discover --family win --prox row --seeds 8`` on a
@@ -2381,7 +2642,7 @@ def win_discover_main_path(dev, card, out_dir):
     names = [f"h{i}" for i in range(WIN_D)]
     np.savetxt(path, series, delimiter=",", header=",".join(names),
                comments="")
-    module = sys.modules["vae_connexe_torch.discover"]
+    module = importlib.import_module("vae_connexe_torch.discover")
     out = io.StringIO()
     torch.cuda.synchronize()
     cuda_gru.reset_launches()
@@ -2656,10 +2917,8 @@ def crcsrae_main_path(dev, card, out_dir):
     assert per2 == want2, (per2, want2)
     assert total == {**want1, "gru_forward": 2 * n1 + 4 * n2 + 1,
                      "gru_backward": 2 * n1 + 4 * n2}, total
-    assert rollouts == {"crvae_free_run_resident": 2,
-                        "errvae_sample_resident": 2,
-                        "crvae_free_run_streamed": 0,
-                        "errvae_sample_streamed": 0}, rollouts
+    assert rollouts == route_counts(
+        crvae_free_run_resident=2, errvae_sample_resident=2), rollouts
 
     ref = json.load(open(os.path.join(
         ROOT, "results", CS_NAME, f"metrics_{CS_NAME}.json")))
@@ -3000,6 +3259,460 @@ def time_a4(dev, card, windows10):
     return out
 
 
+def bf16_in_distribution(got, ref):
+    """(ok, (max |got - ref|, largest mean gap, largest std gap, elementwise
+    limit)) of a bf16 sample against another under the JAX package's
+    bounds (tests/test_serve_dtype.py): elementwise 0.15 * (max |ref| +
+    1), each series' mean within 0.02, its std within rtol 0.05 / atol
+    0.02."""
+    import numpy as np
+
+    lim = 0.15 * (float(np.abs(ref).max()) + 1.0)
+    gaps = (float(np.abs(got - ref).max()),
+            float(np.abs(got.mean((0, 1)) - ref.mean((0, 1))).max()),
+            float(np.abs(got.std((0, 1)) - ref.std((0, 1))).max()), lim)
+    ok = (gaps[0] < lim
+          and np.allclose(got.mean((0, 1)), ref.mean((0, 1)), atol=0.02)
+          and np.allclose(got.std((0, 1)), ref.std((0, 1)), rtol=0.05,
+                          atol=0.02))
+    return ok, gaps
+
+
+def bf16_steps(a, b):
+    """Per element, the bf16 steps (ulps) between two float32 tensors of
+    bf16 values: their bit patterns in the order of the values."""
+    import torch
+
+    def ordered(t):
+        i = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_agreement(got, ref):
+    """How a bf16 rollout ``got`` (B, T, D), float32, agrees with its plain
+    bf16 version ``ref`` on the same inputs: ``bf16`` every element of
+    ``got`` a bf16 value; ``same`` the share of elements equal bit for bit;
+    ``worst`` max |got - ref| / (|ref| + 1); ``rows`` the rows (samples)
+    that differ anywhere, ``over`` / ``rows_over`` the elements and rows
+    beyond BF16_TOL; over the rows that differ, the first step where each
+    does (``first_step`` earliest, ``first_median``) and the largest
+    |d| / (|ref| + 1) and bf16 steps at that step (``first_worst``,
+    ``first_ulps``)."""
+    import torch
+
+    got, ref = (torch.as_tensor(t).float().cpu() for t in (got, ref))
+    rel = (got - ref).abs() / (ref.abs() + 1.0)
+    differ = (got != ref).any(2)                                  # (B, T)
+    rows = differ.any(1)
+    out = {"bf16": bool(torch.equal(got, got.to(torch.bfloat16).float())),
+           "same": float((got == ref).float().mean()),
+           "worst": float(rel.max()), "rows": int(rows.sum()),
+           "n_rows": got.shape[0],
+           "over": int((rel > BF16_TOL).sum()),
+           "rows_over": int((rel > BF16_TOL).flatten(1).any(1).sum()),
+           "first_step": None, "first_median": None, "first_worst": 0.0,
+           "first_ulps": 0}
+    if rows.any():
+        idx = rows.nonzero()[:, 0]
+        first = differ[idx].float().argmax(1)
+        at_rel = rel[idx, first].max(1).values
+        out.update(first_step=int(first.min()),
+                   first_median=float(first.float().median()),
+                   first_worst=float(at_rel.max()))
+        if out["bf16"] and bool(torch.equal(ref, ref.to(torch.bfloat16)
+                                            .float())):
+            out["first_ulps"] = int(bf16_steps(got[idx, first],
+                                               ref[idx, first]).max())
+    return out
+
+
+def bf16_ok(a) -> bool:
+    """Random weights: bf16 values only, BF16_SAME bit for bit, every
+    element within BF16_TOL."""
+    return a["bf16"] and a["same"] >= BF16_SAME and a["worst"] <= BF16_TOL
+
+
+def trained_ok(a, witness) -> bool:
+    """Trained weights: bf16 values only, BF16_SAME bit for bit, each row
+    within BF16_TOL where it first departs from the plain version, and the
+    rows beyond BF16_TOL at most twice the ``witness``'s (a plain version
+    with exact sums against the same plain version)."""
+    return (a["bf16"] and a["same"] >= BF16_SAME
+            and a["first_worst"] <= BF16_TOL
+            and a["rows_over"] <= 2 * witness["rows_over"])
+
+
+def agreement_text(a) -> str:
+    return (f"bf16 values {a['bf16']}, bit-equal share {a['same']:.5f}, "
+            f"max |d| / (|plain| + 1) {a['worst']:.3e}, rows differing "
+            f"{a['rows']}/{a['n_rows']}, beyond {BF16_TOL:g}: {a['over']} "
+            f"elements in {a['rows_over']} rows, first departure step "
+            f"{a['first_step']} (median {a['first_median']}) at "
+            f"{a['first_worst']:.3e} / {a['first_ulps']} bf16 steps")
+
+
+def check_bf16_rollouts(dev, card, errors):
+    """Phase 3': K1/K2's bf16 instantiations at BF16_SHAPES against their
+    plain bf16 versions (``bf16_ok``, with the float32 kernels on the same
+    inputs as the control that must fail it; two calls bitwise equal, the
+    route the plan names) and, as compensated generation on the same
+    draws, against the float32 kernels within the JAX package's bounds;
+    each plan printed for both storage types; times by CUDA events beside
+    the float32 kernels' and the bounds.  Returns the rows by shape."""
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch.ops import cuda_rollout as cr
+
+    bf = torch.bfloat16
+    rows = {}
+    for p, hidden, b in BF16_SHAPES:
+        model, err, params, eparams, g = make_models(p, hidden, 60 + p + b,
+                                                     dev)
+        f32 = (params.heads, params.readout, eparams.dec, eparams.out)
+        g16 = [cr.cast_weights(w, bf) for w in f32]
+        h0e = torch.randn((b, hidden), generator=g).to(dev)
+        h0 = torch.randn((b, hidden), generator=g).to(dev)
+        x0 = torch.zeros((b, p), device=dev)
+        for kind, heads in (("crvae", p), ("errvae", 1)):
+            for elem in (4, 2):
+                log(rollout_plan_line(kind, heads, b, p, hidden, dev, elem))
+        routes = {k: cr._plan(k, n, b, p, hidden, dev, 2)[0].route
+                  for k, n in (("crvae", p), ("errvae", 1))}
+
+        def noise_of(errs):
+            return torch.cat([torch.zeros((b, 1, p), device=dev), errs],
+                             dim=1)[:, :T]
+
+        cr.reset_launches()
+        k2, k2b = (cr.errvae_sample_fused(g16[2], g16[3], h0e, p, T)
+                   for _ in range(2))
+        noise = noise_of(k2)
+        k1, k1b = (cr.crvae_free_run_fused(g16[0], g16[1], x0, h0, noise,
+                                           model.noise_scale)
+                   for _ in range(2))
+        taken = dict(cr.ROUTE_LAUNCHES)
+        r2 = cr.errvae_sample_plain(g16[2], g16[3], h0e, p, T)
+        r1 = cr.crvae_free_run_plain(g16[0], g16[1], x0, h0, noise,
+                                     model.noise_scale)
+        # The control: the float32 kernels on the same inputs.
+        c2 = cr.errvae_sample_fused(f32[2], f32[3], h0e, p, T)
+        c1 = cr.crvae_free_run_fused(f32[0], f32[1], x0, h0, noise,
+                                     model.noise_scale)
+        ref = cr.crvae_free_run_fused(
+            f32[0], f32[1], x0, h0,
+            noise_of(cr.errvae_sample_fused(f32[2], f32[3], h0e, p, T)),
+            model.noise_scale)
+        torch.cuda.synchronize()
+        for name, k, again, r, c, kind in (
+                ("errvae_sample", k2, k2b, r2, c2, "errvae"),
+                ("crvae_free_run", k1, k1b, r1, c1, "crvae")):
+            e = (k - r).abs().max().item()
+            agree = bf16_agreement(k, r)
+            control = bf16_agreement(c, r)
+            rounded = bf16_agreement(c.to(torch.bfloat16).float(), r)
+            same = torch.equal(k, again)
+            on_route = taken[f"{name}_bf16_{routes[kind]}"] == 2
+            # The control fails, as it is and rounded once at the output.
+            told_apart = not bf16_ok(control) and not bf16_ok(rounded)
+            ok = (bool(torch.isfinite(k).all()) and bf16_ok(agree)
+                  and told_apart and same and on_route)
+            key = f"{name}_bf16" + ("_streamed" if routes[kind] == "streamed"
+                                    else "")
+            errors[key] = max(errors.get(key, 0.0), e)
+            log(f"check {name} bf16 {routes[kind]} p={p} H={hidden} B={b} "
+                f"T={T}: max_abs_err={e:.3e}, {agreement_text(agree)} "
+                f"(need bf16 values, share >= {BF16_SAME}, max <= "
+                f"{BF16_TOL:g}); control float32 kernel: bf16 values "
+                f"{control['bf16']}, share {control['same']:.5f}, max "
+                f"{control['worst']:.3e}; rounded to bf16 at the output: "
+                f"share {rounded['same']:.5f}, max {rounded['worst']:.3e}, "
+                f"told apart: {told_apart}; two calls bitwise equal: {same}, "
+                f"route launches ok: {on_route} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} bf16 disagrees with its plain "
+                                     "bf16 version, the check does not tell "
+                                     "it from float32, it is not "
+                                     "deterministic or took another route")
+        dist_ok, gaps = bf16_in_distribution(k1.cpu().numpy(),
+                                             ref.cpu().numpy())
+        log(f"check bf16 against float32 generation p={p} H={hidden} B={b}: "
+            f"max |bf16 - f32| {gaps[0]:.4e} (limit {gaps[3]:.4f}), largest "
+            f"mean gap {gaps[1]:.4e} (atol 0.02), std gap {gaps[2]:.4e} "
+            f"(rtol 0.05, atol 0.02) {'ok' if dist_ok else 'FAIL'}")
+        if not dist_ok:
+            raise AssertionError("bf16 generation is off the float32 one")
+        iters = 200 if b == 1 else 20
+        k1a = (x0, h0, noise, model.noise_scale)
+        row = {"route_k1": routes["crvae"], "route_k2": routes["errvae"],
+               "plan_k1": cr._plan("crvae", p, b, p, hidden, dev,
+                                   2)[0]._asdict(),
+               "plan_k2": cr._plan("errvae", 1, b, p, hidden, dev,
+                                   2)[0]._asdict()}
+        for name, fn in (
+                ("k1", lambda: cr.crvae_free_run_fused(*g16[:2], *k1a)),
+                ("k1_plain", lambda: cr.crvae_free_run_plain(*g16[:2], *k1a)),
+                ("k1_f32", lambda: cr.crvae_free_run_fused(*f32[:2], *k1a)),
+                ("k2", lambda: cr.errvae_sample_fused(*g16[2:], h0e, p, T)),
+                ("k2_plain",
+                 lambda: cr.errvae_sample_plain(*g16[2:], h0e, p, T)),
+                ("k2_f32", lambda: cr.errvae_sample_fused(*f32[2:], h0e, p,
+                                                          T))):
+            row[f"{name}_ms"] = time_ms(fn, iters)
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(
+            *rollout_cost(b, T, p, hidden, p, 1, True, True, 2), BF16_FLOPS)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(
+            *rollout_cost(b, T, 1, hidden, p, p, False, False, 2), BF16_FLOPS)
+        log(f"time bf16 p={p} H={hidden} B={b}: K1 ({routes['crvae']}) "
+            f"{row['k1_ms']:.4f} ms (float32 {row['k1_f32_ms']:.4f}, plain "
+            f"bf16 {row['k1_plain_ms']:.4f}, bound {row['k1_bound_ms']:.4f} "
+            f"by {row['k1_bound_by']}); K2 ({routes['errvae']}) "
+            f"{row['k2_ms']:.4f} ms (float32 {row['k2_f32_ms']:.4f}, plain "
+            f"bf16 {row['k2_plain_ms']:.4f}, bound {row['k2_bound_ms']:.4f} "
+            f"by {row['k2_bound_by']}) [{card}]")
+        rows[(p, b)] = row
+    return rows
+
+
+_FRESH_LOAD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from vae_connexe_torch.serving import load_generator
+res = {}
+for path, seed, ctx in json.loads(sys.argv[1]):
+    fn, meta = load_generator(path)
+    out = fn(seed) if ctx is None else fn(seed, np.load(ctx))
+    np.save(path + ".npy", out)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn(seed) if ctx is None else fn(seed, np.load(ctx))
+    res[path] = {"serve_dtype": meta["serve_dtype"],
+                 "fn_ms": (time.perf_counter() - t0) / 5 * 1e3}
+res["modules"] = sorted(m for m in sys.modules if m.startswith((
+    "vae_connexe_torch.models", "vae_connexe_torch.train",
+    "vae_connexe_torch.configs", "jax", "vae_connexe_tpu")))
+print(json.dumps(res))
+"""
+
+
+def load_in_fresh_process(calls) -> dict:
+    """Load each artifact of ``calls`` [(path, seed, context .npy path or
+    None)] in a new Python process that imports only the loader, sample
+    fn(seed) into ``path + ".npy"``; returns the process's report: each
+    artifact's serve_dtype and fn(seed) host ms, and the model, trainer,
+    config or JAX modules it imported (none expected)."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    out = subprocess.run([sys.executable, "-c", _FRESH_LOAD,
+                          json.dumps(calls)], capture_output=True, text=True,
+                         timeout=600, env=env, cwd=ROOT)
+    if out.returncode != 0:
+        raise AssertionError(f"loading in a fresh process failed:\n"
+                             f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def out_of_core_main_path(dev, card, out_dir):
+    """Phase 4m: ``cli run lorenz96_crvae`` (p=10, H=64, B=256) at
+    OOC_STEPS steps a phase in memory and with ``--out-of-core`` (its series
+    written to a file and memory-mapped by the native loader): results,
+    both checkpoints and launch counts equal bit for bit; then a streamed
+    phase 1 from that file killed at half and resumed, bitwise the
+    uninterrupted streamed fit and the in-memory ``fit_phase1``.  Returns
+    the streamed run's launches and the readings."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.data import arrange_input
+    from vae_connexe_torch.data.native_loader import NativeWindowLoader
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.ops import cuda_rollout as cr
+    from vae_connexe_torch.train import (
+        Phase1Config,
+        fit_phase1,
+        fit_phase1_streaming,
+    )
+    from vae_connexe_torch.utils import restore_checkpoint
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    name, n = "lorenz96_crvae", OOC_STEPS
+    runs = {}
+    for mode in ("memory", "out_of_core"):
+        d = os.path.join(out_dir, f"ooc_{mode}")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        cuda_gru.reset_launches()
+        cr.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["run", name, "--iters", str(n), "--out-dir", d,
+                      "--save-checkpoints", "--quiet", "--device", str(dev)]
+                     + (["--out-of-core"] if mode == "out_of_core" else []))
+        torch.cuda.synchronize()
+        g = torch.Generator().manual_seed(0)
+        model, err = CRVAE(CRVAE_P, H), ErrorVAE(CRVAE_P, H)
+        ck2 = restore_checkpoint(os.path.join(d, "ckpt_phase2"),
+                                 {"crvae": model.init(g, dev),
+                                  "error_vae": err.init(g, dev)})
+        ck1 = restore_checkpoint(os.path.join(d, "ckpt_phase1"),
+                                 model.init(g, dev))
+        runs[mode] = {"dir": d, "wall_s": time.perf_counter() - t0,
+                      "results": json.loads(buf.getvalue()),
+                      "leaves": (tree_leaves(ck1)
+                                 + tree_leaves(ck2["crvae"])
+                                 + tree_leaves(ck2["error_vae"])),
+                      "launches": dict(cuda_gru.LAUNCHES),
+                      "rollouts": dict(cr.LAUNCHES)}
+    mem, ooc = runs["memory"], runs["out_of_core"]
+    same = (mem["results"] == ooc["results"]
+            and all(torch.equal(u, v) for u, v in zip(mem["leaves"],
+                                                      ooc["leaves"]))
+            and mem["launches"] == ooc["launches"]
+            and mem["rollouts"] == ooc["rollouts"])
+    want = {"gru_forward": 6 * n + 1, "gru_backward": 6 * n,
+            "gru_forward_wide": 0, "gru_backward_wide": 0}
+    log(f"main path cli run {name} --out-of-core p={CRVAE_P} H={H} "
+        f"B={TRAIN_B} {n} + {n} steps: {ooc['wall_s']:.2f} s (in memory "
+        f"{mem['wall_s']:.2f} s); launches {ooc['launches']}, rollouts "
+        f"{ooc['rollouts']}; results, both checkpoints and launches bitwise "
+        f"equal to the in-memory run: {same}; auroc "
+        f"{ooc['results']['gc']['auroc']:.4f} [{card}]")
+    assert same, "the out-of-core run differs from the in-memory run"
+    assert ooc["launches"] == want, ooc["launches"]
+
+    class Kill(Exception):
+        pass
+
+    def kill(step, state, metrics):
+        if step >= n // 2:
+            raise Kill
+
+    series = np.fromfile(os.path.join(ooc["dir"], f"series_{name}.f32"),
+                         np.float32).reshape(-1, CRVAE_P)
+    cfg = Phase1Config(max_iter=n, check_every=n // 6, batch_size=TRAIN_B,
+                       lam=0.1, lr=5e-2, beta=0.1)
+    g = torch.Generator().manual_seed(40)
+    model = CRVAE(CRVAE_P, H)
+    params = model.init(g, dev)
+    full = torch.ones((CRVAE_P, CRVAE_P), device=dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(41)
+
+    ck = os.path.join(out_dir, "ooc_resume")
+    with NativeWindowLoader.from_file(
+            os.path.join(ooc["dir"], f"series_{name}.f32"),
+            *series.shape) as loader:
+        cuda_gru.reset_launches()
+        stats = {}
+        whole = fit_phase1_streaming(model, params, loader, CTX, full, cfg,
+                                     gen(), io_stats=stats)
+        streamed_launches = dict(cuda_gru.LAUNCHES)
+        try:
+            fit_phase1_streaming(model, params, loader, CTX, full, cfg, gen(),
+                                 checkpoint_dir=ck, checkpoint_every=n // 2,
+                                 callback=kill)
+            raise AssertionError("the kill did not fire")
+        except Kill:
+            pass
+        resumed = fit_phase1_streaming(model, params, loader, CTX, full, cfg,
+                                       gen(), checkpoint_dir=ck,
+                                       checkpoint_every=n // 2, resume=True)
+    windows, _ = arrange_input(torch.from_numpy(series).to(dev), CTX)
+    memory = fit_phase1(model, params, windows, full, cfg, gen())
+    torch.cuda.synchronize()
+
+    def equal(a, b):
+        return (all(torch.equal(u, v) for u, v in
+                    zip(tree_leaves(a[0]) + tree_leaves(a[1].params),
+                        tree_leaves(b[0]) + tree_leaves(b[1].params)))
+                and a[2] == b[2])
+
+    ok = equal(whole, resumed) and equal(whole, memory)
+    log(f"streamed fit_phase1 p={CRVAE_P} H={H} B={TRAIN_B} {n} steps from "
+        f"the series file: launches {streamed_launches}, io_stats {stats}; "
+        f"killed at {n // 2} and resumed: bitwise equal to the uninterrupted "
+        f"streamed fit and to the in-memory fit_phase1: {ok} [{card}]")
+    assert ok, "the resumed streamed phase 1 differs"
+    assert streamed_launches == {"gru_forward": 2 * n, "gru_backward": 2 * n,
+                                 "gru_forward_wide": 0,
+                                 "gru_backward_wide": 0}, streamed_launches
+    return {"launches": ooc["launches"], "streamed_launches":
+            streamed_launches, "wall_s": ooc["wall_s"],
+            "memory_wall_s": mem["wall_s"], "io_stats": stats}
+
+
+def time_out_of_core(dev, card, out_dir, windows20):
+    """Phase 5g: a streamed phase-1 fit at p=20 (H=64, B=256, ctx 20) from
+    a series file of OOC_ROWS steps (a Lorenz-96 simulation of OOC_SIM
+    steps made on the card, tiled; 800 MB, read warm: the file was just
+    written) against ``fit_phase1`` on in-memory windows at the same
+    shapes, OOC_RATE_STEPS steps each, in turns (memory, file, file,
+    memory): steps/s on the host clock and the streamed fit's
+    ``gather_wait_s``.  Returns the readings."""
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch.data import lorenz96
+    from vae_connexe_torch.data.native_loader import NativeWindowLoader
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.train import (
+        Phase1Config,
+        fit_phase1,
+        fit_phase1_streaming,
+    )
+
+    sim = lorenz96(torch.Generator(device=dev).manual_seed(50), p=P,
+                   t=OOC_SIM, device=dev).cpu().numpy().astype(np.float32)
+    path = os.path.join(out_dir, "ooc_series.f32")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(OOC_ROWS // OOC_SIM):
+            sim.tofile(f)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    windows_bytes = (OOC_ROWS - CTX) * CTX * P * 4
+    model = CRVAE(P, H)
+    params = model.init(torch.Generator().manual_seed(51), dev)
+    full = torch.ones((P, P), device=dev)
+    cfg = Phase1Config(max_iter=OOC_RATE_STEPS, check_every=100,
+                       batch_size=TRAIN_B, lam=0.1, lr=5e-2, beta=0.1)
+    rates = {"memory": [], "file": []}
+    waits = []
+    with NativeWindowLoader.from_file(path, OOC_ROWS, P) as loader:
+        for mode in ("memory", "file", "file", "memory"):
+            gen = torch.Generator(device=dev).manual_seed(52)
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "memory":
+                fit_phase1(model, params, windows20, full, cfg, gen)
+            else:
+                fit_phase1_streaming(model, params, loader, CTX, full, cfg,
+                                     gen, io_stats=stats)
+                waits.append(stats["gather_wait_s"])
+            torch.cuda.synchronize()
+            rates[mode].append(OOC_RATE_STEPS / (time.perf_counter() - t0))
+    os.unlink(path)
+    log(f"time out of core p={P} H={H} B={TRAIN_B} ctx={CTX}: series file "
+        f"{size} bytes ({OOC_ROWS} steps, written in {write_s:.2f} s, read "
+        f"warm; its windows would take {windows_bytes} bytes), streamed "
+        f"fit_phase1 {', '.join(f'{r:.1f}' for r in rates['file'])} steps/s "
+        f"(gather_wait_s {', '.join(f'{w:.4f}' for w in waits)}) against "
+        f"the in-memory fit_phase1 "
+        f"{', '.join(f'{r:.1f}' for r in rates['memory'])} steps/s "
+        f"({OOC_RATE_STEPS} steps each, in turns) [{card}]")
+    return {"file_bytes": size, "windows_bytes": windows_bytes,
+            "streamed_steps_s": rates["file"],
+            "memory_steps_s": rates["memory"], "gather_wait_s": waits}
+
+
 def cr_plan(kind, p, hidden, dev) -> dict:
     """The plan (at B=3072) of a rollout as a dict for the JSON line."""
     from vae_connexe_torch.ops import cuda_rollout as cr
@@ -3043,6 +3756,7 @@ def main() -> int:
     series10 = lorenz_windows(dev, CRVAE_P, seed=4)
     check_sweep(dev, card, errors, series10)
     check_cs_steps(dev, errors)
+    bf16_rows = check_bf16_rollouts(dev, card, errors)
     launches, served_fn = serve_main_path(dev)
     launches.update(serve_scaled_path(dev, card))
     series = lorenz_windows(dev, P, seed=0)
@@ -3065,6 +3779,8 @@ def main() -> int:
         csrae = csrae_main_path(dev, card, out_dir)
         vrae = vrae_main_path(dev, card, out_dir)
         debug_nans_main_path(dev, card)
+        ooc = out_of_core_main_path(dev, card, out_dir)
+        ooc["rates"] = time_out_of_core(dev, card, out_dir, series)
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
     phase2_rates = time_phase2(dev, card, series, series10)
@@ -3207,7 +3923,49 @@ def main() -> int:
             launches_served_own=run_launches["served_own"][name],
             launches_discover=found["discover_rollouts"][f"{name}_resident"],
             launches_henon_author=author["rollouts"][f"{name}_resident"])
-    kernels[-1]["phase_max_abs_err"] = {
+    # The bf16 instantiations: K1 at the serving width (resident)
+    # and at lorenz96_scaled's (streamed), K2 (resident at both; its row
+    # carries the H=128 readings), bounds in bf16 weight bytes and at the
+    # bf16 tensor-core rate; launches from the bf16 serving main paths.
+    own16 = run_launches["served_own_bf16"]
+    for name, key, (p, hidden), launched in (
+            ("crvae_free_run_bf16", "k1", (P, H),
+             own16["crvae_free_run_bf16"]),
+            ("errvae_sample_bf16", "k2", (P, H),
+             own16["errvae_sample_bf16"]
+             + launches["errvae_sample_bf16_resident"]),
+            ("crvae_free_run_bf16_streamed", "k1", (sp, sh),
+             launches["crvae_free_run_bf16_streamed"])):
+        big, one = bf16_rows[(p, SERVE_B)], bf16_rows[(p, 1)]
+        row = {"name": name, "route": "cuda", "source": rollout_src,
+               "replaces": k1_src if key == "k1" else k2_src,
+               "launches": launched, "max_abs_err": errors[name],
+               "ms": big[f"{key}_ms"], "plain_ms": big[f"{key}_plain_ms"],
+               "bound_ms": big[f"{key}_bound_ms"],
+               "bound_by": big[f"{key}_bound_by"], "library_ms": None,
+               "f32_ms": big[f"{key}_f32_ms"],
+               "plan": big[f"plan_{key}"],
+               "b1_ms": one[f"{key}_ms"], "b1_plain_ms": one[f"{key}_plain_ms"],
+               "b1_f32_ms": one[f"{key}_f32_ms"],
+               "b1_bound_ms": one[f"{key}_bound_ms"]}
+        if name == "errvae_sample_bf16":
+            big, one = bf16_rows[(sp, SERVE_B)], bf16_rows[(sp, 1)]
+            row["h128"] = {
+                "route": big["route_k2"], "plan": big["plan_k2"],
+                "ms": big["k2_ms"], "plain_ms": big["k2_plain_ms"],
+                "f32_streamed_ms": big["k2_f32_ms"],
+                "bound_ms": big["k2_bound_ms"], "b1_ms": one["k2_ms"],
+                "b1_f32_streamed_ms": one["k2_f32_ms"],
+                "launches_scaled": launches["errvae_sample_bf16_resident"]}
+        kernels.append(row)
+    by_name["gru_backward"]["out_of_core"] = ooc
+    by_name["crvae_free_run"]["fresh_process"] = run_launches[
+        "fresh_process"]
+    for name in kernels:
+        if not name["launches"]:
+            raise AssertionError(f"{name['name']} was not launched on its "
+                                 f"main path")
+    kernels[len(costs) - 1]["phase_max_abs_err"] = {
         k.split(":", 1)[1]: v for k, v in errors.items()
         if k.startswith("phase1_step:")}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "

@@ -165,8 +165,9 @@ def test_cli_run_resume_after_finish_is_pure_restore(tmp_path, capsys):
 def test_run_experiment_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A7"):
         run_experiment("lorenz96_crvae", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_experiment("lorenz96_crvae", out_of_core=True, device="cpu")
+    # Out of core is ported for the crvae family only, as JAX's.
+    with pytest.raises(ValueError, match="crvae family"):
+        run_experiment("henon6d_win", out_of_core=True, device="cpu")
     with pytest.raises(ValueError, match="crvae family"):
         run_experiment("henon6d_win", checkpoint_every=10, out_dir="o",
                        device="cpu")
@@ -179,15 +180,6 @@ def test_run_experiment_unported_paths_raise():
     (["run", "lorenz96_crvae", "--ep", "2"], "ROADMAP A7"),
     (["run", "lorenz96_crvae", "--sp", "2"], "ROADMAP A7"),
     (["run", "lorenz96_crvae", "--processes", "2"], "ROADMAP A7"),
-    (["run", "lorenz96_crvae", "--out-of-core"], "ROADMAP A6"),
-    (["run", "lorenz96_crvae", "--artifacts-every", "5", "--out-of-core"],
-     "ROADMAP A6"),
-    (["export", "lorenz96_crvae", "ck", "--out", "g", "--serve-dtype",
-      "bfloat16"], "ROADMAP A5"),
-    (["export", "lorenz96_crvae", "ck", "--out", "g", "--platforms", "cpu"],
-     "ROADMAP A5"),
-    (["export", "henon6d_win", "ck", "--out", "g", "--serve-dtype",
-      "bfloat16", "--device", "cpu"], "ROADMAP A5"),
     (["export", "csrae_binarized", "ck", "--out", "g", "--device", "cpu"],
      "export supports the crvae and win families; 'csrae_binarized' is "
      "'csrae'"),
@@ -197,8 +189,7 @@ def test_run_experiment_unported_paths_raise():
     (["discover", "s.csv", "--family", "win", "--prox", "row", "--ep", "2"],
      "ROADMAP A7"),
     (["sweep", "--mesh"], "ROADMAP A7"),
-], ids=["mesh", "ep", "sp", "processes", "out-of-core", "artifacts-every",
-        "bf16", "platforms", "export-win", "export-csrae",
+], ids=["mesh", "ep", "sp", "processes", "export-csrae",
         "discover-mesh", "discover-ep", "discover-win", "discover-prox",
         "sweep-mesh"])
 def test_unported_flags_exit(argv, message):
@@ -207,6 +198,75 @@ def test_unported_flags_exit(argv, message):
     artifact with the JAX package's message; none is silently ignored."""
     with pytest.raises(SystemExit, match=message):
         cli.main(argv)
+
+
+@pytest.fixture(scope="module")
+def crvae_run(tmp_path_factory):
+    """One in-memory ``cli run lorenz96_crvae`` at four steps a phase with
+    its checkpoints: (out dir, results), the flags' yardstick."""
+    import contextlib
+    import io
+
+    out = tmp_path_factory.mktemp("mem") / "run"
+    buf = io.StringIO()
+    with unittest.mock.patch.dict(sys.modules, {"matplotlib": None}), \
+            contextlib.redirect_stdout(buf):
+        cli.main(["run", "lorenz96_crvae", "--iters", "4", "--device", "cpu",
+                  "--out-dir", str(out), "--quiet", "--save-checkpoints"])
+    return out, json.loads(buf.getvalue())
+
+
+@pytest.mark.parametrize("case", ["out-of-core", "artifacts-every", "bf16",
+                                  "platforms", "export-win"])
+def test_ported_flags_work(case, crvae_run, tmp_path, capsys):
+    """The flags ROADMAP A5 and A6 brought: ``run --out-of-core`` (also with
+    ``--artifacts-every``) gives the in-memory run's results; ``export
+    --serve-dtype bfloat16`` (crvae and win) and ``--platforms`` write
+    artifacts that say so and sample."""
+    mem_out, mem_res = crvae_run
+    name = "lorenz96_crvae"
+    if case in ("out-of-core", "artifacts-every"):
+        extra = ["--artifacts-every", "2"] if case == "artifacts-every" else []
+        out, res = _run(tmp_path, capsys, "--out-of-core", *extra)
+        assert res == mem_res
+        exp = get_experiment(name)
+        assert (out / f"series_{name}.f32").stat().st_size == \
+            exp.t * exp.p * 4
+        # One chunk of 4 steps: the callback fires once, at step 4.
+        assert (out / f"syn_{name}_it4.npy").exists() == bool(extra)
+        return
+    art = str(tmp_path / "g.vcxt")
+    if case == "export-win":
+        from vae_connexe_torch.models import WInCRVAE
+        from vae_connexe_torch.utils import save_checkpoint
+
+        exp = get_experiment("henon6d_win")
+        model = WInCRVAE(d=exp.p, hidden=exp.hidden, latent=exp.latent,
+                         tau=exp.tau)
+        ckpt = str(tmp_path / "ckpt_win")
+        save_checkpoint(ckpt, model.init(torch.Generator().manual_seed(1),
+                                         "cpu"))
+        cli.main(["export", "henon6d_win", ckpt, "--out", art, "--batch",
+                  "2", "--serve-dtype", "bfloat16", "--device", "cpu"])
+    else:
+        flags = (["--serve-dtype", "bfloat16"] if case == "bf16"
+                 else ["--platforms", "cpu", "cuda"])
+        cli.main(["export", name, str(mem_out / "ckpt_phase2"), "--out", art,
+                  "--batch", "4", "--device", "cpu", *flags])
+    made = json.loads(capsys.readouterr().out)
+    assert made["serve_dtype"] == ("float32" if case == "platforms"
+                                   else "bfloat16")
+    assert made["platforms"] == (["cpu", "cuda"] if case == "platforms"
+                                 else ["cpu"])
+    if case == "export-win":
+        ctx = tmp_path / "ctx.npy"
+        np.save(ctx, np.zeros((2, exp.tau, exp.p), np.float32))
+        cli.main(["generate", art, "--context", str(ctx), "--device", "cpu"])
+    else:
+        cli.main(["generate", art, "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out)
+    assert got["meta"]["serve_dtype"] == made["serve_dtype"]
+    assert got["meta"]["platforms"] == made["platforms"]
 
 
 # Each A4 run cut where a CPU run would take long (the keys and files do

@@ -30,6 +30,7 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.cli", "vae_connexe_torch.configs",
             "vae_connexe_torch.configs.experiments", "vae_connexe_torch.convert",
             "vae_connexe_torch.data.henon", "vae_connexe_torch.data.io",
+            "vae_connexe_torch.data.native_loader",
             "vae_connexe_torch.data.lorenz96",
             "vae_connexe_torch.data.timegan_utils",
             "vae_connexe_torch.data.var",
@@ -48,6 +49,7 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.ops._build", "vae_connexe_torch.ops.cuda_gru",
             "vae_connexe_torch.ops.cuda_rollout", "vae_connexe_torch.ops.cuda_step",
             "vae_connexe_torch.ops.dispatch", "vae_connexe_torch.ops.gru",
+            "vae_connexe_torch.ops.library",
             "vae_connexe_torch.ops.rnn_cells",
             "vae_connexe_torch.optim.adam", "vae_connexe_torch.optim.prox",
             "vae_connexe_torch.parallel", "vae_connexe_torch.parallel.seed_sweep",
@@ -55,6 +57,7 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",
             "vae_connexe_torch.train.csrae_trainer",
+            "vae_connexe_torch.train.streaming",
             "vae_connexe_torch.train.vrae_trainer",
             "vae_connexe_torch.train.win_trainer",
             "vae_connexe_torch.utils.checkpoint",

@@ -137,18 +137,23 @@ def test_same_seed_same_weights():
 
 
 def test_reduced_precision_and_win_family_not_ported(pair):
+    """bf16 serving is ported (``tests/test_torch_port_bf16.py`` holds it
+    to JAX's): every entry point takes JAX's bfloat16 and returns
+    float32, and a dtype that is neither float32 nor bfloat16 raises."""
     _, (m, e, tp, tep), _ = pair
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        generate_with_compensation(m, e, tp, tep, g, B, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        m.rollout(tp, g, B, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        export_generator(m, e, tp, tep, batch=B, serve_dtype="bfloat16")
+    for out in (generate_with_compensation(m, e, tp, tep, g, B,
+                                           dtype=torch.bfloat16),
+                m.rollout(tp, g, B, dtype="bfloat16")):
+        assert out.dtype == torch.float32 and out.shape == (B, m.rollout_len, P)
+    with pytest.raises(ValueError, match="bfloat16"):
+        m.rollout(tp, g, B, dtype=torch.float16)
+    assert export_generator(m, e, tp, tep, batch=B, serve_dtype="bfloat16")
     win = WInCRVAE(d=P, hidden=4, latent=4, tau=3)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        export_win_generator(win, win.init(g, "cpu"), batch=B, length=T,
-                             serve_dtype="bfloat16")
+    assert export_win_generator(win, win.init(g, "cpu"), batch=B, length=T,
+                                serve_dtype="bfloat16")
+    with pytest.raises(ValueError, match="serve_dtype"):
+        export_generator(m, e, tp, tep, batch=B, serve_dtype="float16")
 
 
 def test_convert_round_trips_reference_weights(pair):

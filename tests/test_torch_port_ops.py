@@ -132,10 +132,19 @@ def test_cpu_tensors_never_launch(crvae):
     model, params = crvae
     x0, h0, noise = _crvae_inputs(4)
     cuda_rollout.reset_launches()
+    heads, readout = _port(gru.GRUParams, params.heads), _port(Dense,
+                                                               params.readout)
+    cuda_rollout.crvae_free_run_fused(heads, readout, _t(x0), _t(h0),
+                                      _t(noise), 0.1)
+    # The bf16 instantiation's plain version runs on the CPU too.
+    bf = torch.bfloat16
     cuda_rollout.crvae_free_run_fused(
-        _port(gru.GRUParams, params.heads), _port(Dense, params.readout),
-        _t(x0), _t(h0), _t(noise), 0.1)
-    assert cuda_rollout.LAUNCHES == {"crvae_free_run": 0, "errvae_sample": 0}
+        cuda_rollout.cast_weights(heads, bf),
+        cuda_rollout.cast_weights(readout, bf), _t(x0), _t(h0), _t(noise),
+        0.1)
+    assert cuda_rollout.LAUNCHES == {"crvae_free_run": 0, "errvae_sample": 0,
+                                     "crvae_free_run_bf16": 0,
+                                     "errvae_sample_bf16": 0}
 
 
 @pytest.mark.parametrize("batch,heads,hidden,budget,want", [

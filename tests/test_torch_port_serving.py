@@ -71,7 +71,8 @@ def test_artifact_matches_in_process_generation(small):
     assert meta["kind"] == "crvae_compensated_generator"
     assert (meta["batch"], meta["rollout_len"], meta["p"], meta["hidden"]) == \
         (BATCH, T, P, H)
-    assert meta["platforms"] == ["cuda"] and "torch_version" in meta
+    # Exported from CPU weights: the artifact runs where they lay.
+    assert meta["platforms"] == ["cpu"] and "torch_version" in meta
 
 
 def test_artifact_deterministic_and_seed_sensitive(small, tmp_path):
@@ -90,8 +91,8 @@ def test_artifact_rejects_bad_input(small):
         load_generator(b"XXXXXXXX" + blob[8:], "cpu")
     hlen = int.from_bytes(blob[8:12], "little")
     header, body = json.loads(blob[12:12 + hlen]), blob[12 + hlen:]
-    # A win header on a compensated generator's weights, and an unknown kind.
-    for kind, err in (("win_conditioned_generator", "weight groups"),
+    # A win header on a compensated generator's program, and an unknown kind.
+    for kind, err in (("win_conditioned_generator", "takes inputs of shapes"),
                       ("other", "unknown artifact kind")):
         h = json.dumps({**header, "kind": kind}).encode()
         with pytest.raises(ValueError, match=err):

@@ -34,7 +34,6 @@ DRAWS = {"generator", "eps", "h0", "noise", "idx", "x0_draw", "noise_draw",
 PORT_EXTRAS = DRAWS | {"device"}
 UNPORTED = {
     "batch_sharding": "A7 (meshes)",
-    "stream": "A6 (out-of-core streaming)",
     "interpret": "Pallas interpret mode: the CPU runs the plain versions",
 }
 # ... and of one callable only.
@@ -135,7 +134,14 @@ def test_shared_callables_take_jax_positional_parameters():
                  "train.vrae_trainer.fit_vrae",
                  "data.timegan_utils.train_test_divide",
                  "utils.debug.nan_debugging", "utils.profiling.trace",
-                 "utils.scalers.minmax_scale"):
+                 "utils.scalers.minmax_scale",
+                 "train.streaming.fit_phase1_streaming",
+                 "train.streaming.fit_phase2_streaming",
+                 "train.crvae_trainer.make_phase1_step",
+                 "train.crvae_trainer.make_phase2_step",
+                 "data.native_loader.NativeWindowLoader.__init__",
+                 "data.native_loader.NativeWindowLoader.gather",
+                 "serving.export_generator", "serving.load_generator"):
         assert f"vae_connexe_torch.{name}" in checked, name
     bad = {name: why for name, f, g in pairs
            if (why := mismatch(name, f, g)) is not None}

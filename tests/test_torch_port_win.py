@@ -142,8 +142,18 @@ def test_generate_matches_jax(setup):
     got = m.generate(tp, _t(windows), None, 9, eps=eps)
     assert got.shape == (N, 9, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD)
-    with pytest.raises(NotImplementedError, match="A5"):
-        m.generate(tp, _t(windows), torch.Generator(), 3, dtype="bfloat16")
+    # bf16 serving (ported): within test_serve_dtype.py's elementwise bound
+    # of JAX's bf16 generate on the same draw, float32 out.
+    ref16 = np.asarray(jm.generate(jp, jnp.asarray(windows), key, 9,
+                                   dtype=jnp.bfloat16))
+    got16 = m.generate(tp, _t(windows), None, 9, dtype="bfloat16", eps=eps)
+    assert got16.dtype == torch.float32
+    assert np.abs(got16.numpy() - ref16).max() < 0.15 * (
+        np.abs(ref16).max() + 1.0)
+    # bf16 values only, and not the float32 generate's.
+    torch.testing.assert_close(got16, got16.to(torch.bfloat16).float(),
+                               rtol=0, atol=0)
+    assert not torch.equal(got16, got)
 
 
 def test_granger_matrix_matches_jax(setup):
@@ -358,9 +368,12 @@ def test_win_context_shape_validated(win):
                                                 length=7), "cpu")
     with pytest.raises(ValueError, match="context shape"):
         fn(0, np.zeros((3, model.tau + 2, model.d), np.float32))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        export_win_generator(model, params, batch=8, length=6,
-                             serve_dtype="bfloat16")
+    # A bf16 artifact validates its context the same way.
+    fn16, meta = load_generator(export_win_generator(
+        model, params, batch=3, length=6, serve_dtype="bfloat16"), "cpu")
+    assert meta["serve_dtype"] == "bfloat16"
+    with pytest.raises(ValueError, match="context shape"):
+        fn16(0, np.zeros((3, model.tau + 2, model.d), np.float32))
 
 
 def _post(srv, body):

@@ -79,7 +79,7 @@ def sweep_k1(dev, g, p, limits) -> None:
                 continue
             active = ctypes.c_int(0)
             rc = rollout_library().vcx_crvae_max_clusters(
-                p, H, c, bt, split, ctypes.byref(active))
+                p, H, c, bt, split, 0, ctypes.byref(active))
             row = [f"K1 p={p} C={c} heads/block={hpb} bt={bt} split={split} "
                    f"smem={smem} max_active_clusters={active.value} (rc {rc})"]
             if rc != 0 or active.value < 1:

@@ -15,6 +15,9 @@ Examples:
   python -m vae_connexe_torch.cli list
   python -m vae_connexe_torch.cli run lorenz96_crvae --out-dir out --save-checkpoints
   python -m vae_connexe_torch.cli export lorenz96_crvae out/ckpt_phase2 --out g.vcxt
+  python -m vae_connexe_torch.cli export lorenz96_crvae out/ckpt_phase2 --out g16.vcxt \
+      --serve-dtype bfloat16 --platforms cuda cpu
+  python -m vae_connexe_torch.cli run lorenz96_crvae --out-of-core --out-dir out
   python -m vae_connexe_torch.cli serve g.vcxt --port 8799
   python -m vae_connexe_torch.cli discover my_series.csv --seeds 8 --out-dir out/
   python -m vae_connexe_torch.cli run henon6d_win --out-dir out --save-checkpoints
@@ -43,7 +46,6 @@ _RUN_UNPORTED = (
     ("mesh", "--mesh", "A7"), ("ep", "--ep", "A7"), ("sp", "--sp", "A7"),
     ("processes", "--processes", "A7"),
     ("devices_per_process", "--devices-per-process", "A7"),
-    ("out_of_core", "--out-of-core", "A6"),
 )
 # ... and of its ``discover`` and ``sweep``; a fourth entry lists the values that
 # are ported (without one: left unset).
@@ -92,6 +94,7 @@ def _cmd_run(args):
                              artifacts_every=args.artifacts_every,
                              checkpoint_every=args.checkpoint_every,
                              resume=args.resume, verbose=not args.quiet,
+                             out_of_core=args.out_of_core,
                              device=args.device)
     print(json.dumps(results, indent=2, default=str))
 
@@ -307,11 +310,6 @@ def _cmd_export(args):
     from vae_connexe_torch.serving import export_generator, export_win_generator
     from vae_connexe_torch.utils import restore_checkpoint
 
-    if args.platforms is not None:
-        sys.exit("--platforms is not ported yet (ROADMAP A5): the port's "
-                 "artifacts run on cuda")
-    if args.serve_dtype == "bfloat16":
-        sys.exit("--serve-dtype bfloat16 is not ported yet (ROADMAP A5)")
     exp = get_experiment(args.experiment)
     if exp.model_family not in ("crvae", "win"):
         sys.exit(f"export supports the crvae and win families; "
@@ -327,6 +325,7 @@ def _cmd_export(args):
         blob = export_generator(model, err_model, ckpt["crvae"],
                                 ckpt["error_vae"], batch=args.batch,
                                 length=args.length,
+                                platforms=args.platforms,
                                 serve_dtype=args.serve_dtype,
                                 kernel=args.serve_kernel)
     else:
@@ -339,10 +338,14 @@ def _cmd_export(args):
         params = restore_checkpoint(args.checkpoint, model.init(g, dev))
         blob = export_win_generator(model, params, batch=args.batch,
                                     length=args.length or 21,
+                                    platforms=args.platforms,
                                     serve_dtype=args.serve_dtype)
     pathlib.Path(args.out).write_bytes(blob)
     print(json.dumps({"artifact": args.out, "bytes": len(blob),
-                      "batch": args.batch, "platforms": ["cuda"]}, indent=2))
+                      "batch": args.batch,
+                      "platforms": args.platforms or [dev.type],
+                      "serve_dtype": args.serve_dtype or "float32"},
+                     indent=2))
 
 
 def _cmd_serve(args):
@@ -430,7 +433,10 @@ def main(argv=None):
     p_run.add_argument("--devices-per-process", type=int, default=None,
                        dest="devices_per_process", help=argparse.SUPPRESS)
     p_run.add_argument("--out-of-core", action="store_true",
-                       dest="out_of_core", help=argparse.SUPPRESS)
+                       dest="out_of_core",
+                       help="crvae family: stream both phases' batches from "
+                            "the series on disk through the native window "
+                            "loader (bit for bit the in-memory run)")
     p_run.add_argument("--artifacts-every", type=int, default=None,
                        dest="artifacts_every", metavar="N",
                        help="crvae family, with --out-dir: every N phase-2 "
@@ -544,13 +550,17 @@ def main(argv=None):
     p_x.add_argument("--length", type=int, default=None,
                      help="rollout length override")
     p_x.add_argument("--serve-dtype", choices=["float32", "bfloat16"],
-                     default=None)
+                     default=None,
+                     help="bfloat16: bf16 weights and carries through the "
+                          "rollout kernels' bf16 instantiations")
     p_x.add_argument("--serve-kernel", choices=["auto", "lax", "fused"],
                      default="lax",
                      help="kept for the reference's signature: every value "
                           "serves through the CUDA rollout kernels")
     p_x.add_argument("--platforms", nargs="+", default=None,
-                     help=argparse.SUPPRESS)
+                     choices=["cuda", "cpu"],
+                     help="devices the artifact may run on (default: the "
+                          "--device it is exported on)")
     _device_arg(p_x)
     p_x.set_defaults(fn=_cmd_export)
 

@@ -11,8 +11,9 @@ folded into the kernels' heads, conditioned generation), csrae (the
 MixtureCSRAE on binarised windows) and vrae (the plain VRAE on random
 sequences), on the ``lorenz96``, ``henon``, ``coupled_henon``, ``var``
 and ``random`` datasets, with the reference's ``.npy``, checkpoint, log,
-metrics and figure files.  Not ported yet, and raising where asked for:
-``out_of_core`` (ROADMAP A6) and ``mesh`` (A7).
+metrics and figure files; with ``out_of_core`` (crvae family) both phases
+stream their batches from the native window loader.  Not ported yet, and
+raising where asked for: ``mesh`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -298,6 +299,13 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     scikit-learn cannot be imported the figures are skipped and named on
     one stderr line (``evals/viz.py::FigureWriter``).
 
+    ``out_of_core=True`` (crvae family) writes the series to a raw float32
+    file (``series_<name>.f32`` under ``out_dir``), memory-maps it with the
+    native window loader and trains both phases through the streaming fits
+    (``train/streaming.py``), bit for bit the in-memory run; the eval
+    surfaces read the first ``min(4096, n)`` windows.  It composes with
+    ``checkpoint_every`` and ``resume``.
+
     The draws (``utils/seeding.py::role_generators``): one CPU generator
     seeded with ``seed`` draws one seed per role of ``ROLES`` in that
     order.  ``data`` (on the device) makes the series; ``init`` (CPU) the
@@ -320,9 +328,10 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     if mesh is not None:
         raise NotImplementedError("meshed runs are not ported yet "
                                   "(ROADMAP A7)")
-    if out_of_core:
-        raise NotImplementedError("out-of-core runs are not ported yet "
-                                  "(ROADMAP A6)")
+    if out_of_core and exp.model_family != "crvae":
+        raise ValueError(
+            f"--out-of-core supports the crvae family (streaming trainers); "
+            f"{name!r} is {exp.model_family!r}")
     if (checkpoint_every or resume) and exp.model_family != "crvae":
         raise ValueError(
             f"--checkpoint-every/--resume support the crvae family "
@@ -353,7 +362,8 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
         exp, name, seed, series, truth, gens, dev, out, figs, results,
         run_phase2=run_phase2, verbose=verbose,
         save_checkpoints=save_checkpoints, artifacts_every=artifacts_every,
-        checkpoint_every=checkpoint_every, resume=resume, log_fn=log_fn)
+        checkpoint_every=checkpoint_every, resume=resume, log_fn=log_fn,
+        **({"out_of_core": True} if out_of_core else {}))
     figs.report()
     if out:
         (out / f"metrics_{name}.json").write_text(json.dumps(results,
@@ -382,11 +392,37 @@ def gc_dynamics_rows(scores: torch.Tensor) -> dict[str, dict]:
 
 
 def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
-               results, *,
-               run_phase2, verbose, save_checkpoints, artifacts_every,
-               checkpoint_every, resume, log_fn):
+               results, *, out_of_core=False, **kw):
     """The crvae family's run (``run_experiment``), results into
-    ``results``."""
+    ``results``.  ``out_of_core``: the series is written to a raw float32
+    file (``series_<name>.f32`` under ``out``, else in a temporary
+    directory), memory-mapped by the native loader, and both phases stream
+    their batches from it (``train/streaming.py``), bit for bit the
+    in-memory run; the eval and figure surfaces read the first
+    ``min(4096, n)`` windows (at the committed configs all of them)."""
+    import contextlib
+    import tempfile
+
+    from vae_connexe_torch.data.native_loader import NativeWindowLoader
+
+    with contextlib.ExitStack() as stack:
+        loader = None
+        if out_of_core:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
+            path = (out or pathlib.Path(tmp)) / f"series_{name}.f32"
+            series_np = np.ascontiguousarray(series.cpu().numpy(), np.float32)
+            series_np.tofile(path)
+            loader = stack.enter_context(NativeWindowLoader.from_file(
+                str(path), *series_np.shape))
+        _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
+                      results, loader, **kw)
+
+
+def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
+                  results, loader, *, run_phase2, verbose, save_checkpoints,
+                  artifacts_every, checkpoint_every, resume, log_fn):
+    """``_run_crvae`` with the windows in memory (``loader`` None) or
+    streamed from ``loader``."""
     from vae_connexe_torch.data import arrange_input
     from vae_connexe_torch.evals import auto_threshold, gc_metrics, moment_match
     from vae_connexe_torch.evals.viz import (
@@ -398,7 +434,9 @@ def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
     from vae_connexe_torch.models import CRVAE, ErrorVAE
     from vae_connexe_torch.train import (
         fit_phase1,
+        fit_phase1_streaming,
         fit_phase2,
+        fit_phase2_streaming,
         generate_with_compensation,
     )
     from vae_connexe_torch.utils import JsonlWriter, save_checkpoint
@@ -422,10 +460,20 @@ def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
         return {"checkpoint_dir": str(out / f"ckpt_mid_{phase}"),
                 "checkpoint_every": checkpoint_every or 0, "resume": resume}
 
-    windows, _ = arrange_input(series, exp.context)
-    best, _, m1 = fit_phase1(model, params, windows, full, exp.phase1,
-                             g["run"], verbose=verbose, log_fn=log_fn,
-                             callback=log_phase("phase1"), **ckpt_kw("phase1"))
+    if loader is None:
+        windows, _ = arrange_input(series, exp.context)
+        best, _, m1 = fit_phase1(model, params, windows, full, exp.phase1,
+                                 g["run"], verbose=verbose, log_fn=log_fn,
+                                 callback=log_phase("phase1"),
+                                 **ckpt_kw("phase1"))
+    else:
+        best, _, m1 = fit_phase1_streaming(
+            model, params, loader, exp.context, full, exp.phase1, g["run"],
+            verbose=verbose, log_fn=log_fn, callback=log_phase("phase1"),
+            **ckpt_kw("phase1"))
+        n_eval = min(4096, loader.t - exp.context)
+        windows = torch.from_numpy(loader.gather(
+            np.arange(n_eval, dtype=np.int64), exp.context)).to(dev)
     scores = model.gc(best, threshold=False)
     gc_est = model.gc(best, threshold=True)
     results["phase1"] = m1
@@ -482,11 +530,18 @@ def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
         p2_cb = ((lambda step, state, metrics: [c(step, state, metrics)
                                                 for c in callbacks])
                  if callbacks else None)
-        best2, err2, _, m2 = fit_phase2(model, err_model, p2_params,
-                                        err_params, windows, mask,
-                                        exp.phase2, g["p2"],
-                                        verbose=verbose, log_fn=log_fn,
-                                        callback=p2_cb, **ckpt_kw("phase2"))
+        if loader is None:
+            best2, err2, _, m2 = fit_phase2(model, err_model, p2_params,
+                                            err_params, windows, mask,
+                                            exp.phase2, g["p2"],
+                                            verbose=verbose, log_fn=log_fn,
+                                            callback=p2_cb,
+                                            **ckpt_kw("phase2"))
+        else:
+            best2, err2, _, m2 = fit_phase2_streaming(
+                model, err_model, p2_params, err_params, loader,
+                exp.context, mask, exp.phase2, g["p2"], verbose=verbose,
+                log_fn=log_fn, callback=p2_cb, **ckpt_kw("phase2"))
         results["phase2"] = m2
         gen = generate_with_compensation(model, err_model, best2, err2,
                                          g["gen"], 256, parents=mask)

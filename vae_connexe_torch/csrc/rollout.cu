@@ -58,8 +58,21 @@
 // cluster (3 heads of 20 on 7 blocks).  At B=1 neither bound applies: the
 // 21-step dependency chain (a gate product, a readout, a barrier a step)
 // sets the time.
+//
+// Storage type.  Every kernel is instantiated for float32 weights and for
+// bfloat16 weights (W = __nv_bfloat16, bf16 serving: JAX's _free_run and
+// ErrorVAE.sample with dtype=bfloat16).  In bf16 the weights, biases and
+// readout stay bf16 in memory (the resident route stages them as bf16 in
+// shared memory, rows at res_weight_stride: half the bytes, so a head at
+// hidden 128 fits a block), the products are accumulated and the gate math
+// done in float32, and each step's new state and emitted x are rounded to
+// the nearest bf16 (carry<W>), as JAX's bf16 carries are; x0, h0 and the
+// noise arrive as float32 holding bf16 values, and the output is float32.
+// The float32 instantiation is the code before bf16 existed (carry<float>
+// is the identity).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -71,19 +84,50 @@ namespace {
 
 using vcx::i64;
 using vcx::sigmoid_f;
+using bf16 = __nv_bfloat16;
+
+// ---- Storage type ------------------------------------------------------------
+
+// A weight as float32.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// A weight through the read-only cache, as float32.
+template <typename W>
+__device__ __forceinline__ float ldg_f(const W* p) { return to_f(__ldg(p)); }
+
+// A carry (new state, emitted x) as it is stored: unchanged in float32,
+// rounded to the nearest bf16 in bf16.
+template <typename W>
+__device__ __forceinline__ float carry(float v) {
+  if constexpr (sizeof(W) == 2)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+// The weights of units j, j + 1 (j even) at p, as float32.
+template <typename W>
+__device__ __forceinline__ float2 ld2(const W* p) {
+  if constexpr (sizeof(W) == 2)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  else
+    return *reinterpret_cast<const float2*>(p);
+}
 
 // ---- Streamed route ----------------------------------------------------------
 
+template <typename W>
 struct RolloutArgs {
   const float* x0;      // (B, D), or nullptr for a zero start
   const float* h0;      // (B, H), every head's initial state
   const float* noise;   // (B, T, D), or nullptr for none
-  const float* w_ih_t;  // (P, D, 3H), gates [r; z; n] along the last axis
-  const float* w_hh_t;  // (P, H, 3H)
-  const float* b_ih;    // (P, 3H)
-  const float* b_hh;    // (P, 3H)
-  const float* ro_w;    // (P, O, H)
-  const float* ro_b;    // (P, O)
+  const W* w_ih_t;      // (P, D, 3H), gates [r; z; n] along the last axis
+  const W* w_hh_t;      // (P, H, 3H)
+  const W* b_ih;        // (P, 3H)
+  const W* b_hh;        // (P, 3H)
+  const W* ro_w;        // (P, O, H)
+  const W* ro_b;        // (P, O)
   float* out;           // (B, T, D)
   int B, T, P, H, O;
   float noise_scale;
@@ -95,8 +139,8 @@ struct RolloutArgs {
 template <int BT>
 constexpr int max_threads() { return BT <= 2 ? 1024 : 2048 / BT; }
 
-template <int BT>
-__device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
+template <int BT, typename W>
+__device__ __forceinline__ void rollout_tile(const RolloutArgs<W>& a) {
   extern __shared__ float smem[];
   const int P = a.P, H = a.H, O = a.O, D = P * O, G = 3 * H;
   const int head_stride = BT * H;           // floats per head in a buffer
@@ -122,14 +166,14 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
     // Gates: one (head, unit) pair per thread, all BT rows at once.
     for (int u = tid; u < P * H; u += nth) {
       const int i = u / H, j = u % H;
-      const float* wi = a.w_ih_t + (size_t)i * D * G;
-      const float* wh = a.w_hh_t + (size_t)i * H * G;
+      const W* wi = a.w_ih_t + (size_t)i * D * G;
+      const W* wh = a.w_hh_t + (size_t)i * H * G;
       const float* hi = h_cur + i * head_stride;
-      const float* bi = a.b_ih + (size_t)i * G;
-      const float* bh = a.b_hh + (size_t)i * G;
-      const float br = __ldg(bi + j) + __ldg(bh + j);
-      const float bz = __ldg(bi + H + j) + __ldg(bh + H + j);
-      const float bxn = __ldg(bi + 2 * H + j), bhn = __ldg(bh + 2 * H + j);
+      const W* bi = a.b_ih + (size_t)i * G;
+      const W* bh = a.b_hh + (size_t)i * G;
+      const float br = ldg_f(bi + j) + ldg_f(bh + j);
+      const float bz = ldg_f(bi + H + j) + ldg_f(bh + H + j);
+      const float bxn = ldg_f(bi + 2 * H + j), bhn = ldg_f(bh + 2 * H + j);
       float ar[BT], az[BT], axn[BT], ahn[BT];
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
@@ -139,8 +183,8 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
       // each comes from L2, and one at a time would leave the SM waiting.
 #pragma unroll 4
       for (int k = 0; k < D; ++k) {
-        const float* w = wi + (size_t)k * G + j;
-        const float wr = __ldg(w), wz = __ldg(w + H), wn = __ldg(w + 2 * H);
+        const W* w = wi + (size_t)k * G + j;
+        const float wr = ldg_f(w), wz = ldg_f(w + H), wn = ldg_f(w + 2 * H);
 #pragma unroll
         for (int b = 0; b < BT; ++b) {
           const float v = x[b * D + k];
@@ -151,8 +195,8 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
       }
 #pragma unroll 4
       for (int k = 0; k < H; ++k) {
-        const float* w = wh + (size_t)k * G + j;
-        const float wr = __ldg(w), wz = __ldg(w + H), wn = __ldg(w + 2 * H);
+        const W* w = wh + (size_t)k * G + j;
+        const float wr = ldg_f(w), wz = ldg_f(w + H), wn = ldg_f(w + 2 * H);
 #pragma unroll
         for (int b = 0; b < BT; ++b) {
           const float v = hi[b * H + k];
@@ -167,7 +211,7 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
         const float r = sigmoid_f(ar[b]);
         const float z = sigmoid_f(az[b]);
         const float n = tanhf(axn[b] + r * ahn[b]);
-        hn[b * H + j] = (1.0f - z) * n + z * hi[b * H + j];
+        hn[b * H + j] = carry<W>((1.0f - z) * n + z * hi[b * H + j]);
       }
     }
     __syncthreads();
@@ -176,14 +220,15 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
     for (int e = tid; e < BT * D; e += nth) {
       const int b = e / D, c = e % D, i = c / O;
       const float* hv = h_next + i * head_stride + b * H;
-      const float* w = a.ro_w + (size_t)c * H;   // (P, O, H) row i*O + o = c
-      float acc = __ldg(a.ro_b + c);
+      const W* w = a.ro_w + (size_t)c * H;       // (P, O, H) row i*O + o = c
+      float acc = ldg_f(a.ro_b + c);
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) acc = fmaf(hv[k], __ldg(w + k), acc);
+      for (int k = 0; k < H; ++k) acc = fmaf(hv[k], ldg_f(w + k), acc);
       const int row = row0 + b;
       if (row < a.B) {
         const size_t off = ((size_t)row * a.T + t) * D + c;
         if (a.noise != nullptr) acc += a.noise_scale * a.noise[off];
+        acc = carry<W>(acc);
         a.out[off] = acc;
       }
       x[e] = acc;
@@ -193,18 +238,18 @@ __device__ __forceinline__ void rollout_tile(const RolloutArgs& a) {
   }
 }
 
-template <int BT>
+template <int BT, typename W>
 __global__ void __launch_bounds__(max_threads<BT>())
-crvae_free_run_kernel(RolloutArgs a) { rollout_tile<BT>(a); }
+crvae_free_run_kernel(RolloutArgs<W> a) { rollout_tile<BT, W>(a); }
 
-template <int BT>
+template <int BT, typename W>
 __global__ void __launch_bounds__(max_threads<BT>())
-errvae_sample_kernel(RolloutArgs a) { rollout_tile<BT>(a); }
+errvae_sample_kernel(RolloutArgs<W> a) { rollout_tile<BT, W>(a); }
 
-template <int BT>
-cudaError_t launch_tile(bool crvae, const RolloutArgs& a, cudaStream_t s) {
-  void (*kern)(RolloutArgs) =
-      crvae ? &crvae_free_run_kernel<BT> : &errvae_sample_kernel<BT>;
+template <int BT, typename W>
+cudaError_t launch_tile(bool crvae, const RolloutArgs<W>& a, cudaStream_t s) {
+  void (*kern)(RolloutArgs<W>) =
+      crvae ? &crvae_free_run_kernel<BT, W> : &errvae_sample_kernel<BT, W>;
   const size_t smem =
       (2 * (size_t)a.P * BT * a.H + (size_t)BT * a.P * a.O) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -217,15 +262,16 @@ cudaError_t launch_tile(bool crvae, const RolloutArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-cudaError_t launch(bool crvae, const RolloutArgs& a, int bt, void* stream) {
+template <typename W>
+cudaError_t launch(bool crvae, const RolloutArgs<W>& a, int bt, void* stream) {
   if (a.B < 1 || a.T < 1 || a.P < 1 || a.H < 1 || a.O < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bt) {
-    case 1: return launch_tile<1>(crvae, a, s);
-    case 2: return launch_tile<2>(crvae, a, s);
-    case 4: return launch_tile<4>(crvae, a, s);
-    case 8: return launch_tile<8>(crvae, a, s);
+    case 1: return launch_tile<1, W>(crvae, a, s);
+    case 2: return launch_tile<2, W>(crvae, a, s);
+    case 4: return launch_tile<4, W>(crvae, a, s);
+    case 8: return launch_tile<8, W>(crvae, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -237,16 +283,17 @@ cudaError_t launch(bool crvae, const RolloutArgs& a, int bt, void* stream) {
 // split gives them (gate_threads), the rest idle in the gate product.
 constexpr int kResidentThreads = 512;
 
+template <typename W>
 struct ResidentArgs {
   const float* x0;      // (B, D), or nullptr for a zero start
   const float* h0;      // (B, H), every head's initial state
   const float* noise;   // (B, T, D), or nullptr for none
-  const float* w_ih;    // (P, 3H, D), torch layout, rows [r; z; n]
-  const float* w_hh;    // (P, 3H, H)
-  const float* b_ih;    // (P, 3H)
-  const float* b_hh;    // (P, 3H)
-  const float* ro_w;    // (P, O, H)
-  const float* ro_b;    // (P, O)
+  const W* w_ih;        // (P, 3H, D), torch layout, rows [r; z; n]
+  const W* w_hh;        // (P, 3H, H)
+  const W* b_ih;        // (P, 3H)
+  const W* b_hh;        // (P, 3H)
+  const W* ro_w;        // (P, O, H)
+  const W* ro_b;        // (P, O)
   float* out;           // (B, T, D)
   int B, T, P, H, O;
   int bt;               // rows of a batch tile, a multiple of 4
@@ -259,9 +306,26 @@ struct ResidentArgs {
 // columns at the same k, meet in different banks.
 __host__ __device__ inline int res_row_ld(int H) { return vcx::fwd_units(H) + 1; }
 
+// Row stride (in weights) of the staged W^T rows: B1's in float32; in bf16
+// 3 fwd_units(H) padded to 32 past a multiple of 64, so that rows k and
+// k + 1, which the two lanes of a k split read, are 16 words apart mod 32
+// and meet in disjoint banks, as B1's float rows do.
+__host__ __device__ inline int res_weight_stride(int H, bool half) {
+  if (!half) return vcx::fwd_weight_stride(H);
+  const int g = 3 * vcx::fwd_units(H);
+  return g + (96 - g % 64) % 64;
+}
+
+// Floats of one head's staged W_ih^T and W_hh^T (bf16 weights take half).
+__host__ __device__ inline i64 res_weights_floats(int D, int H, bool half) {
+  if (!half) return vcx::fwd_weights_floats(D, H, false);
+  return ((i64)(D + H) * res_weight_stride(H, true) / 2 + 3) & ~3LL;
+}
+
 // Layout in shared memory (floats), every region 16-byte aligned:
-//   w   [nh][fwd_weights_floats(D, H)]  W_ih^T then W_hh^T of each head,
-//                                       rows at fwd_weight_stride(H)
+//   w   [nh][res_weights_floats(D, H)]  W_ih^T then W_hh^T of each head,
+//                                       rows at res_weight_stride(H), in
+//                                       the weights' type
 //   ro  [nh * O][res_row_ld(H)]         readout rows, zero past H
 //   rob [nh * O]                        readout biases
 //   x   [2][D][bt]                      the step's input, transposed
@@ -270,8 +334,8 @@ __host__ __device__ inline int res_row_ld(int H) { return vcx::fwd_units(H) + 1;
 // x and h are read as float4s of 4 rows, as B1 reads them.
 __host__ __device__ inline i64 resident_smem_floats(int nh, int bt, int D,
                                                     int H, int O,
-                                                    bool noise) {
-  return nh * vcx::fwd_weights_floats(D, H, false) +
+                                                    bool noise, bool half) {
+  return nh * res_weights_floats(D, H, half) +
          vcx::round4(nh * O * res_row_ld(H)) + vcx::round4(nh * O) +
          2LL * D * bt + 2LL * nh * res_row_ld(H) * bt +
          (noise ? 2LL * nh * O * bt : 0);
@@ -284,7 +348,8 @@ __host__ __device__ inline int gate_threads(int nh, int bt, int H, int S) {
 
 // Copy step t's noise columns [col0, col0 + ncols) of the tile's rows into
 // dst [ncols][bt] (zeros past B); commits a group.
-__device__ inline void prefetch_noise(float* dst, const ResidentArgs& a,
+template <typename W>
+__device__ inline void prefetch_noise(float* dst, const ResidentArgs<W>& a,
                                       int col0, int ncols, int row0, int t) {
   const int bt = a.bt, D = a.P * a.O;
   for (int e = threadIdx.x; e < ncols * bt; e += blockDim.x) {
@@ -331,17 +396,17 @@ struct GateAcc {
 // Add v[c] . W^T[c] for c = ks, ks + S, ... < n: v rows at vk + c * bt (the
 // lane's 4 rows, a float4), the lane's 2 units of each gate at
 // w + c * ld + j.  HIDDEN: the n gate's product goes to the hidden part.
-template <bool HIDDEN, int S>
+template <bool HIDDEN, int S, typename W>
 __device__ __forceinline__ void gate_product(GateAcc& a, const float* vk,
-                                             const float* w, int n, int ks,
+                                             const W* w, int n, int ks,
                                              int j, int U, int ld, int bt) {
 #pragma unroll 4
   for (int c = ks; c < n; c += S) {
     const float4 v = *reinterpret_cast<const float4*>(vk + c * bt);
-    const float* wp = w + c * ld + j;
-    const float2 wr = *reinterpret_cast<const float2*>(wp);
-    const float2 wz = *reinterpret_cast<const float2*>(wp + U);
-    const float2 wn = *reinterpret_cast<const float2*>(wp + 2 * U);
+    const W* wp = w + c * ld + j;
+    const float2 wr = ld2(wp);
+    const float2 wz = ld2(wp + U);
+    const float2 wn = ld2(wp + 2 * U);
     const float vr[vcx::kFwdRows] = {v.x, v.y, v.z, v.w};
     float(&an)[vcx::kFwdRows][vcx::kFwdUnits] = HIDDEN ? a.hn : a.xn;
 #pragma unroll
@@ -366,8 +431,8 @@ __device__ __forceinline__ int gate_row(int ks) {
 // Sum the S lanes' partials in a fixed order, halving what each lane keeps
 // at every exchange: unit j + (ks & 1) (as fwd_pair_sum), then, at S = 4,
 // two of the 4 rows; and finish the gates of the lane's unit and rows from
-// h_prev (hp, 8 / S floats) into out.
-template <int S>
+// h_prev (hp, 8 / S floats) into out, each new state a carry<W>.
+template <int S, typename W>
 __device__ __forceinline__ void gate_finish(const GateAcc& a, unsigned mask,
                                             int ks, const float* hp,
                                             float* out) {
@@ -403,12 +468,31 @@ __device__ __forceinline__ void gate_finish(const GateAcc& a, unsigned mask,
   for (int r = 0; r < R; ++r) {
     const float rr = sigmoid_f(s[r][0]), zz = sigmoid_f(s[r][1]);
     const float nn = tanhf(s[r][2] + rr * s[r][3]);
-    o[r] = (1.0f - zz) * nn + zz * h[r];
+    o[r] = carry<W>((1.0f - zz) * nn + zz * h[r]);
   }
   if constexpr (R == 4)
     *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
   else
     *reinterpret_cast<float2*>(out) = make_float2(o[0], o[1]);
+}
+
+// Stage one head's weight (3H rows of `cols`) transposed into dst at row
+// stride ld, zeros in the pad unit's columns: gru_fwd.cuh's staging in
+// float32, the same layout element by element in bf16.
+__device__ inline void stage_transposed(float* dst, const float* src, int H,
+                                        int cols, int ld) {
+  vcx::fwd_stage_transposed(dst, src, H, cols, ld);
+}
+__device__ inline void stage_transposed(bf16* dst, const bf16* src, int H,
+                                        int cols, int ld) {
+  const int G = 3 * H;
+  for (int e = threadIdx.x; e < G * cols; e += blockDim.x) {
+    const int g = e % G, c = e / G;
+    dst[c * ld + vcx::fwd_weight_col(g, H)] = __ldg(src + (i64)g * cols + c);
+  }
+  if (H % 2)
+    for (int e = threadIdx.x; e < 3 * cols; e += blockDim.x)
+      dst[(e / 3) * ld + (e % 3) * (H + 1) + H] = __float2bfloat16_rn(0.0f);
 }
 
 // The two halves of a cluster barrier: arrive releases this thread's
@@ -423,16 +507,17 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // One block (K2) or one block of a cluster (K1, CLUSTER) over its batch
-// tiles, the k of a step split over S lanes; kResidentThreads threads,
-// dynamic shared memory resident_smem_floats(a.nh, a.bt, P * O, a.H, a.O,
-// noise buffers: K1).
-template <bool CLUSTER, int S>
-__device__ void resident_body(const ResidentArgs& a) {
+// tiles, the k of a step split over S lanes, weights of type W;
+// kResidentThreads threads, dynamic shared memory resident_smem_floats(a.nh,
+// a.bt, P * O, a.H, a.O, noise buffers: K1, bf16 weights).
+template <bool CLUSTER, int S, typename W>
+__device__ void resident_body(const ResidentArgs<W>& a) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool kHalf = sizeof(W) == 2;
   const int H = a.H, O = a.O, D = a.P * O, G = 3 * H, T = a.T, bt = a.bt;
-  const int U = vcx::fwd_units(H), ld = vcx::fwd_weight_stride(H);
+  const int U = vcx::fwd_units(H), ld = res_weight_stride(H, kHalf);
   const int ldr = res_row_ld(H), hst = ldr * bt;
-  const i64 wfl = vcx::fwd_weights_floats(D, H, false);
+  const i64 wfl = res_weights_floats(D, H, kHalf);
   int rank = 0, size = 1, group = blockIdx.x, n_groups = gridDim.x;
   if constexpr (CLUSTER) {
     cg::cluster_group cl = cg::this_cluster();
@@ -454,16 +539,16 @@ __device__ void resident_body(const ResidentArgs& a) {
   const int xbuf = D * bt, hbuf = a.nh * hst, nbuf = a.nh * O * bt;
 
   for (int i = 0; i < nh; ++i) {
-    float* wi = w + i * wfl;
-    vcx::fwd_stage_transposed(wi, a.w_ih + (i64)(head0 + i) * G * D, H, D, ld);
-    vcx::fwd_stage_transposed(wi + D * ld, a.w_hh + (i64)(head0 + i) * G * H,
-                              H, H, ld);
+    W* wi = reinterpret_cast<W*>(w + i * wfl);
+    stage_transposed(wi, a.w_ih + (i64)(head0 + i) * G * D, H, D, ld);
+    stage_transposed(wi + D * ld, a.w_hh + (i64)(head0 + i) * G * H, H, H, ld);
   }
   for (int e = threadIdx.x; e < ncols * ldr; e += blockDim.x) {
     const int k = e % ldr, c = e / ldr;
-    ro[e] = k < H ? a.ro_w[(i64)(col0 + c) * H + k] : 0.0f;
+    ro[e] = k < H ? to_f(a.ro_w[(i64)(col0 + c) * H + k]) : 0.0f;
   }
-  for (int e = threadIdx.x; e < ncols; e += blockDim.x) rob[e] = a.ro_b[col0 + e];
+  for (int e = threadIdx.x; e < ncols; e += blockDim.x)
+    rob[e] = to_f(a.ro_b[col0 + e]);
 
   // The thread tiles cover the block's heads taken as nh * bt rows: a
   // tile's 4 rows never straddle two heads (bt is a multiple of 4).
@@ -476,21 +561,21 @@ __device__ void resident_body(const ResidentArgs& a) {
   float br[2], bz[2], bxn[2], bhn[2];
   {
     const int i = head0 + (gate ? hl : 0);
-    const float* bih = a.b_ih + (i64)i * G;
-    const float* bhh = a.b_hh + (i64)i * G;
+    const W* bih = a.b_ih + (i64)i * G;
+    const W* bhh = a.b_hh + (i64)i * G;
     // Lane 0 of a split starts its partials from the biases, the others
     // from zero, so each sum holds them once.
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const bool on = gate && ks == 0 && j + u < H;
-      br[u] = on ? bih[j + u] + bhh[j + u] : 0.0f;
-      bz[u] = on ? bih[H + j + u] + bhh[H + j + u] : 0.0f;
-      bxn[u] = on ? bih[2 * H + j + u] : 0.0f;
-      bhn[u] = on ? bhh[2 * H + j + u] : 0.0f;
+      br[u] = on ? to_f(bih[j + u]) + to_f(bhh[j + u]) : 0.0f;
+      bz[u] = on ? to_f(bih[H + j + u]) + to_f(bhh[H + j + u]) : 0.0f;
+      bxn[u] = on ? to_f(bih[2 * H + j + u]) : 0.0f;
+      bhn[u] = on ? to_f(bhh[2 * H + j + u]) : 0.0f;
     }
   }
-  const float* wx = w + (gate ? hl : 0) * wfl;
-  const float* wh = wx + D * ld;
+  const W* wx = reinterpret_cast<const W*>(w + (gate ? hl : 0) * wfl);
+  const W* wh = wx + D * ld;
   const int hme = (gate ? hl : 0) * hst;   // this lane's head in a buffer
   // The state this lane finishes: unit j + (ks & 1), its rows.
   const int h_at = hme + (j + (ks & 1)) * bt + r0 + gate_row<S>(ks);
@@ -543,8 +628,8 @@ __device__ void resident_body(const ResidentArgs& a) {
       if (gate) {
         gate_product<false, S>(acc, xs + k * xbuf + r0, wx, D, ks, j, U, ld,
                                bt);
-        gate_finish<S>(acc, mask, ks, hs + k * hbuf + h_at,
-                       hs + (k ^ 1) * hbuf + h_at);
+        gate_finish<S, W>(acc, mask, ks, hs + k * hbuf + h_at,
+                          hs + (k ^ 1) * hbuf + h_at);
       }
       if (a.noise != nullptr) {   // this step's noise has landed
         if (t + 1 < T)
@@ -572,6 +657,7 @@ __device__ void resident_body(const ResidentArgs& a) {
         for (; q < H; ++q) s0 = fmaf(hv[q * bt], wv[q], s0);
         float v = (s0 + s1) + (s2 + s3) + rob[c];
         if (a.noise != nullptr) v += a.noise_scale * nz[k * nbuf + e];
+        v = carry<W>(v);
         const int row = row0 + b, col = col0 + c;
         if (row < a.B) a.out[((i64)row * T + t) * D + col] = v;
         float* dst = xs + (k ^ 1) * xbuf + col * bt + b;
@@ -595,23 +681,30 @@ __device__ void resident_body(const ResidentArgs& a) {
   }
 }
 
-template <int S>
+template <int S, typename W>
 __global__ void __launch_bounds__(kResidentThreads)
-crvae_free_run_resident_kernel(ResidentArgs a) { resident_body<true, S>(a); }
+crvae_free_run_resident_kernel(ResidentArgs<W> a) {
+  resident_body<true, S, W>(a);
+}
 
-template <int S>
+template <int S, typename W>
 __global__ void __launch_bounds__(kResidentThreads)
-errvae_sample_resident_kernel(ResidentArgs a) { resident_body<false, S>(a); }
+errvae_sample_resident_kernel(ResidentArgs<W> a) {
+  resident_body<false, S, W>(a);
+}
 
 // The kernels at split 2 or 4 (resident_ok checks the split).
-using ResidentKernel = void (*)(ResidentArgs);
-ResidentKernel crvae_kernel(int split) {
-  return split == 4 ? crvae_free_run_resident_kernel<4>
-                    : crvae_free_run_resident_kernel<2>;
+template <typename W>
+using ResidentKernel = void (*)(ResidentArgs<W>);
+template <typename W>
+ResidentKernel<W> crvae_kernel(int split) {
+  return split == 4 ? crvae_free_run_resident_kernel<4, W>
+                    : crvae_free_run_resident_kernel<2, W>;
 }
-ResidentKernel errvae_kernel(int split) {
-  return split == 4 ? errvae_sample_resident_kernel<4>
-                    : errvae_sample_resident_kernel<2>;
+template <typename W>
+ResidentKernel<W> errvae_kernel(int split) {
+  return split == 4 ? errvae_sample_resident_kernel<4, W>
+                    : errvae_sample_resident_kernel<2, W>;
 }
 
 // Whether a resident launch of these sizes is one the kernels take: bt a
@@ -625,12 +718,13 @@ bool resident_ok(int B, int T, int H, int nh, int bt, int split) {
 // Set K1's shared-memory limit (and, above 8 blocks, its non-portable
 // cluster permission) and fill a launch configuration with the cluster
 // dimension in attr.  K1's blocks always hold the noise buffers.
-cudaError_t cluster_config(ResidentKernel kern, const ResidentArgs& a,
+template <typename W>
+cudaError_t cluster_config(ResidentKernel<W> kern, const ResidentArgs<W>& a,
                            int cluster, int n_clusters, cudaStream_t s,
                            cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
-  const size_t smem =
-      resident_smem_floats(a.nh, a.bt, a.P, a.H, 1, true) * sizeof(float);
+  const size_t smem = resident_smem_floats(a.nh, a.bt, a.P, a.H, 1, true,
+                                           sizeof(W) == 2) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && cluster > 8)
@@ -651,68 +745,60 @@ cudaError_t cluster_config(ResidentKernel kern, const ResidentArgs& a,
   return cudaSuccess;
 }
 
-ResidentArgs crvae_args(const float* x0, const float* h0, const float* noise,
-                        const float* w_ih, const float* w_hh,
-                        const float* b_ih, const float* b_hh,
-                        const float* ro_w, const float* ro_b, float* out,
-                        int B, int T, int P, int H, float noise_scale,
-                        int cluster, int bt) {
-  return ResidentArgs{x0, h0, noise, w_ih, w_hh, b_ih, b_hh, ro_w, ro_b,
-                      out, B, T, P, H, 1, bt, (P + cluster - 1) / cluster,
-                      noise_scale};
+template <typename W>
+ResidentArgs<W> crvae_args(const float* x0, const float* h0,
+                           const float* noise, const void* w_ih,
+                           const void* w_hh, const void* b_ih,
+                           const void* b_hh, const void* ro_w,
+                           const void* ro_b, float* out, int B, int T, int P,
+                           int H, float noise_scale, int cluster, int bt) {
+  return ResidentArgs<W>{
+      x0, h0, noise, static_cast<const W*>(w_ih), static_cast<const W*>(w_hh),
+      static_cast<const W*>(b_ih), static_cast<const W*>(b_hh),
+      static_cast<const W*>(ro_w), static_cast<const W*>(ro_b), out, B, T, P,
+      H, 1, bt, (P + cluster - 1) / cluster, noise_scale};
 }
 
-}  // namespace
-
-extern "C" {
-
-// CRVAE free run, streamed route.  x0 (B, D), h0 (B, H) shared by all
-// heads, noise (B, T, D); weights in the (in, 3H) layout; readout w
-// (P, 1, H), b (P, 1).  Writes out (B, T, D), D = P.  Returns a cudaError_t.
-int vcx_crvae_free_run_streamed(const float* x0, const float* h0,
-                                const float* noise, const float* w_ih_t,
-                                const float* w_hh_t, const float* b_ih,
-                                const float* b_hh, const float* ro_w,
-                                const float* ro_b, float* out, int B, int T,
-                                int P, int H, float noise_scale, int bt,
-                                void* stream) {
-  RolloutArgs a{x0, h0, noise, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b, out,
-                B, T, P, H, 1, noise_scale};
+template <typename W>
+int crvae_streamed(const float* x0, const float* h0, const float* noise,
+                   const void* w_ih_t, const void* w_hh_t, const void* b_ih,
+                   const void* b_hh, const void* ro_w, const void* ro_b,
+                   float* out, int B, int T, int P, int H, float noise_scale,
+                   int bt, void* stream) {
+  RolloutArgs<W> a{x0, h0, noise, static_cast<const W*>(w_ih_t),
+                   static_cast<const W*>(w_hh_t), static_cast<const W*>(b_ih),
+                   static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
+                   static_cast<const W*>(ro_b), out, B, T, P, H, 1,
+                   noise_scale};
   return (int)launch(true, a, bt, stream);
 }
 
-// ErrorVAE free run from x0 = 0, streamed route.  h0 (B, H); weights
-// (1, D, 3H), (1, H, 3H), (1, 3H); readout w (D, H), b (D,).  Writes out
-// (B, T, D).
-int vcx_errvae_sample_streamed(const float* h0, const float* w_ih_t,
-                               const float* w_hh_t, const float* b_ih,
-                               const float* b_hh, const float* ro_w,
-                               const float* ro_b, float* out, int B, int T,
-                               int D, int H, int bt, void* stream) {
-  RolloutArgs a{nullptr, h0, nullptr, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b,
-                out, B, T, 1, H, D, 0.0f};
+template <typename W>
+int errvae_streamed(const float* h0, const void* w_ih_t, const void* w_hh_t,
+                    const void* b_ih, const void* b_hh, const void* ro_w,
+                    const void* ro_b, float* out, int B, int T, int D, int H,
+                    int bt, void* stream) {
+  RolloutArgs<W> a{nullptr, h0, nullptr, static_cast<const W*>(w_ih_t),
+                   static_cast<const W*>(w_hh_t), static_cast<const W*>(b_ih),
+                   static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
+                   static_cast<const W*>(ro_b), out, B, T, 1, H, D, 0.0f};
   return (int)launch(false, a, bt, stream);
 }
 
-// CRVAE free run, resident route: clusters of `cluster` blocks, tiles of bt
-// rows, the k of a step split over `split` lanes, n_clusters persistent
-// clusters.  Weights in torch's layout: w_ih (P, 3H, D), w_hh (P, 3H, H),
-// b (P, 3H); readout w (P, 1, H), b (P, 1).
-int vcx_crvae_free_run_resident(const float* x0, const float* h0,
-                                const float* noise, const float* w_ih,
-                                const float* w_hh, const float* b_ih,
-                                const float* b_hh, const float* ro_w,
-                                const float* ro_b, float* out, int B, int T,
-                                int P, int H, float noise_scale, int cluster,
-                                int bt, int split, int n_clusters,
-                                void* stream) {
+template <typename W>
+int crvae_resident(const float* x0, const float* h0, const float* noise,
+                   const void* w_ih, const void* w_hh, const void* b_ih,
+                   const void* b_hh, const void* ro_w, const void* ro_b,
+                   float* out, int B, int T, int P, int H, float noise_scale,
+                   int cluster, int bt, int split, int n_clusters,
+                   void* stream) {
   if (cluster < 1 || cluster > P || n_clusters < 1 ||
       !resident_ok(B, T, H, (P + cluster - 1) / cluster, bt, split))
     return (int)cudaErrorInvalidValue;
-  const ResidentArgs a = crvae_args(x0, h0, noise, w_ih, w_hh, b_ih, b_hh,
-                                    ro_w, ro_b, out, B, T, P, H, noise_scale,
-                                    cluster, bt);
-  const ResidentKernel kern = crvae_kernel(split);
+  const ResidentArgs<W> a =
+      crvae_args<W>(x0, h0, noise, w_ih, w_hh, b_ih, b_hh, ro_w, ro_b, out, B,
+                    T, P, H, noise_scale, cluster, bt);
+  const ResidentKernel<W> kern = crvae_kernel<W>(split);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = cluster_config(kern, a, cluster, n_clusters,
@@ -722,18 +808,17 @@ int vcx_crvae_free_run_resident(const float* x0, const float* h0,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// How many clusters of K1's resident kernel the card holds at once at
-// these shapes (cudaOccupancyMaxActiveClusters), into *out.
-int vcx_crvae_max_clusters(int P, int H, int cluster, int bt, int split,
-                           int* out) {
+template <typename W>
+int crvae_max_clusters(int P, int H, int cluster, int bt, int split,
+                       int* out) {
   if (cluster < 1 || cluster > P ||
       !resident_ok(1, 1, H, (P + cluster - 1) / cluster, bt, split))
     return (int)cudaErrorInvalidValue;
-  const ResidentArgs a = crvae_args(nullptr, nullptr, nullptr, nullptr,
-                                    nullptr, nullptr, nullptr, nullptr,
-                                    nullptr, nullptr, 1, 1, P, H, 0.0f,
-                                    cluster, bt);
-  const ResidentKernel kern = crvae_kernel(split);
+  const ResidentArgs<W> a =
+      crvae_args<W>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, 1, 1, P, H, 0.0f,
+                    cluster, bt);
+  const ResidentKernel<W> kern = crvae_kernel<W>(split);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = cluster_config(kern, a, cluster, 1, nullptr, cfg, attr);
@@ -741,22 +826,22 @@ int vcx_crvae_max_clusters(int P, int H, int cluster, int bt, int split,
   return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
-// ErrorVAE free run from x0 = 0, resident route: one block a tile of bt
-// rows, the k of a step split over `split` lanes.  Weights in torch's
-// layout: w_ih (3H, D), w_hh (3H, H), b (3H); readout w (D, H), b (D,).
-// Writes out (B, T, D).
-int vcx_errvae_sample_resident(const float* h0, const float* w_ih,
-                               const float* w_hh, const float* b_ih,
-                               const float* b_hh, const float* ro_w,
-                               const float* ro_b, float* out, int B, int T,
-                               int D, int H, int bt, int split,
-                               void* stream) {
+template <typename W>
+int errvae_resident(const float* h0, const void* w_ih, const void* w_hh,
+                    const void* b_ih, const void* b_hh, const void* ro_w,
+                    const void* ro_b, float* out, int B, int T, int D, int H,
+                    int bt, int split, void* stream) {
   if (D < 1 || !resident_ok(B, T, H, 1, bt, split))
     return (int)cudaErrorInvalidValue;
-  const ResidentArgs a{nullptr, h0, nullptr, w_ih, w_hh, b_ih, b_hh, ro_w,
-                       ro_b, out, B, T, 1, H, D, bt, 1, 0.0f};
-  const ResidentKernel kern = errvae_kernel(split);
-  const size_t smem = resident_smem_floats(1, bt, D, H, D, false) * sizeof(float);
+  const ResidentArgs<W> a{
+      nullptr, h0, nullptr, static_cast<const W*>(w_ih),
+      static_cast<const W*>(w_hh), static_cast<const W*>(b_ih),
+      static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
+      static_cast<const W*>(ro_b), out, B, T, 1, H, D, bt, 1, 0.0f};
+  const ResidentKernel<W> kern = errvae_kernel<W>(split);
+  const size_t smem =
+      resident_smem_floats(1, bt, D, H, D, false, sizeof(W) == 2) *
+      sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -765,12 +850,129 @@ int vcx_errvae_sample_resident(const float* h0, const float* w_ih,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+// Each entry point below has a twin with the suffix _bf16 that takes the
+// weights (w_ih, w_hh, b_ih, b_hh, ro_w, ro_b) as bfloat16; x0, h0 and the
+// noise are float32 either way (in bf16, holding bf16 values), and so is
+// the output.
+
+// CRVAE free run, streamed route.  x0 (B, D), h0 (B, H) shared by all
+// heads, noise (B, T, D); weights in the (in, 3H) layout; readout w
+// (P, 1, H), b (P, 1).  Writes out (B, T, D), D = P.  Returns a cudaError_t.
+int vcx_crvae_free_run_streamed(const float* x0, const float* h0,
+                                const float* noise, const void* w_ih_t,
+                                const void* w_hh_t, const void* b_ih,
+                                const void* b_hh, const void* ro_w,
+                                const void* ro_b, float* out, int B, int T,
+                                int P, int H, float noise_scale, int bt,
+                                void* stream) {
+  return crvae_streamed<float>(x0, h0, noise, w_ih_t, w_hh_t, b_ih, b_hh,
+                               ro_w, ro_b, out, B, T, P, H, noise_scale, bt,
+                               stream);
+}
+int vcx_crvae_free_run_streamed_bf16(const float* x0, const float* h0,
+                                     const float* noise, const void* w_ih_t,
+                                     const void* w_hh_t, const void* b_ih,
+                                     const void* b_hh, const void* ro_w,
+                                     const void* ro_b, float* out, int B,
+                                     int T, int P, int H, float noise_scale,
+                                     int bt, void* stream) {
+  return crvae_streamed<bf16>(x0, h0, noise, w_ih_t, w_hh_t, b_ih, b_hh,
+                              ro_w, ro_b, out, B, T, P, H, noise_scale, bt,
+                              stream);
+}
+
+// ErrorVAE free run from x0 = 0, streamed route.  h0 (B, H); weights
+// (1, D, 3H), (1, H, 3H), (1, 3H); readout w (D, H), b (D,).  Writes out
+// (B, T, D).
+int vcx_errvae_sample_streamed(const float* h0, const void* w_ih_t,
+                               const void* w_hh_t, const void* b_ih,
+                               const void* b_hh, const void* ro_w,
+                               const void* ro_b, float* out, int B, int T,
+                               int D, int H, int bt, void* stream) {
+  return errvae_streamed<float>(h0, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b,
+                                out, B, T, D, H, bt, stream);
+}
+int vcx_errvae_sample_streamed_bf16(const float* h0, const void* w_ih_t,
+                                    const void* w_hh_t, const void* b_ih,
+                                    const void* b_hh, const void* ro_w,
+                                    const void* ro_b, float* out, int B,
+                                    int T, int D, int H, int bt,
+                                    void* stream) {
+  return errvae_streamed<bf16>(h0, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b,
+                               out, B, T, D, H, bt, stream);
+}
+
+// CRVAE free run, resident route: clusters of `cluster` blocks, tiles of bt
+// rows, the k of a step split over `split` lanes, n_clusters persistent
+// clusters.  Weights in torch's layout: w_ih (P, 3H, D), w_hh (P, 3H, H),
+// b (P, 3H); readout w (P, 1, H), b (P, 1).
+int vcx_crvae_free_run_resident(const float* x0, const float* h0,
+                                const float* noise, const void* w_ih,
+                                const void* w_hh, const void* b_ih,
+                                const void* b_hh, const void* ro_w,
+                                const void* ro_b, float* out, int B, int T,
+                                int P, int H, float noise_scale, int cluster,
+                                int bt, int split, int n_clusters,
+                                void* stream) {
+  return crvae_resident<float>(x0, h0, noise, w_ih, w_hh, b_ih, b_hh, ro_w,
+                               ro_b, out, B, T, P, H, noise_scale, cluster,
+                               bt, split, n_clusters, stream);
+}
+int vcx_crvae_free_run_resident_bf16(const float* x0, const float* h0,
+                                     const float* noise, const void* w_ih,
+                                     const void* w_hh, const void* b_ih,
+                                     const void* b_hh, const void* ro_w,
+                                     const void* ro_b, float* out, int B,
+                                     int T, int P, int H, float noise_scale,
+                                     int cluster, int bt, int split,
+                                     int n_clusters, void* stream) {
+  return crvae_resident<bf16>(x0, h0, noise, w_ih, w_hh, b_ih, b_hh, ro_w,
+                              ro_b, out, B, T, P, H, noise_scale, cluster, bt,
+                              split, n_clusters, stream);
+}
+
+// How many clusters of K1's resident kernel (bf16 weights if half) the card
+// holds at once at these shapes (cudaOccupancyMaxActiveClusters), into *out.
+int vcx_crvae_max_clusters(int P, int H, int cluster, int bt, int split,
+                           int half, int* out) {
+  return half ? crvae_max_clusters<bf16>(P, H, cluster, bt, split, out)
+              : crvae_max_clusters<float>(P, H, cluster, bt, split, out);
+}
+
+// ErrorVAE free run from x0 = 0, resident route: one block a tile of bt
+// rows, the k of a step split over `split` lanes.  Weights in torch's
+// layout: w_ih (3H, D), w_hh (3H, H), b (3H); readout w (D, H), b (D,).
+// Writes out (B, T, D).
+int vcx_errvae_sample_resident(const float* h0, const void* w_ih,
+                               const void* w_hh, const void* b_ih,
+                               const void* b_hh, const void* ro_w,
+                               const void* ro_b, float* out, int B, int T,
+                               int D, int H, int bt, int split,
+                               void* stream) {
+  return errvae_resident<float>(h0, w_ih, w_hh, b_ih, b_hh, ro_w, ro_b, out,
+                                B, T, D, H, bt, split, stream);
+}
+int vcx_errvae_sample_resident_bf16(const float* h0, const void* w_ih,
+                                    const void* w_hh, const void* b_ih,
+                                    const void* b_hh, const void* ro_w,
+                                    const void* ro_b, float* out, int B,
+                                    int T, int D, int H, int bt, int split,
+                                    void* stream) {
+  return errvae_resident<bf16>(h0, w_ih, w_hh, b_ih, b_hh, ro_w, ro_b, out,
+                               B, T, D, H, bt, split, stream);
+}
+
 // Bytes of shared memory of a resident block of nh heads of O outputs
-// each, tiles of bt rows, input width D, hidden H (the wrapper holds its
-// own sizing to this), and its threads, into out[2].
+// each, tiles of bt rows, input width D, hidden H, bf16 weights if half
+// (the wrapper holds its own sizing to this), and its threads, into out[2].
 void vcx_resident_block(int nh, int bt, int D, int H, int O, int noise,
-                        long long* out) {
-  out[0] = resident_smem_floats(nh, bt, D, H, O, noise != 0) * sizeof(float);
+                        int half, long long* out) {
+  out[0] = resident_smem_floats(nh, bt, D, H, O, noise != 0, half != 0) *
+           sizeof(float);
   out[1] = kResidentThreads;
 }
 

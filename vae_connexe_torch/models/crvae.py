@@ -11,7 +11,9 @@ generation and GC extraction.
 ``ops/dispatch.py`` (the B1/B2 kernels, or the plain recurrence where their
 tiles do not fit); free-running generation runs through the K1 kernel
 (``ops/cuda_rollout.crvae_free_run_fused``) on a CUDA tensor and through
-its plain version on a CPU tensor.
+its plain version on a CPU tensor, in float32 or, with
+``dtype=torch.bfloat16`` (or ``"bfloat16"``), through the kernel's bf16
+instantiation.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ from typing import Optional
 import torch
 
 from vae_connexe_torch._device import resolve_device
-from vae_connexe_torch.ops.cuda_rollout import crvae_free_run_fused
+from vae_connexe_torch.ops.cuda_rollout import (
+    cast_weights,
+    crvae_free_run_fused,
+    serve_dtype,
+)
 from vae_connexe_torch.ops.dispatch import gru_sequence, heads_recurrence
 from vae_connexe_torch.ops.gru import GRUParams, init_gru, init_stacked_gru
 from vae_connexe_torch.utils.layers import (
@@ -55,14 +61,6 @@ def decoder_input(x: torch.Tensor, enc_len: int) -> torch.Tensor:
     """The decoder's teacher-forced input (B, T - enc_len, p): a zero step,
     then the targets shifted right by one (= [0, x_enc_len .. x_{T-2}])."""
     return torch.cat([torch.zeros_like(x[:, :1]), x[:, enc_len:-1]], dim=1)
-
-
-def no_reduced_precision(dtype) -> None:
-    """Reduced-precision serving is not ported yet."""
-    if dtype is not None and dtype not in ("float32", torch.float32):
-        raise NotImplementedError(
-            f"serving dtype {dtype!r}: the port serves float32 only; "
-            "bfloat16 serving is not ported yet (ROADMAP A5)")
 
 
 class CRVAE:
@@ -147,14 +145,20 @@ class CRVAE:
 
         x0 (B, p); h0 (B, H), the state every head starts from (the JAX
         reference takes it broadcast to (p, B, H)); noise (B, T, p).
-        Returns (B, T, p).
+        ``dtype``: the serving precision (``ops.cuda_rollout.serve_dtype``):
+        with bfloat16 the heads and readout are cast to bf16 and the run
+        takes K1's bf16 instantiation (bf16 carries, float32 products).
+        Returns (B, T, p) float32.
         """
-        no_reduced_precision(dtype)
+        dt = serve_dtype(dtype)
         if steps is not None and noise.shape[1] != steps:
             raise ValueError(
                 f"noise has {noise.shape[1]} steps but the rollout wants "
                 f"{steps}; slice the error-VAE sample to the rollout length")
-        return crvae_free_run_fused(heads, params.readout, x0, h0, noise,
+        readout = params.readout
+        if dt != torch.float32:
+            heads, readout = cast_weights(heads, dt), cast_weights(readout, dt)
+        return crvae_free_run_fused(heads, readout, x0, h0, noise,
                                     self.noise_scale)
 
     def rollout(self, params: CRVAEParams,

@@ -24,7 +24,8 @@ stacked on a leading seed axis (``train/win_trainer.py::fit_many``): the
 seeds fold into the kernels' heads, so a forward is two launches (four in
 phase 2) at any S.  ``generate`` is a PyTorch loop over steps of
 ``gru_step_heads`` with the W_in and readout products (JAX: a
-``lax.scan``, not a Pallas kernel).
+``lax.scan``, not a Pallas kernel), in float32 or, with
+``dtype=torch.bfloat16``, in bf16 (its encoder in float32), as JAX's.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from typing import Optional
 import torch
 
 from vae_connexe_torch._device import resolve_device
-from vae_connexe_torch.models.crvae import no_reduced_precision
 from vae_connexe_torch.models.error_vae import ErrorVAE, ErrorVAEParams
+from vae_connexe_torch.ops.cuda_rollout import cast_weights, serve_dtype
 from vae_connexe_torch.ops.dispatch import gru_sequence, heads_recurrence
 from vae_connexe_torch.ops.gru import (
     GRUParams,
@@ -93,6 +94,27 @@ def _err_forward_stacked(err: ErrorVAEParams, eps_seq: torch.Tensor,
     outs, _ = heads_recurrence(err.dec, eps_seq, h_dec)
     return torch.matmul(outs, err.out.w[:, None].transpose(-1, -2)) \
         + err.out.b[:, None, None, :], mu, logvar
+
+
+def win_rollout(w_in: torch.Tensor, heads: GRUParams, readout: Dense,
+                x_t: torch.Tensor, h: torch.Tensor, length: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``generate``'s free run: from x_t (B, D) and every head's state h
+    (D, B, H), ``length`` steps of each head reading the last emitted
+    value through its W_in, in ``dtype`` (float32, or bfloat16 weights and
+    carries).  Returns (B, length, D) float32."""
+    if dtype != torch.float32:
+        w_in, x_t, h = w_in.to(dtype), x_t.to(dtype), h.to(dtype)
+        heads, readout = cast_weights(heads, dtype), cast_weights(readout, dtype)
+    seq = []
+    for _ in range(length):
+        x_sel = torch.einsum("bd,pdh->pbh", x_t, w_in)
+        h = gru_step_heads(heads, x_sel, h)
+        out = (torch.einsum("pbh,poh->pbo", h, readout.w)
+               + readout.b[:, None, :])
+        x_t = out[..., 0].T
+        seq.append(x_t)
+    return torch.stack(seq, dim=1).to(torch.float32)
 
 
 class WInCRVAE:
@@ -213,10 +235,13 @@ class WInCRVAE:
         Encodes the context's last tau steps, z = mu + sigma * eps (eps
         (B, Z) passed in, or drawn from ``generator``), h0 = tanh(z2h(z))
         for every head, then each step feeds every head the previous
-        emitted value through its W_in.  ``dtype``: only float32 is ported
-        (bfloat16, ROADMAP A5, raises).
+        emitted value through its W_in.  ``dtype``: the serving precision;
+        with bfloat16 the rollout's weights (W_in, heads, readout) and
+        carries are bf16 and its products and gate math run in PyTorch's
+        bf16 ops, the one-pass encoder stays float32 and the output is
+        float32, as JAX's ``generate(dtype=jnp.bfloat16)``.
         """
-        no_reduced_precision(dtype)
+        dt = serve_dtype(dtype)
         mu, logsig = self.encode(params, x_context[:, -self.tau:, :])
         if eps is None:
             if generator is None:
@@ -225,17 +250,8 @@ class WInCRVAE:
                               device=generator.device)
         z = mu + torch.exp(logsig) * eps.to(mu.device)
         h = torch.tanh(dense(params.z2h, z)).expand(self.d, -1, -1)
-        x_t = x_context[:, -1, :]
-        w_in, heads, readout = params.w_in, params.heads, params.readout
-        seq = []
-        for _ in range(length):
-            x_sel = torch.einsum("bd,pdh->pbh", x_t, w_in)
-            h = gru_step_heads(heads, x_sel, h)
-            out = (torch.einsum("pbh,poh->pbo", h, readout.w)
-                   + readout.b[:, None, :])
-            x_t = out[..., 0].T
-            seq.append(x_t)
-        return torch.stack(seq, dim=1)
+        return win_rollout(params.w_in, params.heads, params.readout,
+                           x_context[:, -1, :], h, length, dt)
 
     def granger_matrix(self, params: WInCRVAEParams, thr: float = 1e-6,
                        threshold: bool = True) -> torch.Tensor:

@@ -23,8 +23,11 @@ from typing import Optional
 import torch
 
 from vae_connexe_torch._device import resolve_device
-from vae_connexe_torch.models.crvae import no_reduced_precision
-from vae_connexe_torch.ops.cuda_rollout import errvae_sample_fused
+from vae_connexe_torch.ops.cuda_rollout import (
+    cast_weights,
+    errvae_sample_fused,
+    serve_dtype,
+)
 from vae_connexe_torch.ops.dispatch import gru_sequence
 from vae_connexe_torch.ops.gru import GRUParams, init_gru
 from vae_connexe_torch.utils.layers import Dense, dense, init_dense
@@ -117,9 +120,11 @@ class ErrorVAE:
         ``length`` steps.  JAX's parameters in JAX's order, ``h0`` after
         them.  The reference keeps
         the leading zero step and returns length + 1 steps; callers slice as
-        needed.  Returns (B, length + 1, D).
+        needed.  ``dtype``: the serving precision; with bfloat16 the
+        decoder and readout are cast to bf16 and the run takes K2's bf16
+        instantiation.  Returns (B, length + 1, D) float32.
         """
-        no_reduced_precision(dtype)
+        dt = serve_dtype(dtype)
         steps = self.rollout_len if length is None else length
         dev = params.dec.w_ih.device
         if h0 is None:
@@ -127,7 +132,9 @@ class ErrorVAE:
                 raise ValueError("sample needs a generator or an h0 draw")
             h0 = torch.randn((batch, self.hidden), generator=generator,
                              device=generator.device)
-        seq = errvae_sample_fused(params.dec, params.out, h0.to(dev), self.d,
-                                  steps)
+        dec, out = params.dec, params.out
+        if dt != torch.float32:
+            dec, out = cast_weights(dec, dt), cast_weights(out, dt)
+        seq = errvae_sample_fused(dec, out, h0.to(dev), self.d, steps)
         zero = torch.zeros((batch, 1, self.d), device=dev)
         return torch.cat([zero, seq], dim=1)

@@ -122,20 +122,24 @@ _I = ctypes.c_int
 def rollout_library() -> ctypes.CDLL:
     """The built ``csrc/rollout.cu``, with its C signatures declared."""
     lib = ctypes.CDLL(str(build("rollout")[0]))
-    lib.vcx_crvae_free_run_streamed.argtypes = [_P] * 10 + [_I] * 4 + [
-        ctypes.c_float, _I, _P]
-    lib.vcx_crvae_free_run_resident.argtypes = [_P] * 10 + [_I] * 4 + [
-        ctypes.c_float] + [_I] * 4 + [_P]
-    lib.vcx_errvae_sample_streamed.argtypes = [_P] * 8 + [_I] * 5 + [_P]
-    lib.vcx_errvae_sample_resident.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-    lib.vcx_crvae_max_clusters.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
-    lib.vcx_resident_block.argtypes = [_I] * 6 + [
+    # Each launch has a float32 entry point and a bf16 one (suffix _bf16)
+    # of the same signature.
+    for suffix in ("", "_bf16"):
+        for fn, args in (
+                ("vcx_crvae_free_run_streamed",
+                 [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+                ("vcx_crvae_free_run_resident",
+                 [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P]),
+                ("vcx_errvae_sample_streamed", [_P] * 8 + [_I] * 5 + [_P]),
+                ("vcx_errvae_sample_resident", [_P] * 8 + [_I] * 6 + [_P])):
+            getattr(lib, fn + suffix).argtypes = args
+            getattr(lib, fn + suffix).restype = _I
+    lib.vcx_crvae_max_clusters.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+    lib.vcx_resident_block.argtypes = [_I] * 7 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.vcx_resident_block.restype = None
     lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
-    for fn in ("vcx_crvae_free_run_streamed", "vcx_crvae_free_run_resident",
-               "vcx_errvae_sample_streamed", "vcx_errvae_sample_resident",
-               "vcx_crvae_max_clusters", "vcx_device_limits"):
+    for fn in ("vcx_crvae_max_clusters", "vcx_device_limits"):
         getattr(lib, fn).restype = _I
     lib.vcx_error_string.argtypes = [_I]
     lib.vcx_error_string.restype = ctypes.c_char_p

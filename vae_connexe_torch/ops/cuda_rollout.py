@@ -17,14 +17,24 @@ untransposed), else ``"streamed"`` (the first port's body, weights read from
 L2 every step in the (in, 3H) layout the wrapper transposes them into).
 Shapes that neither route takes raise.
 
-The kernels run in float32; sums are taken in another order than the
-plain versions' ``einsum``, so the two agree to float32 rounding
-(``chip_smoke.py`` states the tolerance and checks it on the card).
+Each kernel has a float32 and a bfloat16 instantiation, chosen by the
+weights' dtype (bf16 serving, JAX's ``dtype=bfloat16``): in bf16 the
+weights stay bf16 (half the shared memory on the resident route, which
+``rollout_route`` counts, and half the L2 reads on the streamed one), x0,
+h0 and the noise are rounded to bf16, the products are accumulated and the
+gates computed in float32, each step's new state and emitted x are rounded
+to bf16, and the output is float32.  The plain versions do the same casts
+in PyTorch.  Each instantiation has its own counts (``crvae_free_run_bf16``,
+``errvae_sample_bf16``).  Sums are taken in another order than the plain
+versions' ``einsum``, so the two agree to float32 rounding in float32 and
+to a bf16 rounding step in bf16 (``chip_smoke.py`` states the tolerances
+and checks them on the card).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -40,9 +50,10 @@ from vae_connexe_torch.ops.cuda_gru import (
 from vae_connexe_torch.ops.gru import GRUParams, gru_cell, gru_step_heads
 from vae_connexe_torch.utils.layers import Dense, dense
 
-# Kernel launches per wrapper, and per wrapper and route, counted where the
-# kernel is launched.
-LAUNCHES = {"crvae_free_run": 0, "errvae_sample": 0}
+# Kernel launches per wrapper and storage type, and per wrapper, type and
+# route, counted where the kernel is launched.
+LAUNCHES = {"crvae_free_run": 0, "errvae_sample": 0,
+            "crvae_free_run_bf16": 0, "errvae_sample_bf16": 0}
 ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in LAUNCHES
                   for r in ("resident", "streamed")}
 
@@ -69,6 +80,58 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def serve_dtype(dtype, arg: str = "serving dtype") -> torch.dtype:
+    """The storage type of a serving ``dtype`` argument: None, "float32" or
+    ``torch.float32`` -> float32; "bfloat16" or ``torch.bfloat16`` ->
+    bfloat16 (JAX's ``dtype=jnp.bfloat16``).  Anything else raises, naming
+    the argument ``arg``."""
+    if dtype in (None, "float32", torch.float32):
+        return torch.float32
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"{arg} must be float32 or bfloat16, got {dtype!r}")
+
+
+def cast_weights(group, dtype: torch.dtype):
+    """A ``GRUParams`` or ``Dense`` with every leaf cast to ``dtype``."""
+    return type(group)(*(getattr(group, f.name).to(dtype)
+                         for f in dataclasses.fields(group)))
+
+
+def _weights_dtype(*groups) -> torch.dtype:
+    """The one storage type of the kernel's weight groups (float32 or
+    bfloat16)."""
+    types = {getattr(g, f.name).dtype for g in groups
+             for f in dataclasses.fields(g)}
+    if len(types) != 1 or not types <= {torch.float32, torch.bfloat16}:
+        raise ValueError(f"rollout kernel: weights of types {sorted(map(str, types))}; "
+                         f"it takes all float32 or all bfloat16")
+    return types.pop()
+
+
+def _carries(dtype: torch.dtype):
+    """The rounding of a carry (x0, h0, the noise, each step's state and
+    emitted x) as float32: none in float32, to the nearest bf16 in bf16."""
+    if dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(torch.bfloat16).to(torch.float32)
+
+
+def _as_f32(group):
+    return group if _weights_dtype(group) == torch.float32 else \
+        cast_weights(group, torch.float32)
+
+
+def weight_stride(hidden: int, elem: int = 4) -> int:
+    """Row stride of a resident block's staged W^T rows (rollout.cu
+    ``res_weight_stride``): B1's in float32; in bf16 (``elem`` 2) 3U padded
+    to 32 past a multiple of 64."""
+    if elem == 4:
+        return fwd_weight_stride(hidden)
+    g = 3 * fwd_units(hidden)
+    return g + (96 - g % 64) % 64
 
 
 def tile_smem_bytes(bt: int, heads: int, hidden: int, d: int) -> int:
@@ -104,13 +167,14 @@ def _round4(n: int) -> int:
 
 
 def resident_smem_bytes(heads: int, bt: int, d: int, hidden: int, outs: int,
-                        noise: bool) -> int:
+                        noise: bool, elem: int = 4) -> int:
     """Shared memory of a resident block of ``heads`` heads (rollout.cu
-    ``resident_smem_floats``): each head's W_ih^T and W_hh^T at B1's row
-    stride, the readout rows and biases, two buffers of x (d columns) and
-    of every head's state, and two of the noise columns."""
+    ``resident_smem_floats``): each head's W_ih^T and W_hh^T at
+    ``weight_stride``, in weights of ``elem`` bytes (4 float32, 2 bf16),
+    the readout rows and biases, two buffers of x (d columns) and of every
+    head's state, and two of the noise columns (float32)."""
     ld_row = fwd_units(hidden) + 1
-    weights = _round4((d + hidden) * fwd_weight_stride(hidden))
+    weights = _round4((d + hidden) * weight_stride(hidden, elem) * elem // 4)
     return 4 * (heads * weights + _round4(heads * outs * ld_row)
                 + _round4(heads * outs) + 2 * d * bt
                 + 2 * heads * ld_row * bt
@@ -150,7 +214,7 @@ class RolloutPlan(NamedTuple):
 
 
 def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
-                  limits) -> int | None:
+                  limits, elem: int = 4) -> int | None:
     """Batch tile of K1's resident kernel on clusters of ``cluster`` blocks,
     or None when no tile fits: the widest tile of ``FWD_TILES`` that fits a
     block and still gives every cluster the card holds at once a tile (a
@@ -160,7 +224,8 @@ def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
     optin, n_sm = limits[0], limits[2]
     hpb = -(-heads // cluster)
     fitting = [bt for bt in FWD_TILES
-               if resident_smem_bytes(hpb, bt, d, hidden, 1, True) <= optin
+               if resident_smem_bytes(hpb, bt, d, hidden, 1, True, elem)
+               <= optin
                and resident_split(hpb, bt, hidden) is not None]
     for bt in fitting:
         if -(-batch // bt) >= n_sm // cluster:
@@ -170,11 +235,12 @@ def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
 
 @functools.cache
 def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
-                  limits) -> RolloutPlan:
+                  limits, elem: int = 4) -> RolloutPlan:
     """The route and plan of a rollout at these shapes on a card of
     ``limits`` = (opt-in shared memory of a block, shared memory of an SM,
     SMs, threads of an SM, portable cluster size, largest cluster size),
-    chosen before any launch.
+    chosen before any launch, for weights of ``elem`` bytes (4 float32, 2
+    bfloat16: the resident route stages half the bytes).
 
     ``kind``: ``"crvae"`` (K1, ``heads`` heads over an input of d = heads
     columns, one output each) or ``"errvae"`` (K2, one head, d outputs).
@@ -193,12 +259,13 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
         for cap in (portable, largest):
             hpb = -(-heads // min(cap, heads))
             cluster = -(-heads // hpb)      # as few blocks as hpb a block needs
-            bt = _cluster_tile(batch, heads, d, hidden, cluster, limits)
+            bt = _cluster_tile(batch, heads, d, hidden, cluster, limits,
+                               elem)
             if bt is not None:
                 return RolloutPlan(
                     "resident", cluster, hpb, bt,
                     resident_split(hpb, bt, hidden), RESIDENT_THREADS,
-                    resident_smem_bytes(hpb, bt, d, hidden, 1, True))
+                    resident_smem_bytes(hpb, bt, d, hidden, 1, True, elem))
     elif kind == "errvae":
         if heads != 1:
             raise ValueError(f"errvae rollout: {heads} heads, expected 1")
@@ -208,7 +275,7 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
                  if resident_split(1, n, hidden) is not None]
         bt = fit_tile(
             batch, 1, hidden, tiles,
-            lambda n: resident_smem_bytes(1, n, d, hidden, d, False),
+            lambda n: resident_smem_bytes(1, n, d, hidden, d, False, elem),
             lambda *_: RESIDENT_THREADS,
             lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
             (*limits[:3], RESIDENT_THREADS))    # one block an SM
@@ -216,7 +283,7 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
             return RolloutPlan(
                 "resident", 1, 1, bt, resident_split(1, bt, hidden),
                 RESIDENT_THREADS,
-                resident_smem_bytes(1, bt, d, hidden, d, False))
+                resident_smem_bytes(1, bt, d, hidden, d, False, elem))
     else:
         raise ValueError(f"unknown rollout kind {kind!r}")
     if tile_smem_bytes(1, heads, hidden, d) > optin:
@@ -224,7 +291,8 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
             f"{kind} rollout: at {heads} heads, D={d}, H={hidden} neither "
             f"route fits the device's {optin} bytes of shared memory a "
             f"block: one head's weights need "
-            f"{resident_smem_bytes(1, 4, d, hidden, 1, False)} resident, one "
+            f"{resident_smem_bytes(1, 4, d, hidden, 1, False, elem)} "
+            f"resident, one "
             f"row of the streamed kernel {tile_smem_bytes(1, heads, hidden, d)}")
     bt = pick_bt(batch, heads, hidden, d, optin, n_sm)
     threads = min(-(-heads * hidden // 32) * 32, 1024 if bt <= 2 else 2048 // bt)
@@ -245,15 +313,17 @@ def device_limits(device: torch.device) -> tuple[int, ...]:
 
 
 def max_active_clusters(device: torch.device, plan: RolloutPlan, heads: int,
-                        hidden: int) -> int:
-    """How many clusters of K1's resident kernel ``device`` holds at once
-    under ``plan`` (``cudaOccupancyMaxActiveClusters``)."""
+                        hidden: int, elem: int = 4) -> int:
+    """How many clusters of K1's resident kernel (bf16 weights at ``elem``
+    2) ``device`` holds at once under ``plan``
+    (``cudaOccupancyMaxActiveClusters``)."""
     from vae_connexe_torch.ops._build import rollout_library
 
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = rollout_library().vcx_crvae_max_clusters(
-            heads, hidden, plan.cluster, plan.bt, plan.split, ctypes.byref(out))
+            heads, hidden, plan.cluster, plan.bt, plan.split, int(elem == 2),
+            ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed (cuda {rc})")
     return out.value
@@ -261,40 +331,46 @@ def max_active_clusters(device: torch.device, plan: RolloutPlan, heads: int,
 
 @functools.cache
 def _plan(kind: str, heads: int, batch: int, d: int, hidden: int,
-          device: torch.device) -> tuple[RolloutPlan, int]:
-    """(plan, clusters to launch) of a rollout on ``device``.  A resident
-    plan's block is checked against the kernel's own sizing; K1's clusters
-    are the fewer of the batch tiles and what the card holds at once, and a
-    card that holds none raises before any launch."""
+          device: torch.device, elem: int = 4) -> tuple[RolloutPlan, int]:
+    """(plan, clusters to launch) of a rollout on ``device`` with weights
+    of ``elem`` bytes.  A resident plan's block is checked against the
+    kernel's own sizing; K1's clusters are the fewer of the batch tiles and
+    what the card holds at once, and a card that holds none raises before
+    any launch."""
     from vae_connexe_torch.ops._build import rollout_library
 
-    plan = rollout_route(kind, heads, batch, d, hidden, device_limits(device))
+    plan = rollout_route(kind, heads, batch, d, hidden, device_limits(device),
+                         elem)
     if plan.route == "streamed":
         return plan, 0
     outs = 1 if kind == "crvae" else d
     got = (ctypes.c_longlong * 2)()
     rollout_library().vcx_resident_block(plan.heads_per_block, plan.bt, d,
-                                         hidden, outs, kind == "crvae", got)
+                                         hidden, outs, kind == "crvae",
+                                         int(elem == 2), got)
     if tuple(got) != (plan.smem, plan.threads):
         raise RuntimeError(f"csrc/rollout.cu sizes a resident block as "
                            f"{tuple(got)}, cuda_rollout as "
                            f"{(plan.smem, plan.threads)}")
     if kind == "errvae":
         return plan, 0
-    active = max_active_clusters(device, plan, heads, hidden)
+    active = max_active_clusters(device, plan, heads, hidden, elem)
     if active < 1:
         raise RuntimeError(f"crvae rollout: {device} holds no cluster of "
                            f"{plan.cluster} blocks of {plan.smem} bytes")
     return plan, min(active, -(-batch // plan.bt))
 
 
-def _check(device: torch.device, what: str, **expected) -> None:
-    """Each ``name=(tensor, shape)`` lies on ``device``, is float32 and has
-    exactly ``shape``: the kernel reads it by that shape."""
+def _check(device: torch.device, what: str,
+           dtype: torch.dtype = torch.float32, **expected) -> None:
+    """Each ``name=(tensor, shape)`` lies on ``device``, has exactly
+    ``shape`` (the kernel reads it by that shape) and is of ``dtype`` if
+    it is a weight (``w_*``, ``b_*``, ``ro_*``), else float32."""
     for name, (t, shape) in expected.items():
-        if t.device != device or t.dtype != torch.float32:
+        want = dtype if name.startswith(("w_", "b_", "ro_")) else torch.float32
+        if t.device != device or t.dtype != want:
             raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}; "
-                             f"the kernel takes float32 on {device}")
+                             f"the kernel takes {want} on {device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -323,15 +399,20 @@ def _launch(fn_name: str, device: torch.device, tensors, ints) -> None:
 def crvae_free_run_plain(heads: GRUParams, readout: Dense, x0: torch.Tensor,
                          h0_shared: torch.Tensor, noise: torch.Tensor,
                          noise_scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K1: ``CRVAE._free_run``'s per-step loop."""
+    """Plain PyTorch version of K1: ``CRVAE._free_run``'s per-step loop, in
+    the weights' storage type (bf16: the carries rounded to bf16, the
+    products and gates in float32; float32 output)."""
+    rnd = _carries(_weights_dtype(heads, readout))
+    heads, readout = _as_f32(heads), _as_f32(readout)
     p = heads.w_ih.shape[0]
-    h = h0_shared.expand(p, *h0_shared.shape)
-    x = x0
+    h = rnd(h0_shared).expand(p, *h0_shared.shape)
+    x = rnd(x0)
+    noise = rnd(noise)
     outs = []
     for t in range(noise.shape[1]):
-        h = gru_step_heads(heads, x, h)                       # (p, B, H)
+        h = rnd(gru_step_heads(heads, x, h))                  # (p, B, H)
         out = torch.einsum("pbh,poh->pbo", h, readout.w) + readout.b[:, None, :]
-        x = out[..., 0].T + noise_scale * noise[:, t]         # (B, p)
+        x = rnd(out[..., 0].T + noise_scale * noise[:, t])    # (B, p)
         outs.append(x)
     return torch.stack(outs, dim=1)
 
@@ -342,22 +423,28 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
     """Whole CRVAE free run in one kernel (K1).
 
     heads: stacked, already masked GRUParams (p, 3H, D); readout: stacked
-    Dense (p, 1, H)/(p, 1); x0 (B, D); h0_shared (B, H), the one state every
-    head starts from; noise (B, T, D).  Returns (B, T, D) float32, D = p.
+    Dense (p, 1, H)/(p, 1), all float32 or all bfloat16 (the kernel's bf16
+    instantiation); x0 (B, D); h0_shared (B, H), the one state every head
+    starts from; noise (B, T, D), all three float32.  Returns (B, T, D)
+    float32, D = p.
     """
+    dtype = _weights_dtype(heads, readout)
     if x0.device.type == "cpu":
         return crvae_free_run_plain(heads, readout, x0, h0_shared, noise,
                                     noise_scale)
+    rnd = _carries(dtype)
+    x0, h0_shared, noise = rnd(x0), rnd(h0_shared), rnd(noise)
     dev = x0.device
     p, hidden = heads.w_ih.shape[0], heads.hidden
     b, t_len = noise.shape[:2]
     g = 3 * hidden
-    _check(dev, "crvae_free_run", w_ih=(heads.w_ih, (p, g, p)),
+    _check(dev, "crvae_free_run", dtype, w_ih=(heads.w_ih, (p, g, p)),
            w_hh=(heads.w_hh, (p, g, hidden)), b_ih=(heads.b_ih, (p, g)),
            b_hh=(heads.b_hh, (p, g)), ro_w=(readout.w, (p, 1, hidden)),
            ro_b=(readout.b, (p, 1)), x0=(x0, (b, p)),
            h0=(h0_shared, (b, hidden)), noise=(noise, (b, t_len, p)))
-    plan, n_clusters = _plan("crvae", p, b, p, hidden, dev)
+    half = dtype == torch.bfloat16
+    plan, n_clusters = _plan("crvae", p, b, p, hidden, dev, 2 if half else 4)
     out = torch.empty((b, t_len, p), device=dev, dtype=torch.float32)
     if plan.route == "resident":
         w_ih, w_hh = heads.w_ih.contiguous(), heads.w_hh.contiguous()
@@ -369,10 +456,11 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
     tensors = (x0.contiguous(), h0_shared.contiguous(), noise.contiguous(),
                w_ih, w_hh, heads.b_ih.contiguous(), heads.b_hh.contiguous(),
                readout.w.contiguous(), readout.b.contiguous(), out)
-    _launch(f"vcx_crvae_free_run_{plan.route}", dev, tensors,
-            (b, t_len, p, hidden, ctypes.c_float(noise_scale), *tail))
-    LAUNCHES["crvae_free_run"] += 1
-    ROUTE_LAUNCHES[f"crvae_free_run_{plan.route}"] += 1
+    name = "crvae_free_run_bf16" if half else "crvae_free_run"
+    _launch(f"vcx_crvae_free_run_{plan.route}{'_bf16' if half else ''}", dev,
+            tensors, (b, t_len, p, hidden, ctypes.c_float(noise_scale), *tail))
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[f"{name}_{plan.route}"] += 1
     return out
 
 
@@ -382,13 +470,16 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
 
 def errvae_sample_plain(dec: GRUParams, out: Dense, h0: torch.Tensor,
                         d: int, t_len: int) -> torch.Tensor:
-    """Plain PyTorch version of K2: ``ErrorVAE.sample``'s per-step loop."""
-    h = h0
-    x = torch.zeros((h0.shape[0], d), device=h0.device, dtype=h0.dtype)
+    """Plain PyTorch version of K2: ``ErrorVAE.sample``'s per-step loop, in
+    the weights' storage type as ``crvae_free_run_plain``."""
+    rnd = _carries(_weights_dtype(dec, out))
+    dec, out = _as_f32(dec), _as_f32(out)
+    h = rnd(h0)
+    x = torch.zeros((h0.shape[0], d), device=h0.device, dtype=torch.float32)
     outs = []
     for _ in range(t_len):
-        h = gru_cell(dec, x, h)
-        x = dense(out, h)
+        h = rnd(gru_cell(dec, x, h))
+        x = rnd(dense(out, h))
         outs.append(x)
     return torch.stack(outs, dim=1)
 
@@ -396,18 +487,22 @@ def errvae_sample_plain(dec: GRUParams, out: Dense, h0: torch.Tensor,
 def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
                         d: int, t_len: int) -> torch.Tensor:
     """Whole ErrorVAE free run in one kernel (K2): from x0 = 0, roll
-    ``t_len`` steps.  h0 (B, H).  Returns (B, t_len, D); the caller prepends
-    the reference's leading zero step."""
+    ``t_len`` steps.  Weights all float32 or all bfloat16 (the bf16
+    instantiation); h0 (B, H) float32.  Returns (B, t_len, D) float32; the
+    caller prepends the reference's leading zero step."""
+    dtype = _weights_dtype(dec, out)
     if h0.device.type == "cpu":
         return errvae_sample_plain(dec, out, h0, d, t_len)
+    h0 = _carries(dtype)(h0)
     dev = h0.device
     b, hidden = h0.shape
     g = 3 * hidden
-    _check(dev, "errvae_sample", w_ih=(dec.w_ih, (g, d)),
+    _check(dev, "errvae_sample", dtype, w_ih=(dec.w_ih, (g, d)),
            w_hh=(dec.w_hh, (g, hidden)), b_ih=(dec.b_ih, (g,)),
            b_hh=(dec.b_hh, (g,)), ro_w=(out.w, (d, hidden)),
            ro_b=(out.b, (d,)), h0=(h0, (b, hidden)))
-    plan, _ = _plan("errvae", 1, b, d, hidden, dev)
+    half = dtype == torch.bfloat16
+    plan, _ = _plan("errvae", 1, b, d, hidden, dev, 2 if half else 4)
     res = torch.empty((b, t_len, d), device=dev, dtype=torch.float32)
     w_ih, w_hh = ((dec.w_ih.contiguous(), dec.w_hh.contiguous())
                   if plan.route == "resident" else
@@ -415,9 +510,10 @@ def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
     tensors = (h0.contiguous(), w_ih, w_hh, dec.b_ih.contiguous(),
                dec.b_hh.contiguous(), out.w.contiguous(), out.b.contiguous(),
                res)
-    _launch(f"vcx_errvae_sample_{plan.route}", dev, tensors,
-            (b, t_len, d, hidden, plan.bt)
+    name = "errvae_sample_bf16" if half else "errvae_sample"
+    _launch(f"vcx_errvae_sample_{plan.route}{'_bf16' if half else ''}", dev,
+            tensors, (b, t_len, d, hidden, plan.bt)
             + ((plan.split,) if plan.route == "resident" else ()))
-    LAUNCHES["errvae_sample"] += 1
-    ROUTE_LAUNCHES[f"errvae_sample_{plan.route}"] += 1
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[f"{name}_{plan.route}"] += 1
     return res

@@ -50,17 +50,14 @@ import torch
 from vae_connexe_torch.losses.cs_divergence import cs_divergence_gmm
 from vae_connexe_torch.losses.kl import kl_gaussian
 from vae_connexe_torch.losses.penalties import ridge_value
-from vae_connexe_torch.models.crvae import (
-    CRVAE,
-    CRVAEParams,
-    masked_heads,
-    no_reduced_precision,
-)
+from vae_connexe_torch.models.crvae import CRVAE, CRVAEParams, masked_heads
 from vae_connexe_torch.models.error_vae import ErrorVAE, ErrorVAEParams
 from vae_connexe_torch.models.gmm_prior import GMMPrior, init_gmm_prior
 from vae_connexe_torch.ops.cuda_rollout import (
+    cast_weights,
     crvae_free_run_fused,
     errvae_sample_fused,
+    serve_dtype,
 )
 from vae_connexe_torch.ops.gru import GRUParams
 from vae_connexe_torch.optim.adam import AdamState, adam_init, adam_update
@@ -185,15 +182,18 @@ def _restore_if_resuming(ckpt, state, resume: bool):
     return state, None
 
 
-def _stepper(step, phase: str):
+def _stepper(step, phase: str, batches=None):
     """``run_chunk(state, length)``: ``length`` steps; returns the state
-    and the last step's metrics.  Under nan debugging each step's metrics
-    and updated parameters are checked (``utils/debug.py``)."""
+    and the last step's metrics.  ``batches``: an iterator of the steps'
+    batches (a streamed fit), else each step finds its own.  Under nan
+    debugging each step's metrics and updated parameters are checked
+    (``utils/debug.py``)."""
     def run_chunk(state, length):
         last = {}
         for _ in range(length):
             with debug.at_step(f"{phase} step {state.step + 1}"):
-                state, last = step(state)
+                state, last = (step(state) if batches is None
+                               else step(state, next(batches)))
                 debug.check_finite("the metrics and updated parameters",
                                    last, state.params, state.prior)
         return state, last
@@ -307,9 +307,20 @@ def default_fixed_batch(windows: torch.Tensor,
     return windows[idx]
 
 
+def _window_count(windows, n_windows) -> int:
+    """The window count a step draws its indices over: ``n_windows`` if
+    given, else ``windows``'s."""
+    if n_windows is None and windows is None:
+        raise ValueError("the step draws its indices over n_windows: pass "
+                         "n_windows or windows")
+    return windows.shape[0] if n_windows is None else n_windows
+
+
 def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
                      parents: torch.Tensor,
-                     fixed_batch: Optional[torch.Tensor] = None):
+                     fixed_batch: Optional[torch.Tensor] = None,
+                     stream: bool = False, *,
+                     n_windows: Optional[int] = None):
     """Build the phase-1 step: ``step(state, batch=None, eps=None)`` ->
     (new Phase1State, metrics).
 
@@ -321,16 +332,28 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     ``state.prior`` (KL without one), as the JAX package's step does.  The
     best-model pick sees the pre-update parameters; ``variable_usage`` is
     read after the update.
+
+    ``stream=True`` builds the out-of-core step (``train/streaming.py``):
+    each call takes its ``batch`` from the caller, and still draws its
+    indices over ``n_windows`` (default ``windows.shape[0]``; ``windows``
+    may then be None) and discards them, so the generator's draws stay the
+    in-memory step's and a caller that replays them gathers the same
+    batches.
     """
     check_latent_reg(cfg)
-    n = windows.shape[0]
-    if fixed_batch is None and not cfg.resample_batches:
+    n = _window_count(windows, n_windows)
+    if fixed_batch is None and not cfg.resample_batches and not stream:
         fixed_batch = default_fixed_batch(windows, cfg.batch_size)
 
     def step(state: Phase1State, batch: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None):
         g = state.generator
-        if batch is None:
+        if stream:
+            if batch is None:
+                raise ValueError("a streamed step takes its batch")
+            torch.randint(0, n, (cfg.batch_size,), generator=g,
+                          device=g.device)
+        elif batch is None:
             if fixed_batch is not None:
                 batch = fixed_batch
             else:
@@ -442,7 +465,9 @@ def _phase2_update(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
 
 
 def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
-                     windows: torch.Tensor, parents: torch.Tensor):
+                     windows: torch.Tensor, parents: torch.Tensor,
+                     stream: bool = False, *,
+                     n_windows: Optional[int] = None):
     """Build the phase-2 step: ``step(state, batch=None, eps=None,
     eps_err=None)`` -> (new Phase2State, metrics).
 
@@ -454,16 +479,22 @@ def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
     VAE's ``mean((recon - error)^2) + beta_error * KL`` on the detached
     residuals; SGD with the mask projection (lam = 0) updates the CRVAE,
     SGD the prior, Adam at ``cfg.lr_error`` the error VAE.  The best-model
-    pick sees the pre-update CRVAE params.
+    pick sees the pre-update CRVAE params.  ``stream`` and ``n_windows`` as
+    in ``make_phase1_step``.
     """
     check_latent_reg(cfg)
-    n = windows.shape[0]
+    n = _window_count(windows, n_windows)
 
     def step(state: Phase2State, batch: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None,
              eps_err: Optional[torch.Tensor] = None):
         g = state.generator
-        if batch is None:
+        if stream:
+            if batch is None:
+                raise ValueError("a streamed step takes its batch")
+            torch.randint(0, n, (cfg.batch_size,), generator=g,
+                          device=g.device)
+        elif batch is None:
             idx = torch.randint(0, n, (cfg.batch_size,), generator=g,
                                 device=g.device)
             batch = windows[idx.to(windows.device)]
@@ -532,8 +563,9 @@ def generate_from_draws(model: CRVAE, err_model: ErrorVAE, heads: GRUParams,
     ``heads``/``readout``: the (masked) CRVAE decoder heads and readout;
     ``dec``/``out``: the ErrorVAE decoder and readout; ``h0_err`` (B, H_err)
     the ErrorVAE's initial state, ``h0`` (B, H) the rollout's.  One K2
-    launch then one K1 launch.  Returns (B, steps, p), steps defaulting to
-    ``model.rollout_len``.
+    launch then one K1 launch, in the weights' storage type (all float32,
+    or all bfloat16 for the kernels' bf16 instantiations).  Returns (B,
+    steps, p) float32, steps defaulting to ``model.rollout_len``.
     """
     steps = model.rollout_len if steps is None else steps
     b = h0.shape[0]
@@ -562,15 +594,20 @@ def generate_with_compensation(model: CRVAE, err_model: ErrorVAE,
     ``kernel`` keeps the reference's signature; its lax/fused crossover was
     measured on a TPU and does not carry over, so every value runs the
     rollout kernels (on a CUDA tensor) or their plain versions (on a CPU
-    tensor).  ``dtype``: only float32 is ported.
+    tensor).  ``dtype``: the serving precision; with bfloat16 (JAX's
+    ``dtype=jnp.bfloat16``) the four weight groups are cast to bf16 and
+    both rollouts take the kernels' bf16 instantiations (on the card too:
+    JAX's fused path is float32 only, the port's every path is fused).
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    no_reduced_precision(dtype)
+    dt = serve_dtype(dtype)
     heads = params.heads if parents is None else masked_heads(params.heads, parents)
+    groups = (heads, params.readout, err_params.dec, err_params.out)
+    if dt != torch.float32:
+        groups = tuple(cast_weights(g, dt) for g in groups)
     h0_err = torch.randn((batch, err_model.hidden), generator=generator,
                          device=generator.device)
     h0 = torch.randn((batch, model.hidden), generator=generator,
                      device=generator.device)
-    return generate_from_draws(model, err_model, heads, params.readout,
-                               err_params.dec, err_params.out, h0_err, h0)
+    return generate_from_draws(model, err_model, *groups, h0_err, h0)
