@@ -171,6 +171,29 @@
      native window loader): results, both checkpoints and launches bit
      for bit equal; a streamed phase 1 from that file killed at half and
      resumed, bitwise the uninterrupted streamed fit and ``fit_phase1``.
+   - meshes (``check_meshes``; the card is one H100, so NCCL runs only a
+     world of one, and two ranks share the card over gloo with CUDA
+     tensors, the all-gathers and sends staged through the host): a world
+     of one rank over NCCL in this process, ``fit_phase1(mesh=make_mesh())``
+     at p=20, H=64, B=256 for 100 steps bit for bit the unmeshed fit with
+     2 + 2 launches a step; then two ranks of this script
+     (``--mesh-rank``), each run beside the single-process run on the
+     card (params rtol 2e-5 / atol 1e-6, the loss rtol 1e-4, the
+     tolerances of tests/test_meshed_fit.py): a dp=2 fit at p=20 (2 + 2
+     launches a step on each rank), an sp=2 fit at lorenz96_longhorizon's
+     shapes (ctx 128, T_dec 118, 59 steps a chunk, B=128, 50 steps: the
+     encoder and two chunk rounds a step, 3 + 3 launches), lorenz96_xl's
+     width at ep=2 (64 wide heads a rank, B=64, 30 steps, 2 + 2 wide
+     launches), make_sharded_generator at B=3072 in float32 and bf16 (one
+     K1 and one K2 a rank; 1e-5 of the single-process generation on the
+     same draws, bf16 within BF16_TOL); and ``cli run lorenz96_crvae
+     --processes 2 --ep 2`` at 300 + 300 steps against ``cli run`` in
+     this process: the same binary graph, both phases' params within
+     2e-5 / 1e-6, the losses within 1e-4, 6 + 6 launches a phase-1 plus
+     phase-2 step pair on each rank.  Steps/s and generation times are
+     printed meshed beside single, labelled as two ranks sharing one
+     card (not scaling); ``python3 chip_smoke.py --phase meshes`` runs
+     this phase alone.
 5. Time each kernel (CUDA events) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (cuDNN
    ``nn.GRU`` at the one-head encoder shape for B1/B2), B1's and B2's
@@ -202,6 +225,7 @@ device is present.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import io
@@ -3722,6 +3746,371 @@ def cr_plan(kind, p, hidden, dev) -> dict:
     return {**plan._asdict(), "n_clusters": n_clusters}
 
 
+# Meshes on the card (check_meshes): one H100, so a world of one over NCCL
+# and two ranks sharing the card over gloo with CUDA tensors.
+MESH_STEPS, MESH_SP_STEPS, MESH_XL_STEPS, MESH_RUN_STEPS = 100, 50, 30, 300
+LH_P, LH_CTX, LH_B, LH_T = 10, 128, 128, 4096     # lorenz96_longhorizon
+XL_P, XL_H, XL_B, XL_CTX, XL_T = 128, 128, 64, 40, 8192   # lorenz96_xl
+MESH_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_meshed_fit.py:36-55
+MESH_LOSS_RTOL = 1e-4
+MESH_RANK_TIMEOUT = 420
+MESH_WARM_STEPS = 5       # untimed steps before each timed fit
+
+
+def _close(got, want, tol=MESH_TOL) -> float:
+    """Max |got - want| over two lists of tensors; raises beyond ``tol``."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        torch.testing.assert_close(a, b, **tol)
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def _mesh_fit(model, params, windows, cfg, seed, mesh, dev,
+              warm: bool = False):
+    """fit_phase1 from ``params`` on ``windows`` with a card generator
+    seeded ``seed``: (best params, metrics, seconds, B1/B2 launches).
+    ``warm``: first an untimed MESH_WARM_STEPS-step fit (the kernels'
+    plans, the group's first collectives)."""
+    import torch
+
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.train import fit_phase1
+
+    ones = torch.ones((model.p, model.p), device=dev)
+    if warm:
+        fit_phase1(model, params, windows, ones,
+                   dataclasses.replace(cfg, max_iter=MESH_WARM_STEPS,
+                                       check_every=MESH_WARM_STEPS),
+                   torch.Generator(device=dev).manual_seed(seed), mesh=mesh)
+    torch.cuda.synchronize()
+    cuda_gru.reset_launches()
+    t0 = time.perf_counter()
+    best, _, met = fit_phase1(model, params, windows, ones, cfg,
+                              torch.Generator(device=dev).manual_seed(seed),
+                              mesh=mesh)
+    torch.cuda.synchronize()
+    return best, met, time.perf_counter() - t0, dict(cuda_gru.LAUNCHES)
+
+
+def _mesh_rank_main(payload) -> None:
+    """One of two ranks sharing the card (``chip_smoke.py --mesh-rank``):
+    the dp, sp and ep fits and sharded serving, each meshed run beside
+    the single-process run on rank 0; rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.ops import cuda_rollout
+    from vae_connexe_torch.parallel import collectives as coll
+    from vae_connexe_torch.parallel.mesh import (
+        init_world,
+        make_mesh,
+        shutdown,
+        world_info,
+    )
+    from vae_connexe_torch.parallel.serve import make_sharded_generator
+    from vae_connexe_torch.train import Phase1Config
+    from vae_connexe_torch.train import generate_with_compensation as gwc
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    rank = payload["rank"]
+    dev = init_world(None, init_method=payload["init"], world_size=2,
+                     rank=rank, local_rank=rank, local_world=2,
+                     timeout=MESH_RANK_TIMEOUT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    coll.reset_staged()
+    res = {"world": world_info()}
+
+    def both(name, fn):
+        got = [None, None]
+        dist.all_gather_object(got, fn())
+        res[name] = got
+
+    def staged():
+        return {"calls": dict(coll.STAGED),
+                "mb": {k: v / 1e6 for k, v in coll.STAGED_BYTES.items()},
+                "s": dict(coll.STAGED_S)}
+
+    def fit_case(name, model, windows, cfg, mesh, seed):
+        params = model.init(torch.Generator().manual_seed(seed), dev)
+        if rank == 0:
+            _mesh_fit(model, params, windows, cfg, seed + 1, None, dev,
+                      warm=True)
+        coll.reset_staged()
+        best, met, secs, launches = _mesh_fit(model, params, windows, cfg,
+                                              seed + 1, mesh, dev, warm=True)
+        row = {"launches": launches, "mesh_s": secs,
+               "mesh_steps_s": cfg.max_iter / secs, "loss": met["loss"],
+               "staged": staged()}
+        if rank == 0:
+            one, met1, secs1, _ = _mesh_fit(model, params, windows, cfg,
+                                            seed + 1, None, dev)
+            row.update(max_abs_err=_close(tree_leaves(best),
+                                          tree_leaves(one)),
+                       single_s=secs1, single_steps_s=cfg.max_iter / secs1,
+                       single_loss=met1["loss"])
+            assert math.isclose(met["loss"], met1["loss"],
+                                rel_tol=MESH_LOSS_RTOL), (met, met1)
+        both(name, lambda: row)
+
+    fit_case("dp2", CRVAE(P, H, ENC), lorenz_windows(dev, P, seed=31),
+             Phase1Config(max_iter=MESH_STEPS, check_every=25,
+                          batch_size=TRAIN_B), make_mesh(n_dp=2), 32)
+    fit_case("sp2", CRVAE(LH_P, H),
+             lorenz_windows(dev, LH_P, seed=33, ctx=LH_CTX, t=LH_T),
+             Phase1Config(max_iter=MESH_SP_STEPS, check_every=25,
+                          batch_size=LH_B),
+             make_mesh(n_dp=1, n_ep=1, n_sp=2), 34)
+    fit_case("xl_ep2", CRVAE(XL_P, XL_H),
+             lorenz_windows(dev, XL_P, seed=35, ctx=XL_CTX, t=XL_T),
+             Phase1Config(max_iter=MESH_XL_STEPS, check_every=10,
+                          batch_size=XL_B), make_mesh(n_dp=1, n_ep=2), 36)
+    # Sharded serving at B=3072, float32 and bf16.
+    model, err = CRVAE(P, H, ENC), ErrorVAE(P, H)
+    params = model.init(torch.Generator().manual_seed(37), dev)
+    eparams = err.init(torch.Generator().manual_seed(38), dev)
+    mesh = make_mesh(n_dp=2)
+    for dtype in (None, "bfloat16"):
+        gen = make_sharded_generator(model, err, mesh, SERVE_B, dtype=dtype)
+        gen(params, eparams, torch.Generator(device=dev).manual_seed(0))
+        if rank == 0:
+            gwc(model, err, params, eparams,
+                torch.Generator(device=dev).manual_seed(0), SERVE_B,
+                dtype=dtype)
+        coll.reset_staged()
+        torch.cuda.synchronize()
+        cuda_rollout.reset_launches()
+        t0 = time.perf_counter()
+        out = gen(params, eparams, torch.Generator(device=dev).manual_seed(39))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        row = {"launches": dict(cuda_rollout.LAUNCHES), "mesh_ms": 1e3 * secs,
+               "shape": list(out.shape), "staged": staged()}
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = gwc(model, err, params, eparams,
+                       torch.Generator(device=dev).manual_seed(39), SERVE_B,
+                       dtype=dtype)
+            torch.cuda.synchronize()
+            err_abs = (out - want).abs()
+            row.update(single_ms=1e3 * (time.perf_counter() - t0),
+                       max_abs_err=float(err_abs.max()),
+                       worst_rel=float((err_abs / (want.abs() + 1)).max()))
+            tol = 1e-5 if dtype is None else BF16_TOL
+            assert row["worst_rel"] <= tol, (dtype, row)
+        both(f"serve_{dtype or 'float32'}", lambda: row)
+    if rank == 0:
+        with open(payload["out"], "w") as f:
+            json.dump(res, f)
+    shutdown()
+
+
+def _spawn_mesh_ranks(out_path) -> list[str]:
+    """Two ``--mesh-rank`` processes of this script sharing the card;
+    their logs.  A rank that fails stops the other at once."""
+    from vae_connexe_torch.parallel.mesh import _free_port
+
+    init = f"tcp://localhost:{_free_port()}"
+    procs, logs = [], []
+    for rank in range(2):
+        f = tempfile.TemporaryFile("w+")
+        logs.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             json.dumps({"rank": rank, "init": init, "out": out_path})],
+            stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    while True:
+        codes = [p.poll() for p in procs]
+        if any(c not in (None, 0) for c in codes) or all(
+                c == 0 for c in codes) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("mesh ranks failed:\n" + "\n".join(
+            f"--- rank {r} ---\n{t[-6000:]}" for r, t in enumerate(texts)))
+    return texts
+
+
+def check_meshes(dev, card):
+    """Meshes on the card.  (1) A world of one rank over NCCL in this
+    process: ``fit_phase1(mesh=make_mesh())`` at p=20, H=64, B=256, ctx=20
+    for MESH_STEPS steps bit for bit the unmeshed fit, 2 + 2 B1/B2
+    launches a step.  (2) Two ranks sharing the card (gloo with CUDA
+    tensors; NCCL refuses two ranks on one device), each meshed run held
+    against the single-process run on the card: a dp=2 fit at p=20, an
+    sp=2 fit at lorenz96_longhorizon's shapes, lorenz96_xl's width at
+    ep=2, make_sharded_generator at B=3072 in float32 and bf16, and ``cli
+    run lorenz96_crvae --processes 2 --ep 2`` cut to MESH_RUN_STEPS +
+    MESH_RUN_STEPS steps against ``cli run`` in this process (the same
+    recovered graph, params within MESH_TOL, the loss within
+    MESH_LOSS_RTOL).  Launch counts are read on every rank, and the rates
+    printed with the card, labelled as two ranks sharing one card."""
+    import torch
+
+    from vae_connexe_torch.models import CRVAE
+    from vae_connexe_torch.parallel.mesh import make_mesh, shutdown, world_info
+    from vae_connexe_torch.train import Phase1Config
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    out = {}
+    # (1) A world of one over NCCL.
+    windows = lorenz_windows(dev, P, seed=30)
+    model = CRVAE(P, H, ENC)
+    params = model.init(torch.Generator().manual_seed(40), dev)
+    cfg = Phase1Config(max_iter=MESH_STEPS, check_every=25,
+                       batch_size=TRAIN_B)
+    one, met1, secs1, _ = _mesh_fit(model, params, windows, cfg, 41, None,
+                                    dev, warm=True)
+    mesh = make_mesh()
+    info = world_info()
+    meshed, met, secs, launches = _mesh_fit(model, params, windows, cfg, 41,
+                                            mesh, dev, warm=True)
+    shutdown()
+    assert info["backend"] == "nccl", info
+    assert met == met1, (met, met1)
+    for a, b in zip(tree_leaves(meshed), tree_leaves(one)):
+        assert torch.equal(a, b), "a mesh of one rank is not bit for bit"
+    want = {"gru_forward": 2 * MESH_STEPS, "gru_backward": 2 * MESH_STEPS,
+            "gru_forward_wide": 0, "gru_backward_wide": 0}
+    assert launches == want, (launches, want)
+    out["world1"] = {"backend": info["backend"], "launches": launches,
+                     "steps_s": MESH_STEPS / secs,
+                     "single_steps_s": MESH_STEPS / secs1, "bitwise": True}
+    log(f"meshes: world of one over NCCL, fit_phase1 p={P} B={TRAIN_B} "
+        f"{MESH_STEPS} steps bit for bit the unmeshed fit, "
+        f"{MESH_STEPS / secs:.1f} vs {MESH_STEPS / secs1:.1f} steps/s, "
+        f"launches {launches} [{card}]")
+    # (2) Two ranks sharing the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        res_path = os.path.join(tmp, "mesh_ranks.json")
+        rank_logs = _spawn_mesh_ranks(res_path)
+        ranks = json.load(open(res_path))
+        for line in rank_logs[0].splitlines():
+            if "backend" in line:
+                log(f"meshes: {line.strip()}")
+        per_step = {"dp2": (MESH_STEPS, 2, 0), "sp2": (MESH_SP_STEPS, 3, 0),
+                    "xl_ep2": (MESH_XL_STEPS, 0, 2)}
+        for name, (steps, plain, wide) in per_step.items():
+            rows = ranks[name]
+            for r, row in enumerate(rows):
+                want = {"gru_forward": plain * steps,
+                        "gru_backward": plain * steps,
+                        "gru_forward_wide": wide * steps,
+                        "gru_backward_wide": wide * steps}
+                assert row["launches"] == want, (name, r, row, want)
+            r0 = rows[0]
+            log(f"meshes: {name} two ranks sharing one card: "
+                f"{r0['mesh_steps_s']:.1f} steps/s meshed beside "
+                f"{r0['single_steps_s']:.1f} single-process, max abs err "
+                f"{r0['max_abs_err']:.3g}, loss {r0['loss']:.6f} vs "
+                f"{r0['single_loss']:.6f}, launches by rank "
+                f"{[row['launches'] for row in rows]}, staged through the "
+                f"host on rank 0 {r0['staged']} [{card}]")
+        for dtype in ("float32", "bfloat16"):
+            rows = ranks[f"serve_{dtype}"]
+            k1, k2 = (("crvae_free_run", "errvae_sample") if dtype ==
+                      "float32" else ("crvae_free_run_bf16",
+                                      "errvae_sample_bf16"))
+            for row in rows:
+                assert row["launches"][k1] == row["launches"][k2] == 1, row
+                assert row["shape"] == [SERVE_B, T, P], row
+            r0 = rows[0]
+            log(f"meshes: make_sharded_generator B={SERVE_B} {dtype}, two "
+                f"ranks sharing one card: {r0['mesh_ms']:.2f} ms meshed "
+                f"(incl. the gather) beside {r0['single_ms']:.2f} ms "
+                f"single-process, max abs err {r0['max_abs_err']:.3g}, "
+                f"launches by rank {[row['launches'] for row in rows]}, "
+                f"staged on rank 0 {r0['staged']} [{card}]")
+        out.update({k: v for k, v in ranks.items()})
+        out["run"] = _mesh_cli_run(card, tmp)
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"meshes: phase wall time {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def _mesh_cli_run(card, tmp):
+    """``cli run lorenz96_crvae --processes 2 --ep 2`` (two ranks sharing
+    the card, 5 heads each) against ``cli run`` in this process, both at
+    MESH_RUN_STEPS steps a phase."""
+    import numpy as np
+    import torch
+
+    from vae_connexe_torch import cli
+    from vae_connexe_torch.models import CRVAE, ErrorVAE
+    from vae_connexe_torch.utils import load_gc, restore_checkpoint
+    from vae_connexe_torch.utils.tree import tree_leaves
+
+    name = "lorenz96_crvae"
+    mp_dir, sp_dir = os.path.join(tmp, "mp"), os.path.join(tmp, "sp")
+    steps = str(MESH_RUN_STEPS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vae_connexe_torch.cli", "run", name,
+         "--processes", "2", "--ep", "2", "--iters", steps, "--out-dir",
+         mp_dir], capture_output=True, text=True, cwd=ROOT,
+        timeout=MESH_RANK_TIMEOUT)
+    mp_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    got = json.load(open(os.path.join(mp_dir, "mp_results.json")))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["run", name, "--iters", steps, "--out-dir", sp_dir,
+                  "--quiet", "--save-checkpoints"])
+    sp_s = time.perf_counter() - t0
+    want = json.load(open(os.path.join(sp_dir, f"metrics_{name}.json")))
+    gc_mp = np.load(os.path.join(mp_dir, f"GC_{name}.npy"))
+    gc_sp = load_gc(os.path.join(sp_dir, "ckpt_phase1"))
+    assert np.array_equal(gc_mp, gc_sp), (gc_mp, gc_sp)
+    arrays = np.load(os.path.join(mp_dir, "mp_params.npz"))
+    model, err = CRVAE(CRVAE_P, H), ErrorVAE(CRVAE_P, H)
+    tmpl = model.init(torch.Generator(), "cpu")
+    p1 = restore_checkpoint(os.path.join(sp_dir, "ckpt_phase1"), tmpl)
+    p2 = restore_checkpoint(os.path.join(sp_dir, "ckpt_phase2"), {
+        "crvae": tmpl, "error_vae": err.init(torch.Generator(), "cpu")})
+    worst = 0.0
+    for key, tree in (("p1", p1), ("p2", p2["crvae"]),
+                      ("err", p2["error_vae"])):
+        leaves = tree_leaves(tree)
+        worst = max(worst, _close(
+            [torch.from_numpy(arrays[f"{key}_{i}"])
+             for i in range(len(leaves))], leaves))
+    for phase, key in (("phase1", "loss"), ("phase2", "mean_loss")):
+        assert math.isclose(got[phase][key], want[phase][key],
+                            rel_tol=MESH_LOSS_RTOL), (phase, got, want)
+    n = MESH_RUN_STEPS
+    for r, launches in enumerate(got["launches"]):
+        expect = {"gru_forward": 6 * n, "gru_backward": 6 * n,
+                  "gru_forward_wide": 0, "gru_backward_wide": 0}
+        assert launches == expect, (r, launches, expect)
+    row = {"mesh": got["mesh"], "launches": got["launches"],
+           "max_abs_err": worst, "mp_wall_s": mp_s, "single_wall_s": sp_s,
+           "auroc": got["gc"]["auroc"], "single_auroc": want["gc"]["auroc"]}
+    log(f"meshes: cli run {name} --processes 2 --ep 2 --iters {steps} (two "
+        f"ranks sharing one card): the graph of the single-process run, "
+        f"params max abs err {worst:.3g}, phase-1 loss "
+        f"{got['phase1']['loss']:.6f} vs {want['phase1']['loss']:.6f}, "
+        f"AUROC {row['auroc']:.4f}, {mp_s:.1f} s (incl. starting the ranks) "
+        f"vs {sp_s:.1f} s in process, launches by rank {got['launches']} "
+        f"[{card}]")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3781,6 +4170,7 @@ def main() -> int:
         debug_nans_main_path(dev, card)
         ooc = out_of_core_main_path(dev, card, out_dir)
         ooc["rates"] = time_out_of_core(dev, card, out_dir, series)
+    meshes = check_meshes(dev, card)
     times = time_all(dev, card, served_fn)
     times.update(time_training(dev, card, series))
     phase2_rates = time_phase2(dev, card, series, series10)
@@ -3959,6 +4349,26 @@ def main() -> int:
                 "launches_scaled": launches["errvae_sample_bf16_resident"]}
         kernels.append(row)
     by_name["gru_backward"]["out_of_core"] = ooc
+    for name in ("gru_forward", "gru_backward"):
+        by_name[name]["launches_meshes"] = {
+            "world1_per_step": meshes["world1"]["launches"][name]
+            // MESH_STEPS,
+            **{case: [row["launches"][name] + row["launches"][f"{name}_wide"]
+                      for row in meshes[case]]
+               for case in ("dp2", "sp2", "xl_ep2")},
+            "run_processes_2_ep_2": [
+                row[name] for row in meshes["run"]["launches"]]}
+    by_name["gru_backward"]["meshes"] = {
+        case: ({k: v for k, v in meshes[case][0].items() if k != "launches"}
+               if isinstance(meshes[case], list) else meshes[case])
+        for case in meshes if case != "world"}
+    rows = {k["name"]: k for k in kernels}
+    for name, key in (("crvae_free_run", "float32"),
+                      ("errvae_sample", "float32"),
+                      ("crvae_free_run_bf16", "bfloat16"),
+                      ("errvae_sample_bf16", "bfloat16")):
+        rows[name]["launches_sharded_serving"] = [
+            row["launches"][name] for row in meshes[f"serve_{key}"]]
     by_name["crvae_free_run"]["fresh_process"] = run_launches[
         "fresh_process"]
     for name in kernels:
@@ -3978,5 +4388,35 @@ def main() -> int:
     return 0
 
 
+def _main_meshes() -> int:
+    """``--phase meshes``: build the kernels and run check_meshes alone."""
+    import torch
+
+    from vae_connexe_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = smi_line()
+    log(f"card: {card}")
+    _build.build_all(list(_build.SOURCES))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = check_meshes(torch.device("cuda"), card)
+    log(json.dumps({"meshes": meshes}, default=str))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        try:
+            _mesh_rank_main(json.loads(sys.argv[2]))
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+            sys.stdout.flush()
+            os._exit(1)
+        sys.exit(0)
+    if sys.argv[1:] == ["--phase", "meshes"]:
+        sys.exit(_main_meshes())
     sys.exit(main())

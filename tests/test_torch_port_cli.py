@@ -163,8 +163,14 @@ def test_cli_run_resume_after_finish_is_pure_restore(tmp_path, capsys):
 
 
 def test_run_experiment_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
+    # A mesh is ported for the crvae family, as JAX's; an object that is
+    # no mesh raises a TypeError, another family JAX's ValueError.
+    from torch_ranks import world_of_one
+
+    with pytest.raises(TypeError, match="make_mesh"):
         run_experiment("lorenz96_crvae", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="--mesh supports the crvae family"):
+        run_experiment("henon6d_win", mesh=world_of_one(), device="cpu")
     # Out of core is ported for the crvae family only, as JAX's.
     with pytest.raises(ValueError, match="crvae family"):
         run_experiment("henon6d_win", out_of_core=True, device="cpu")
@@ -175,29 +181,88 @@ def test_run_experiment_unported_paths_raise():
         run_experiment("lorenz96_crvae", resume=True, device="cpu")
 
 
-@pytest.mark.parametrize("argv,message", [
-    (["run", "lorenz96_crvae", "--mesh"], "ROADMAP A7"),
-    (["run", "lorenz96_crvae", "--ep", "2"], "ROADMAP A7"),
-    (["run", "lorenz96_crvae", "--sp", "2"], "ROADMAP A7"),
-    (["run", "lorenz96_crvae", "--processes", "2"], "ROADMAP A7"),
-    (["export", "csrae_binarized", "ck", "--out", "g", "--device", "cpu"],
-     "export supports the crvae and win families; 'csrae_binarized' is "
-     "'csrae'"),
-    (["discover", "s.csv", "--mesh"], "ROADMAP A7"),
-    (["discover", "s.csv", "--ep", "2"], "ROADMAP A7"),
-    (["discover", "s.csv", "--family", "win", "--mesh"], "ROADMAP A7"),
-    (["discover", "s.csv", "--family", "win", "--prox", "row", "--ep", "2"],
-     "ROADMAP A7"),
-    (["sweep", "--mesh"], "ROADMAP A7"),
-], ids=["mesh", "ep", "sp", "processes", "export-csrae",
-        "discover-mesh", "discover-ep", "discover-win", "discover-prox",
-        "sweep-mesh"])
-def test_unported_flags_exit(argv, message):
-    """The reference's flags the port does not have exit with the ROADMAP
-    item that brings them, and an export of a family without a generator
-    artifact with the JAX package's message; none is silently ignored."""
-    with pytest.raises(SystemExit, match=message):
-        cli.main(argv)
+def _series_csv(tmp_path) -> str:
+    """A small (200, 4) series as a CSV with a header."""
+    x = np.cumsum(np.random.default_rng(0).standard_normal((200, 4)),
+                  axis=0) * 0.1
+    path = tmp_path / "s.csv"
+    np.savetxt(path, x, delimiter=",", header="a,b,c,d", comments="")
+    return str(path)
+
+
+def _cli_json(capsys, argv) -> dict:
+    cli.main(argv)
+    return json.loads(capsys.readouterr().out)
+
+
+_DISCOVER = ["--context", "10", "--iters", "3", "--batch", "32",
+             "--device", "cpu", "--quiet"]
+_SWEEP = ["sweep", "--p", "4", "--t", "300", "--seeds", "2", "--iters", "4",
+          "--batch", "32", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("case", [
+    "mesh", "ep", "sp", "processes", "export-csrae", "discover-mesh",
+    "discover-ep", "discover-win", "discover-prox", "sweep-mesh"])
+def test_unported_flags_exit(case, crvae_run, tmp_path, capsys):
+    """The reference's mesh flags, once left out, now work with JAX's
+    composition rules, and an export of a family without a generator
+    artifact exits with the JAX package's message.  In this process
+    ``--mesh`` is a world of one rank (bit for bit the unmeshed command);
+    ``--processes 2 --ep 2`` starts two gloo CPU ranks (within the JAX
+    package's tolerances of the single-process run)."""
+    if case == "mesh":
+        assert _run(tmp_path, capsys, "--mesh")[1] == crvae_run[1]
+    elif case == "ep":
+        got = _cli_json(capsys, [
+            "run", "lorenz96_crvae", "--processes", "2", "--ep", "2",
+            "--iters", "4", "--device", "cpu", "--out-dir",
+            str(tmp_path / "mp")])
+        want = crvae_run[1]
+        assert got["mesh"] == {"dp": 1, "ep": 2} and got["ranks"] == 2
+        for phase in ("phase1", "phase2"):
+            assert got[phase].keys() == want[phase].keys()
+            for k in got[phase]:
+                assert np.isclose(got[phase][k], want[phase][k], rtol=1e-3,
+                                  atol=1e-5), (phase, k)
+        for k in got["gc"]:
+            assert np.isclose(got["gc"][k], want["gc"][k], atol=1e-6), k
+    elif case == "sp":
+        with pytest.raises(SystemExit, match="--sp not supported "
+                                             "multi-process"):
+            cli.main(["run", "lorenz96_crvae", "--processes", "2", "--sp",
+                      "2"])
+    elif case == "processes":
+        with pytest.raises(SystemExit, match="--save-checkpoints not "
+                                             "supported multi-process"):
+            cli.main(["run", "lorenz96_crvae", "--processes", "2",
+                      "--save-checkpoints"])
+        with pytest.raises(SystemExit, match="require --out-dir"):
+            cli.main(["run", "lorenz96_crvae", "--processes", "2",
+                      "--resume"])
+    elif case == "export-csrae":
+        with pytest.raises(SystemExit,
+                           match="export supports the crvae and win "
+                                 "families; 'csrae_binarized' is 'csrae'"):
+            cli.main(["export", "csrae_binarized", "ck", "--out", "g",
+                      "--device", "cpu"])
+    elif case in ("discover-mesh", "discover-prox"):
+        extra = (["--family", "win", "--prox", "row", "--seeds", "2"]
+                 if case == "discover-prox" else [])
+        argv = ["discover", _series_csv(tmp_path), *_DISCOVER, *extra]
+        assert (_cli_json(capsys, argv + ["--mesh"])
+                == _cli_json(capsys, argv))
+    elif case == "discover-ep":
+        with pytest.raises(ValueError, match="cannot infer n_dp"):
+            cli.main(["discover", _series_csv(tmp_path), *_DISCOVER,
+                      "--mesh", "--ep", "2"])
+    elif case == "discover-win":
+        with pytest.raises(ValueError, match="SEED axis"):
+            cli.main(["discover", _series_csv(tmp_path), *_DISCOVER,
+                      "--family", "win", "--mesh"])
+    else:
+        assert (_cli_json(capsys, _SWEEP + ["--mesh"])
+                == _cli_json(capsys, _SWEEP))
 
 
 @pytest.fixture(scope="module")

@@ -53,6 +53,13 @@ _MODULES = ["vae_connexe_torch", "vae_connexe_torch._device",
             "vae_connexe_torch.ops.rnn_cells",
             "vae_connexe_torch.optim.adam", "vae_connexe_torch.optim.prox",
             "vae_connexe_torch.parallel", "vae_connexe_torch.parallel.seed_sweep",
+            "vae_connexe_torch.parallel.collectives",
+            "vae_connexe_torch.parallel.mesh",
+            "vae_connexe_torch.parallel.multihost",
+            "vae_connexe_torch.parallel.multiprocess",
+            "vae_connexe_torch.parallel.seq_parallel",
+            "vae_connexe_torch.parallel.serve",
+            "vae_connexe_torch.parallel.sharded",
             "vae_connexe_torch.server",
             "vae_connexe_torch.serving", "vae_connexe_torch.train.config",
             "vae_connexe_torch.train.crvae_trainer",

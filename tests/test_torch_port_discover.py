@@ -268,10 +268,20 @@ def test_discover_validation(var_series):
         discover_fn(var_series, family="mystery", **SMALL)
     with pytest.raises(ValueError, match="win"):
         discover_fn(var_series, prox="row", **SMALL)
-    with pytest.raises(NotImplementedError, match="A7"):
-        discover_fn(var_series, family="win", seeds=2, mesh=object(), **SMALL)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # Meshes, with the JAX package's rules: the win family shards only
+    # its seed axis; an object that is no mesh raises a TypeError; a world
+    # of one rank discovers what the unmeshed call does.
+    from torch_ranks import world_of_one
+
+    mesh = world_of_one()
+    with pytest.raises(ValueError, match="SEED axis"):
+        discover_fn(var_series, family="win", seeds=1, mesh=mesh, **SMALL)
+    with pytest.raises(TypeError, match="make_mesh"):
         discover_fn(var_series, mesh=object(), **SMALL)
+    meshed = discover_fn(var_series, max_iter=3, mesh=mesh, **SMALL)
+    plain = discover_fn(var_series, max_iter=3, **SMALL)
+    np.testing.assert_array_equal(meshed.scores, plain.scores)
+    assert meshed.metrics == plain.metrics
 
 
 def _dict_keys(fn, var: str) -> set[str]:

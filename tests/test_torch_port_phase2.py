@@ -356,7 +356,9 @@ def test_cs_raises_where_phase2_training_starts(setup):
     """Where phase 2's training starts, latent_reg='cs' now trains: the fit
     draws a GMM prior of gmm_components x hidden from its generator first
     and moves it every step, the KL stays on the ErrorVAE; a regulariser
-    that is neither 'kl' nor 'cs', and a mesh, raise."""
+    that is neither 'kl' nor 'cs' raises; a mesh of one rank trains the
+    same fit bit for bit, and an object that is no mesh raises a
+    TypeError."""
     _, _, _, _, windows, parents = setup
     m, e = CRVAE(P, H, E), ErrorVAE(P, HE, Z)
     cfg = Phase2Config(latent_reg="cs", lambda_cs=0.1, gmm_components=10,
@@ -375,6 +377,16 @@ def test_cs_raises_where_phase2_training_starts(setup):
     with pytest.raises(ValueError, match="latent_reg"):
         fit_phase2(m, e, params, eparams, _t(windows), _t(parents),
                    Phase2Config(latent_reg="l1"), torch.Generator())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         fit_phase2(m, e, params, eparams, _t(windows), _t(parents),
                    Phase2Config(), torch.Generator(), mesh=object())
+    from torch_ranks import world_of_one
+
+    meshed = fit_phase2(m, e, params, eparams, _t(windows), _t(parents),
+                        cfg, torch.Generator().manual_seed(3),
+                        mesh=world_of_one())
+    assert meshed[3] == metrics
+    assert torch.equal(meshed[2].prior.mu, state.prior.mu)
+    for a, b in zip(tree_leaves(meshed[:2]), tree_leaves(
+            (state.best_params, state.err_params))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

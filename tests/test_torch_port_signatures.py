@@ -33,7 +33,6 @@ DRAWS = {"generator", "eps", "h0", "noise", "idx", "x0_draw", "noise_draw",
          "eps_z", "eps_e", "eps_err", "coins", "comp"}
 PORT_EXTRAS = DRAWS | {"device"}
 UNPORTED = {
-    "batch_sharding": "A7 (meshes)",
     "interpret": "Pallas interpret mode: the CPU runs the plain versions",
 }
 # ... and of one callable only.
@@ -141,7 +140,20 @@ def test_shared_callables_take_jax_positional_parameters():
                  "train.crvae_trainer.make_phase2_step",
                  "data.native_loader.NativeWindowLoader.__init__",
                  "data.native_loader.NativeWindowLoader.gather",
-                 "serving.export_generator", "serving.load_generator"):
+                 "serving.export_generator", "serving.load_generator",
+                 "parallel.mesh.make_mesh", "parallel.mesh.global_device_put",
+                 "parallel.mesh.shard_crvae_params",
+                 "parallel.multihost.initialize_multihost",
+                 "parallel.sharded.make_sharded_phase1_step",
+                 "parallel.sharded.make_sharded_phase2_step",
+                 "parallel.sharded.check_sp_compat",
+                 "parallel.seq_parallel.seq_sharded_gru_heads",
+                 "parallel.seq_parallel.seq_sharded_gru",
+                 "parallel.serve.make_sharded_generator",
+                 "parallel.multiprocess.launch_multiprocess_fit",
+                 "parallel.multiprocess.launch_multiprocess_experiment",
+                 "parallel.multiprocess.worker_main",
+                 "ops.dispatch.set_seq_parallel", "ops.dispatch.seq_parallel"):
         assert f"vae_connexe_torch.{name}" in checked, name
     bad = {name: why for name, f, g in pairs
            if (why := mismatch(name, f, g)) is not None}

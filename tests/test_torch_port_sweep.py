@@ -202,13 +202,23 @@ def test_kept_seed_axis_losses_are_per_seed_values():
 
 
 def test_unported_sweep_options_raise():
-    """A mesh raises (A7); latent_reg='cs' builds (it trains on KL, as the
-    JAX package's sweep: tests/test_torch_port_cs.py); another name
-    raises."""
+    """A mesh is ported: on a world of one rank the seed axis stays whole
+    and the sweep is the unmeshed one bit for bit (the split over dp:
+    tests/test_torch_port_parallel.py); an object that is no mesh raises a
+    TypeError; latent_reg='cs' builds (it trains on KL, as the JAX
+    package's sweep: tests/test_torch_port_cs.py); another name raises."""
+    from torch_ranks import world_of_one
+
     model, windows = CRVAE(4, 8, 5), _windows()
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="make_mesh"):
         make_sweep_fn(model, windows, torch.ones((4, 4)), Phase1Config(),
                       mesh=object())
+    cfg = Phase1Config(max_iter=3, batch_size=8)
+    meshed = make_sweep_fn(model, windows, torch.ones((4, 4)), cfg,
+                           mesh=world_of_one())([0, 1])
+    plain = make_sweep_fn(model, windows, torch.ones((4, 4)), cfg)([0, 1])
+    for k in plain:
+        torch.testing.assert_close(meshed[k], plain[k], rtol=0, atol=0)
     assert callable(make_sweep_step(model, Phase1Config(latent_reg="cs"),
                                     windows, torch.ones((4, 4))))
     with pytest.raises(ValueError, match="latent_reg"):

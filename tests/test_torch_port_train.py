@@ -342,14 +342,24 @@ def test_fit_phase1_fixed_batch_draws_once():
 
 
 def test_unported_options_raise(tmp_path):
-    """A mesh raises where the fit starts; a checkpoint directory works: a
-    fit resumed from its own finished snapshot is a pure restore."""
+    """A mesh is ported: a world of one rank trains bit for bit the
+    unmeshed fit, and an object that is no mesh raises a TypeError where
+    the fit starts; a checkpoint directory works: a fit resumed from its
+    own finished snapshot is a pure restore."""
+    from torch_ranks import world_of_one
+
     m = CRVAE(P, H, E)
     params = m.init(torch.Generator().manual_seed(1), "cpu")
     args = (m, params, _windows(5), torch.ones((P, P)))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         fit_phase1(*args, Phase1Config(), torch.Generator(), mesh=object())
     cfg = Phase1Config(max_iter=4, check_every=2, batch_size=8)
+    meshed = fit_phase1(*args, cfg, torch.Generator().manual_seed(3),
+                        mesh=world_of_one())
+    plain = fit_phase1(*args, cfg, torch.Generator().manual_seed(3))
+    assert meshed[2] == plain[2]
+    for a, b in zip(tree_leaves(meshed[0]), tree_leaves(plain[0])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     ckpt = str(tmp_path / "ckpt")
     best, _, metrics = fit_phase1(*args, cfg, torch.Generator().manual_seed(2),
                                   checkpoint_dir=ckpt)

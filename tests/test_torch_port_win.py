@@ -274,7 +274,17 @@ def test_fit_many_matches_single_fits_seed_by_seed(setup):
         for a, b in zip(tree_leaves(unstack_tree(many, s)), tree_leaves(one)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
         assert m1["loss"] == pytest.approx(float(met["loss"][s]), rel=1e-5)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # A mesh of one rank keeps every seed on the rank: the same fits
+    # (the split over dp: tests/test_torch_port_parallel.py).
+    from torch_ranks import world_of_one
+
+    meshed, met_m = tt.fit_many(stack_trees(inits), _t(windows),
+                                [torch.Generator().manual_seed(10 + s)
+                                 for s in range(3)], mesh=world_of_one())
+    for a, b in zip(tree_leaves(meshed), tree_leaves(many)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(met_m["loss"], met["loss"], rtol=0, atol=0)
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.fit_many(stack_trees(inits), _t(windows), [], mesh=object())
 
 
@@ -334,10 +344,18 @@ def test_win_seed0_in_the_sweep_matches_sequential(var_series):
 
 
 def test_win_validation(var_series):
+    """The win family's mesh shards its stability seeds over dp: with two
+    seeds on a world of one rank, the unmeshed result; an object that is
+    no mesh raises a TypeError."""
+    from torch_ranks import world_of_one
+
     series, _ = var_series
-    with pytest.raises(NotImplementedError, match="A7"):
-        discover(series, context=10, max_iter=1, family="win", seeds=2,
-                 mesh=object(), device="cpu")
+    kw = dict(context=10, max_iter=1, family="win", seeds=2, device="cpu")
+    with pytest.raises(TypeError, match="make_mesh"):
+        discover(series, mesh=object(), **kw)
+    meshed = discover(series, mesh=world_of_one(), **kw)
+    np.testing.assert_array_equal(meshed.seed_scores,
+                                  discover(series, **kw).seed_scores)
 
 
 # ---------------- the context-conditioned artifact ----------------

@@ -28,10 +28,13 @@ Examples:
   python -m vae_connexe_torch.cli run csrae_binarized --out-dir out --save-checkpoints
   python -m vae_connexe_torch.cli eval csrae_binarized out/ckpt_csrae --generate 8
   python -m vae_connexe_torch.cli run vrae_demo --debug-nans
+  python -m vae_connexe_torch.cli run lorenz96_crvae --processes 2 --ep 2
+  torchrun --nproc-per-node 2 -m vae_connexe_torch.cli run lorenz96_xl --mesh --ep 2
 
-Everything runs on the card unless ``--device cpu`` is given.  The JAX
-package's flags that the port does not have yet exit with the ROADMAP item
-that brings them.
+Everything runs on the card unless ``--device cpu`` is given.  Meshes:
+one process a device.  ``run --processes N`` starts N ranks itself
+(``parallel/multiprocess.py``); ``--mesh`` makes this process one rank of
+the group ``torchrun`` started (its environment), or of a world of one.
 """
 
 from __future__ import annotations
@@ -41,24 +44,42 @@ import dataclasses
 import json
 import sys
 
-# Flags of the reference's ``run`` not ported yet: (dest, flag, ROADMAP item).
-_RUN_UNPORTED = (
-    ("mesh", "--mesh", "A7"), ("ep", "--ep", "A7"), ("sp", "--sp", "A7"),
-    ("processes", "--processes", "A7"),
-    ("devices_per_process", "--devices-per-process", "A7"),
-)
-# ... and of its ``discover`` and ``sweep``; a fourth entry lists the values that
-# are ported (without one: left unset).
-_DISCOVER_UNPORTED = (
-    ("mesh", "--mesh", "A7"), ("ep", "--ep > 1", "A7", (1,)),
-)
-_SWEEP_UNPORTED = (("mesh", "--mesh", "A7"),)
+
+def _mesh(args, n_ep: int = 1, n_sp: int = 1):
+    """The mesh of ``--mesh`` (None without it): this process joins the
+    group ``torchrun``'s environment describes, or starts a world of one,
+    and builds the (dp, ep[, sp]) mesh over it."""
+    if not args.mesh:
+        return None
+    import os
+
+    import torch.distributed as dist
+
+    from vae_connexe_torch.parallel import initialize_multihost, make_mesh
+    from vae_connexe_torch.parallel.mesh import mesh_shape
+
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        initialize_multihost(device=args.device)
+    mesh = make_mesh(n_ep=n_ep, n_sp=n_sp, device=args.device)
+    print(f"mesh: {mesh_shape(mesh)}", file=sys.stderr)
+    return mesh
 
 
-def _unported(args, table):
-    for dest, flag, item, *ported in table:
-        if getattr(args, dest) not in (ported[0] if ported else (None, False)):
-            sys.exit(f"{flag} is not ported yet (ROADMAP {item})")
+def _mesh_device(mesh, device):
+    """The device a meshed command runs on: its rank's."""
+    if mesh is None:
+        return device
+    from vae_connexe_torch.parallel.mesh import world_device
+
+    return world_device()
+
+
+def _print_json(mesh, obj, **kw) -> None:
+    """Print the command's JSON once: on rank 0 of a mesh."""
+    from vae_connexe_torch.parallel.mesh import is_writer
+
+    if is_writer(mesh):
+        print(json.dumps(obj, **kw))
 
 
 def _cmd_list(args):
@@ -72,11 +93,41 @@ def _cmd_list(args):
 def _cmd_run(args):
     from vae_connexe_torch.configs import get_experiment, run_experiment
 
-    _unported(args, _RUN_UNPORTED)
     if args.debug_nans:
         from vae_connexe_torch.utils import enable_nan_debugging
 
         enable_nan_debugging()
+    if args.processes:
+        # N cooperating OS processes, one rank a device, over one global
+        # (dp, ep) mesh.
+        from vae_connexe_torch.parallel.multiprocess import (
+            launch_multiprocess_experiment,
+        )
+
+        unsupported = [flag for flag, on in (
+            ("--mesh", args.mesh), ("--out-of-core", args.out_of_core),
+            ("--save-checkpoints", args.save_checkpoints),
+            ("--artifacts-every", bool(args.artifacts_every)),
+            ("--sp", args.sp > 1)) if on]
+        if unsupported:
+            sys.exit(f"--processes implies a meshed fit and composes with "
+                     f"--ep/--iters/--checkpoint-every/--resume/--no-phase2; "
+                     f"{' '.join(unsupported)} not supported multi-process")
+        if (args.checkpoint_every or args.resume) and not args.out_dir:
+            sys.exit("--checkpoint-every/--resume require --out-dir")
+        overrides = None
+        if args.iters is not None:
+            overrides = {"phase1": {"max_iter": args.iters},
+                         "phase2": {"max_iter": args.iters}}
+        results, _, _ = launch_multiprocess_experiment(
+            args.experiment, num_processes=args.processes,
+            devices_per_process=args.devices_per_process or 1,
+            n_ep=args.ep, seed=args.seed, overrides=overrides,
+            run_phase2=not args.no_phase2, out_dir=args.out_dir,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            device=args.device)
+        print(json.dumps(results, indent=2, default=str))
+        return
     overrides = {}
     if args.iters is not None:
         exp = get_experiment(args.experiment)
@@ -87,16 +138,18 @@ def _cmd_run(args):
         overrides["win"] = dataclasses.replace(
             exp.win, stage1_epochs=max(1, args.iters // 10),
             stage2_epochs=max(1, args.iters // 20))
+    mesh = _mesh(args, n_ep=args.ep, n_sp=args.sp)
     results = run_experiment(args.experiment, seed=args.seed,
                              out_dir=args.out_dir, overrides=overrides or None,
                              run_phase2=not args.no_phase2,
                              save_checkpoints=args.save_checkpoints,
                              artifacts_every=args.artifacts_every,
+                             mesh=mesh,
                              checkpoint_every=args.checkpoint_every,
                              resume=args.resume, verbose=not args.quiet,
                              out_of_core=args.out_of_core,
-                             device=args.device)
-    print(json.dumps(results, indent=2, default=str))
+                             device=_mesh_device(mesh, args.device))
+    _print_json(mesh, results, indent=2, default=str)
 
 
 def _cmd_sweep(args):
@@ -111,8 +164,8 @@ def _cmd_sweep(args):
     from vae_connexe_torch.parallel import sweep_phase1
     from vae_connexe_torch.train import Phase1Config
 
-    _unported(args, _SWEEP_UNPORTED)
-    dev = resolve_device(args.device)
+    mesh = _mesh(args)
+    dev = resolve_device(_mesh_device(mesh, args.device))
     series = lorenz96(torch.Generator(device=dev).manual_seed(args.seed),
                       p=args.p, t=args.t, device=dev)
     windows, _ = arrange_input(series, args.context)
@@ -121,7 +174,7 @@ def _cmd_sweep(args):
                        batch_size=args.batch)
     out = sweep_phase1(model, windows, torch.ones((args.p, args.p),
                                                   device=dev), cfg,
-                       range(args.seeds))
+                       range(args.seeds), mesh=mesh)
     truth = lorenz96_truth(args.p, dev)
     aurocs = [float(auroc(truth, out["gc_scores"][i]))
               for i in range(args.seeds)]
@@ -129,14 +182,14 @@ def _cmd_sweep(args):
     votes, _, min_frac = stability_selection(out["gc_scores"],
                                              min_frac=min_frac)
     stab = gc_metrics(truth, votes, min_frac - 1e-9)
-    print(json.dumps({
+    _print_json(mesh, {
         "seeds": args.seeds,
         "aurocs": aurocs,
         "auroc_mean": sum(aurocs) / len(aurocs),
         "mean_loss": [float(x) for x in out["mean_loss"]],
         "stability_min_frac": min_frac,
         "stability_selection": {k: float(v) for k, v in stab.items()},
-    }, indent=2))
+    }, indent=2)
 
 
 _LOW_CONFIDENCE = (
@@ -157,7 +210,7 @@ def _cmd_discover(args):
     from vae_connexe_torch.data.io import load_series
     from vae_connexe_torch.discover import discover
 
-    _unported(args, _DISCOVER_UNPORTED)
+    mesh = _mesh(args, n_ep=args.ep)
     shape = tuple(args.shape) if args.shape else None
     series, names = load_series(args.data, shape=shape,
                                 delimiter=args.delimiter)
@@ -173,9 +226,9 @@ def _cmd_discover(args):
                    standardize=not args.no_standardize, diff=args.diff,
                    family=args.family, prox=args.prox, latent=args.latent,
                    generate=args.generate, phase2_iters=args.phase2_iters,
-                   names=names, verbose=not args.quiet,
+                   names=names, mesh=mesh, verbose=not args.quiet,
                    log_fn=lambda *a: print(*a, file=sys.stderr),
-                   device=args.device)
+                   device=_mesh_device(mesh, args.device))
 
     summary = {
         "data": args.data,
@@ -197,7 +250,9 @@ def _cmd_discover(args):
                                      pct=100 * res.confidence, off=off,
                                      cand=p_vars * (p_vars - 1)),
               file=sys.stderr)
-    if args.out_dir:
+    from vae_connexe_torch.parallel.mesh import is_writer
+
+    if args.out_dir and is_writer(mesh):
         out = pathlib.Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)
         stem = pathlib.Path(args.data).stem
@@ -217,7 +272,7 @@ def _cmd_discover(args):
         with open(out / f"discovery_{stem}.json", "w") as f:
             json.dump(summary, f, indent=2)
         summary["artifacts"] = str(out)
-    print(json.dumps(summary, indent=2))
+    _print_json(mesh, summary, indent=2)
 
 
 def _cmd_eval(args):
@@ -424,14 +479,29 @@ def main(argv=None):
                             "pure restores)")
     p_run.add_argument("--quiet", action="store_true")
     _device_arg(p_run)
-    # The reference's flags that are not ported yet: each exits.
-    p_run.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
-    p_run.add_argument("--ep", type=int, default=None, help=argparse.SUPPRESS)
-    p_run.add_argument("--sp", type=int, default=None, help=argparse.SUPPRESS)
-    p_run.add_argument("--processes", type=int, default=None,
-                       help=argparse.SUPPRESS)
+    p_run.add_argument("--mesh", action="store_true",
+                       help="crvae family: train both phases sharded over a "
+                            "(dp, ep[, sp]) mesh of ranks, this process one "
+                            "of them (torchrun's group, or a world of one); "
+                            "composes with --checkpoint-every/--resume and "
+                            "--out-of-core")
+    p_run.add_argument("--ep", type=int, default=1,
+                       help="ep (head-parallel) mesh size for --mesh and "
+                            "--processes; must divide p")
+    p_run.add_argument("--sp", type=int, default=1,
+                       help="sp (sequence-parallel) mesh size for --mesh: "
+                            "the decode recurrence's time axis split over "
+                            "sp ranks, its state sent rank to rank")
+    p_run.add_argument("--processes", type=int, default=None, metavar="N",
+                       help="run the experiment as N cooperating OS "
+                            "processes, one rank a device, over one global "
+                            "(dp, ep) mesh: phase 1, the GC handoff, phase "
+                            "2; composes with --ep, --iters, "
+                            "--checkpoint-every/--resume, --no-phase2")
     p_run.add_argument("--devices-per-process", type=int, default=None,
-                       dest="devices_per_process", help=argparse.SUPPRESS)
+                       dest="devices_per_process", metavar="D",
+                       help="ranks a process for --processes (default 1; "
+                            "PyTorch runs one device a rank)")
     p_run.add_argument("--out-of-core", action="store_true",
                        dest="out_of_core",
                        help="crvae family: stream both phases' batches from "
@@ -465,7 +535,8 @@ def main(argv=None):
                            "'auto' (largest vote-spectrum gap, clamped to "
                            "[0.5, 0.95])")
     _device_arg(p_sw)
-    p_sw.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
+    p_sw.add_argument("--mesh", action="store_true",
+                      help="split the seed axis over the mesh's dp ranks")
     p_sw.set_defaults(fn=_cmd_sweep)
 
     p_d = sub.add_parser(
@@ -523,8 +594,10 @@ def main(argv=None):
                           "heatmap and a JSON summary here")
     p_d.add_argument("--quiet", action="store_true")
     _device_arg(p_d)
-    p_d.add_argument("--mesh", action="store_true", help=argparse.SUPPRESS)
-    p_d.add_argument("--ep", type=int, default=1, help=argparse.SUPPRESS)
+    p_d.add_argument("--mesh", action="store_true",
+                     help="shard the fit (crvae: batch over dp, heads over "
+                          "ep) and the seed sweep (seeds over dp)")
+    p_d.add_argument("--ep", type=int, default=1)
     p_d.set_defaults(fn=_cmd_discover)
 
     p_e = sub.add_parser("eval", help="evaluate / generate from a checkpoint")

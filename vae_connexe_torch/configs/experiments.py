@@ -12,8 +12,9 @@ MixtureCSRAE on binarised windows) and vrae (the plain VRAE on random
 sequences), on the ``lorenz96``, ``henon``, ``coupled_henon``, ``var``
 and ``random`` datasets, with the reference's ``.npy``, checkpoint, log,
 metrics and figure files; with ``out_of_core`` (crvae family) both phases
-stream their batches from the native window loader.  Not ported yet, and
-raising where asked for: ``mesh`` (ROADMAP A7).
+stream their batches from the native window loader; with ``mesh`` (crvae
+family) both phases train sharded over a mesh of ranks
+(``parallel/mesh.py``), rank 0 writing the files.
 """
 
 from __future__ import annotations
@@ -285,6 +286,14 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     phase-2 chunk at or after each period and saves
     ``syn_<name>_it<step>.npy`` with its PCA and trajectory figures.
 
+    ``mesh`` (a port mesh, ``parallel/mesh.py::make_mesh``; crvae family;
+    this process is one rank of it) trains both phases sharded: batch over
+    dp, decoder heads over ep, the time axis over sp when the mesh has it
+    (``fit_phase1``/``fit_phase2``); every rank runs the same experiment
+    from the same seed and returns the same metrics, rank 0 writes the
+    files.  Composes with ``out_of_core``, ``checkpoint_every`` and
+    ``resume``.
+
     With ``out_dir`` the run writes the reference's files: for the crvae
     family ``GC_<name>.npy``, ``GC_scores_<name>.npy``, ``syn_<name>.npy``,
     ``syn_cond_<name>.npy``, ``train_log_<name>.jsonl`` (one record a
@@ -325,9 +334,14 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
     relies on.
     """
     exp = get_experiment(name)
+    if mesh is not None and exp.model_family != "crvae":
+        raise ValueError(
+            f"--mesh supports the crvae family (two-phase trainer); "
+            f"{name!r} is {exp.model_family!r}")
     if mesh is not None:
-        raise NotImplementedError("meshed runs are not ported yet "
-                                  "(ROADMAP A7)")
+        from vae_connexe_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     if out_of_core and exp.model_family != "crvae":
         raise ValueError(
             f"--out-of-core supports the crvae family (streaming trainers); "
@@ -363,9 +377,12 @@ def run_experiment(name: str, seed: int = 0, out_dir: str | None = None,
         run_phase2=run_phase2, verbose=verbose,
         save_checkpoints=save_checkpoints, artifacts_every=artifacts_every,
         checkpoint_every=checkpoint_every, resume=resume, log_fn=log_fn,
-        **({"out_of_core": True} if out_of_core else {}))
+        **({"out_of_core": True} if out_of_core else {}),
+        **({"mesh": mesh} if mesh is not None else {}))
     figs.report()
-    if out:
+    from vae_connexe_torch.parallel.mesh import is_writer
+
+    if out and is_writer(mesh):
         (out / f"metrics_{name}.json").write_text(json.dumps(results,
                                                              indent=2))
     return results
@@ -392,7 +409,7 @@ def gc_dynamics_rows(scores: torch.Tensor) -> dict[str, dict]:
 
 
 def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
-               results, *, out_of_core=False, **kw):
+               results, *, out_of_core=False, mesh=None, **kw):
     """The crvae family's run (``run_experiment``), results into
     ``results``.  ``out_of_core``: the series is written to a raw float32
     file (``series_<name>.f32`` under ``out``, else in a temporary
@@ -409,20 +426,28 @@ def _run_crvae(exp, name, seed, series, truth, gens, dev, out, figs,
         loader = None
         if out_of_core:
             tmp = stack.enter_context(tempfile.TemporaryDirectory())
-            path = (out or pathlib.Path(tmp)) / f"series_{name}.f32"
+            from vae_connexe_torch.parallel.mesh import is_writer
+
+            # On a mesh rank 0 writes under ``out``, the others their own
+            # copy in a temporary directory.
+            here = out if out and is_writer(mesh) else pathlib.Path(tmp)
+            path = here / f"series_{name}.f32"
             series_np = np.ascontiguousarray(series.cpu().numpy(), np.float32)
             series_np.tofile(path)
             loader = stack.enter_context(NativeWindowLoader.from_file(
                 str(path), *series_np.shape))
         _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
-                      results, loader, **kw)
+                      results, loader, mesh=mesh, **kw)
 
 
 def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
                   results, loader, *, run_phase2, verbose, save_checkpoints,
-                  artifacts_every, checkpoint_every, resume, log_fn):
+                  artifacts_every, checkpoint_every, resume, log_fn,
+                  mesh=None):
     """``_run_crvae`` with the windows in memory (``loader`` None) or
-    streamed from ``loader``."""
+    streamed from ``loader``.  On a ``mesh`` both phases train sharded;
+    rank 0 writes the files (``writer``), every rank reads checkpoints
+    under ``out``."""
     from vae_connexe_torch.data import arrange_input
     from vae_connexe_torch.evals import auto_threshold, gc_metrics, moment_match
     from vae_connexe_torch.evals.viz import (
@@ -439,14 +464,17 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
         fit_phase2_streaming,
         generate_with_compensation,
     )
+    from vae_connexe_torch.parallel.mesh import is_writer
+    from vae_connexe_torch.train.crvae_trainer import _gathered
     from vae_connexe_torch.utils import JsonlWriter, save_checkpoint
 
+    writer = out if is_writer(mesh) else None
     g = gens()
     model = CRVAE(p=exp.p, hidden=exp.hidden)
     params = model.init(g["init"], dev)
     full = torch.ones((exp.p, exp.p), device=dev)
-    log_writer = (JsonlWriter(str(out / f"train_log_{name}.jsonl"))
-                  if out else None)
+    log_writer = (JsonlWriter(str(writer / f"train_log_{name}.jsonl"))
+                  if writer else None)
 
     def log_phase(phase):
         if log_writer is None:
@@ -464,13 +492,13 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
         windows, _ = arrange_input(series, exp.context)
         best, _, m1 = fit_phase1(model, params, windows, full, exp.phase1,
                                  g["run"], verbose=verbose, log_fn=log_fn,
-                                 callback=log_phase("phase1"),
+                                 callback=log_phase("phase1"), mesh=mesh,
                                  **ckpt_kw("phase1"))
     else:
         best, _, m1 = fit_phase1_streaming(
             model, params, loader, exp.context, full, exp.phase1, g["run"],
             verbose=verbose, log_fn=log_fn, callback=log_phase("phase1"),
-            **ckpt_kw("phase1"))
+            mesh=mesh, **ckpt_kw("phase1"))
         n_eval = min(4096, loader.t - exp.context)
         windows = torch.from_numpy(loader.gather(
             np.arange(n_eval, dtype=np.int64), exp.context)).to(dev)
@@ -484,16 +512,17 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
     results["threshold_sweep"] = _sweep(truth, scores)
     if exp.dataset == "henon" and exp.p == 2:
         results.update(gc_dynamics_rows(scores))
-    if out:
-        np.save(out / f"GC_{name}.npy", gc_est.cpu().numpy())
-        np.save(out / f"GC_scores_{name}.npy", scores.detach().cpu().numpy())
+    if writer:
+        np.save(writer / f"GC_{name}.npy", gc_est.cpu().numpy())
+        np.save(writer / f"GC_scores_{name}.npy",
+                scores.detach().cpu().numpy())
         truth_np = truth.cpu().numpy()
         figs.draw(gc_heatmaps, truth_np, gc_est.cpu().numpy(),
-                  path=str(out / f"gc_heatmap_{name}.png"))
+                  path=str(writer / f"gc_heatmap_{name}.png"))
         figs.draw(gc_heatmaps, truth_np, scores.cpu().numpy() > thr_auto,
-                  path=str(out / f"gc_heatmap_auto_{name}.png"))
-    if save_checkpoints and out:
-        save_checkpoint(str(out / "ckpt_phase1"), best, gc_matrix=gc_est)
+                  path=str(writer / f"gc_heatmap_auto_{name}.png"))
+    if save_checkpoints and writer:
+        save_checkpoint(str(writer / "ckpt_phase1"), best, gc_matrix=gc_est)
 
     if run_phase2:
         mask = gc_est.to(torch.float32)
@@ -516,14 +545,16 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
                     return
                 fired["last"] = step
                 gen = generate_with_compensation(
-                    model, err_model, state.params, state.err_params,
-                    gens(step)["gen"], 256, parents=mask)
+                    model, err_model, _gathered(state.params, mesh),
+                    state.err_params, gens(step)["gen"], 256, parents=mask)
+                if writer is None:
+                    return
                 syn = gen[:, :t_cmp].cpu().numpy()
-                np.save(out / f"syn_{name}_it{step}.npy", syn)
+                np.save(writer / f"syn_{name}_it{step}.npy", syn)
                 figs.draw(pca_comparison, ori, syn,
-                          path=str(out / f"pca_{name}_it{step}.png"))
+                          path=str(writer / f"pca_{name}_it{step}.png"))
                 figs.draw(trajectory_overlay, ori, syn,
-                          path=str(out / f"traj_{name}_it{step}.png"))
+                          path=str(writer / f"traj_{name}_it{step}.png"))
 
             callbacks.append(artifacts)
         callbacks = [c for c in callbacks if c]
@@ -535,13 +566,14 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
                                             err_params, windows, mask,
                                             exp.phase2, g["p2"],
                                             verbose=verbose, log_fn=log_fn,
-                                            callback=p2_cb,
+                                            callback=p2_cb, mesh=mesh,
                                             **ckpt_kw("phase2"))
         else:
             best2, err2, _, m2 = fit_phase2_streaming(
                 model, err_model, p2_params, err_params, loader,
                 exp.context, mask, exp.phase2, g["p2"], verbose=verbose,
-                log_fn=log_fn, callback=p2_cb, **ckpt_kw("phase2"))
+                log_fn=log_fn, callback=p2_cb, mesh=mesh,
+                **ckpt_kw("phase2"))
         results["phase2"] = m2
         gen = generate_with_compensation(model, err_model, best2, err2,
                                          g["gen"], 256, parents=mask)
@@ -560,9 +592,9 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
             parents=mask)
         results["generation_moment_gap_conditioned"] = _gap(
             moment_match(windows, cond))
-        if out:
-            np.save(out / f"syn_{name}.npy", gen.cpu().numpy())
-            np.save(out / f"syn_cond_{name}.npy", cond.cpu().numpy())
+        if writer:
+            np.save(writer / f"syn_{name}.npy", gen.cpu().numpy())
+            np.save(writer / f"syn_cond_{name}.npy", cond.cpu().numpy())
             syn_np = gen[:, :t_cmp].cpu().numpy()
             cond_np = cond[:, :t_cmp].cpu().numpy()
             for fn, syn, stem in ((pca_comparison, syn_np, "pca"),
@@ -570,9 +602,10 @@ def _run_crvae_on(exp, name, seed, series, truth, gens, dev, out, figs,
                                   (trajectory_overlay, syn_np, "traj"),
                                   (pca_comparison, cond_np, "pca_cond"),
                                   (tsne_comparison, cond_np, "tsne_cond")):
-                figs.draw(fn, ori, syn, path=str(out / f"{stem}_{name}.png"))
-        if save_checkpoints and out:
-            save_checkpoint(str(out / "ckpt_phase2"),
+                figs.draw(fn, ori, syn,
+                          path=str(writer / f"{stem}_{name}.png"))
+        if save_checkpoints and writer:
+            save_checkpoint(str(writer / "ckpt_phase2"),
                             {"crvae": best2, "error_vae": err2})
     if log_writer is not None:
         log_writer.close()

@@ -31,7 +31,11 @@ The draws: seed s's generators come from ``parallel.seed_generators(s)``
 trains as ``discover(seed=s)`` does with one seed.  The win family's
 seeds follow ``utils/seeding.py::seed_stack_generators`` from ``seed``
 (index 0 the run's own init and run generators), its generation the run
-role at offset 1.  Not ported: meshes (ROADMAP A7), which raise.
+role at offset 1.  ``mesh=`` (``parallel/mesh.py``; this process is one
+rank) follows the JAX package's rules: for the crvae family it shards the
+single fit (batch over dp, heads over ep), the multi-seed sweep (seeds
+over dp) and phase 2; for the win family the stability seeds over dp,
+and it needs seeds > 1.  Every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -190,8 +194,8 @@ def discover(series, *, context: int = 20, hidden: int = 64,
     the 2 tau window, ``prox`` the sparsity groups ("row", the default, or
     "element"), ``latent`` the latent width, ``lr`` defaults to the W_in
     trainer's, and ``generate`` conditions the rollout on the first
-    windows of the series.  ``mesh`` (ROADMAP A7) is not ported yet and
-    raises.
+    windows of the series.  ``mesh``: a (dp, ep) mesh of the port
+    (module doc).
     """
     if family not in ("crvae", "win"):
         raise ValueError(f"family must be 'crvae' or 'win', got {family!r}")
@@ -201,8 +205,9 @@ def discover(series, *, context: int = 20, hidden: int = 64,
             "family is always column-grouped (author_CRVAE.py:314) — pass "
             "family='win' to use row/element groups")
     if mesh is not None:
-        raise NotImplementedError(
-            "discover(mesh=) is not ported yet (ROADMAP A7)")
+        from vae_connexe_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     dev = resolve_device(device)
     series = _preprocess(series, context, diff, standardize, names, dev)
     p = series.shape[-1]
@@ -211,13 +216,20 @@ def discover(series, *, context: int = 20, hidden: int = 64,
     if not 0 < enc_len < context:
         raise ValueError(f"enc_len={enc_len} must be in (0, context={context})")
     if family == "win":
+        if mesh is not None and seeds <= 1:
+            raise ValueError(
+                "mesh= for the win family shards the SEED axis of the "
+                "stability sweep over dp (there is no sharded single-fit "
+                "path for the win trainer) — pass seeds > 1, or use "
+                "family='crvae' whose single fit shards its batch over dp")
         return _discover_win(series, names=names, tau=enc_len, hidden=hidden,
                              latent=latent, lam=lam, lr=lr,
                              prox=prox or "row", max_iter=max_iter,
                              batch_size=batch_size, seeds=seeds, seed=seed,
                              threshold=threshold, min_frac=min_frac,
                              generate=generate, phase2_iters=phase2_iters,
-                             verbose=verbose, log_fn=log_fn, device=dev)
+                             mesh=mesh, verbose=verbose, log_fn=log_fn,
+                             device=dev)
     if lr is None:
         lr = 5e-2
 
@@ -233,7 +245,7 @@ def discover(series, *, context: int = 20, hidden: int = 64,
         # Phase 2 re-initialises from the selected mask alone, so the sweep
         # needs no separate single fit.
         out = sweep_phase1(model, windows, full, cfg,
-                           range(seed, seed + seeds))
+                           range(seed, seed + seeds), mesh=mesh)
         seed_scores = out["gc_scores"].cpu().numpy()
         votes, gc, thr, scores = stability_summary(seed_scores, min_frac)
         metrics = {"mean_loss": float(out["mean_loss"].mean()),
@@ -241,7 +253,8 @@ def discover(series, *, context: int = 20, hidden: int = 64,
     else:
         best, _, metrics = fit_phase1(model, model.init(gens["init"], dev),
                                       windows, full, cfg, gens["run"],
-                                      verbose=verbose, log_fn=log_fn)
+                                      verbose=verbose, log_fn=log_fn,
+                                      mesh=mesh)
         scores_t = model.gc(best, threshold=False)
         thr = (float(auto_threshold(scores_t)) if threshold == "auto"
                else float(threshold))
@@ -267,7 +280,7 @@ def discover(series, *, context: int = 20, hidden: int = 64,
         p2_best, err_params, _, m2 = fit_phase2(
             model, err_model, model.init(gens["p2_init"], dev),
             err_model.init(gens["err_init"], dev), windows, mask, cfg2,
-            gens["p2_run"], verbose=verbose, log_fn=log_fn)
+            gens["p2_run"], verbose=verbose, log_fn=log_fn, mesh=mesh)
         samples = generate_with_compensation(model, err_model, p2_best,
                                              err_params, gens["gen"],
                                              generate, parents=mask)
@@ -281,7 +294,7 @@ def discover(series, *, context: int = 20, hidden: int = 64,
 
 def _discover_win(series, *, names, tau, hidden, latent, lam, lr, prox,
                   max_iter, batch_size, seeds, seed, threshold, min_frac,
-                  generate, phase2_iters, verbose, log_fn, device):
+                  generate, phase2_iters, mesh, verbose, log_fn, device):
     """The win-family discovery path: explicit per-head W_in matrices with
     row-group or element-wise proximal sparsity, trained by the two-stage
     ISTA/Adam trainer.  ``max_iter`` counts stage-I epochs; stage II runs
@@ -320,7 +333,7 @@ def _discover_win(series, *, names, tau, hidden, latent, lam, lr, prox,
         e2 = stage2 if (generate > 0 or cfg.update_w_in_stage2) else 0
         p_stack = stack_trees([model.init(g, device) for g in inits])
         p_stack, m_many = trainer.fit_many(p_stack, windows, runs,
-                                           stage2_epochs=e2)
+                                           stage2_epochs=e2, mesh=mesh)
         seed_scores = model.granger_matrix(p_stack,
                                            threshold=False).cpu().numpy()
         votes, gc, thr, scores = stability_summary(seed_scores, min_frac)

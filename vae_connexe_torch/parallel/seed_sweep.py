@@ -33,9 +33,16 @@ from ``Phase1State(prior=None, ...)``
 KL branch whenever the prior is None.  Only the single fits
 (``fit_phase1``, ``fit_phase2``) train against the GMM prior.
 
-Not ported: meshes (``mesh=`` raises, ROADMAP A7) and the JAX package's
-TPU-only ``batched_dispatch`` hint (the port's dispatch goes by device and
-shape).
+On a mesh (``mesh=``, ``parallel/mesh.py``) the seed axis is split over
+dp, as the JAX package's sweep shards it: a seed count that dp does not
+divide is padded with the last seed, each rank trains its slice of the
+seeds (still one B1 and one B2 launch a step, whatever its share) and the
+results are gathered over dp and cut back to the seeds asked for.  Seed s
+trains from the same generators on every layout, so it is the same model
+(to rounding) however the seeds are split.
+
+Not ported: the JAX package's TPU-only ``batched_dispatch`` hint (the
+port's dispatch goes by device and shape).
 """
 
 from __future__ import annotations
@@ -192,18 +199,17 @@ def make_sweep_fn(model: CRVAE, windows: torch.Tensor, parents: torch.Tensor,
     Returns ``run(seeds) -> {"gc_scores" (S, p, p), "mean_loss" (S,),
     "best_loss" (S,)}``: each seed's scores at its best params, its last
     step's ``mean_loss`` and its best loss, as tensors on ``windows``'
-    device.  ``seeds`` is a sequence of integers.  ``mesh`` (ROADMAP A7) is
-    not ported yet and raises.
+    device.  ``seeds`` is a sequence of integers.  ``mesh``: the seed axis
+    over dp (module doc); every rank gets every seed's results.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "meshed sweeps (the seed axis over dp) are not ported yet "
-            "(ROADMAP A7)")
+        from vae_connexe_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     step = make_sweep_step(model, cfg, windows, parents)
 
-    def run(seeds) -> dict:
-        state = init_sweep_state(model, [int(s) for s in seeds],
-                                 windows.device)
+    def train(seeds) -> dict:
+        state = init_sweep_state(model, seeds, windows.device)
         metrics = {}
         for _ in range(cfg.max_iter):
             state, metrics = step(state)
@@ -213,7 +219,34 @@ def make_sweep_fn(model: CRVAE, windows: torch.Tensor, parents: torch.Tensor,
                 "mean_loss": metrics["mean_loss"],
                 "best_loss": state.best_loss}
 
+    def run(seeds) -> dict:
+        seeds = [int(s) for s in seeds]
+        if mesh is None:
+            return train(seeds)
+        return _meshed_seeds(mesh, seeds, train)
+
     return run
+
+
+def _meshed_seeds(mesh, seeds: list, train) -> dict:
+    """``train`` on this rank's dp slice of ``seeds`` (padded to a dp
+    multiple with the last seed), the results gathered over dp and cut to
+    ``len(seeds)`` seeds."""
+    from vae_connexe_torch.parallel.collectives import cat_gather
+    from vae_connexe_torch.parallel.mesh import (
+        axis_group,
+        axis_index,
+        axis_size,
+    )
+
+    n_dp = axis_size(mesh, "dp")
+    padded = seeds + seeds[-1:] * ((-len(seeds)) % n_dp)
+    k = len(padded) // n_dp
+    d = axis_index(mesh, "dp")
+    out = train(padded[d * k:(d + 1) * k])
+    group = axis_group(mesh, "dp")
+    return {name: cat_gather(v, group)[:len(seeds)]
+            for name, v in out.items()}
 
 
 def sweep_phase1(model: CRVAE, windows: torch.Tensor, parents: torch.Tensor,

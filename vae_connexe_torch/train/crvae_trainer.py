@@ -36,6 +36,13 @@ Checkpoints (``checkpoint_dir``) hold the whole phase state, the
 generator's state included, so a killed and resumed fit equals the
 uninterrupted one bitwise.
 
+On a mesh (``mesh=``, ``parallel/mesh.py``; one process a device) each
+step runs on this rank's part, its dp slice of the batch and its ep share
+of the heads, and sums gradients and terms over the mesh in rank order
+(``parallel/sharded.py``); every rank draws the whole batch and epsilon
+from its generator and keeps its slice, so the draws are the unmeshed
+fit's, and a mesh of one rank is the unmeshed fit bit for bit.
+
 Compensated generation: draw an error sequence from the error VAE and
 inject it, scaled by ``model.noise_scale``, into the CRVAE's free run.
 """
@@ -97,16 +104,10 @@ class Phase2State:
     step: int
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"meshed {what} fits are not ported yet (ROADMAP A7)")
-
-
 def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams,
                 prior: Optional[GMMPrior], batch: torch.Tensor,
                 eps: torch.Tensor, parents: torch.Tensor, beta: float,
-                recurrences=None, forward=None):
+                recurrences=None, forward=None, layout=None):
     """Smooth loss: sum over variables of each variable's MSE + ridge +
     the latent regulariser, beta * KL without a prior and
     ``cfg.lambda_cs`` * mean D_CS(q || GMM) with one.  Returns (loss, aux).
@@ -115,6 +116,13 @@ def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams,
     ``model.forward``: a seed-stacked one (``parallel/seed_sweep.py``,
     which has no prior) gives a leading seed axis to its outputs and to
     every term here, one loss a seed.
+
+    ``layout`` (``parallel/sharded.py::RankLayout``, meshed steps): the
+    params hold this rank's heads and the batch its dp slice; every term
+    is this rank's share of the global one (the means over the batch
+    scaled by its share, the ridge and the latent term counted on one rank
+    of their lines), so that the terms summed over the mesh are the
+    unmeshed step's.
     """
     if forward is None:
         pred, mu, logvar = model.forward(params, batch, eps, parents,
@@ -123,15 +131,29 @@ def _crvae_loss(model: CRVAE, cfg, params: CRVAEParams,
         pred, mu, logvar = forward(params, batch, eps, parents)
     keep = pred.ndim - 3
     target = batch[..., model.enc_len:, :]
-    recon = torch.mean((pred - target) ** 2, dim=(-3, -2)).sum(dim=-1)
-    ridge = ridge_value(params.readout.w, params.heads.w_hh, cfg.lam_ridge,
-                        keep=keep)
-    if prior is None:
+    share = 1.0
+    if layout is not None:
+        target = target[..., layout.cols]
+        share = layout.batch_scale
+    recon = torch.mean((pred - target) ** 2, dim=(-3, -2))
+    if share != 1.0:
+        recon = recon * share
+    recon = recon.sum(dim=-1)
+    if layout is None or layout.count_heads:
+        ridge = ridge_value(params.readout.w, params.heads.w_hh,
+                            cfg.lam_ridge, keep=keep)
+    else:
+        ridge = torch.zeros((), device=pred.device)
+    if layout is not None and not layout.count_latent:
+        reg = torch.zeros((), device=pred.device)
+    elif prior is None:
         reg = beta * kl_gaussian(mu, logvar, keep=keep)
     else:
         reg = cfg.lambda_cs * cs_divergence_gmm(
             mu, torch.exp(logvar), prior.mu, prior.var,
             variant=cfg.cs_variant).mean()
+    if share != 1.0 and layout.count_latent:
+        reg = reg * share
     loss = recon + ridge + reg
     aux = {"recon": recon, "ridge": ridge, "latent_reg": reg,
            "mean_loss": (recon + ridge) / model.p, "pred": pred}
@@ -166,10 +188,78 @@ def _init_prior(cfg, model: CRVAE, generator: torch.Generator,
                           device=device)
 
 
-def _make_checkpointer(checkpoint_dir, checkpoint_every):
+def _make_checkpointer(checkpoint_dir, checkpoint_every, mesh=None,
+                       state_sharding=None):
+    """The fit's checkpointer: None without a directory; on a mesh, one
+    that saves the gathered state from rank 0 and restores it on every
+    rank (``parallel/sharded.py::MeshCheckpointer``)."""
     if checkpoint_dir is None:
         return None
+    if mesh is not None:
+        from vae_connexe_torch.parallel.sharded import MeshCheckpointer
+
+        return MeshCheckpointer(checkpoint_dir, checkpoint_every, mesh,
+                                state_sharding)
     return TrainCheckpointer(checkpoint_dir, checkpoint_every)
+
+
+def _sp_context(mesh):
+    """The sequence-parallel mode of a fit whose mesh has an sp axis of
+    more than one rank: the decoder recurrence runs through the sp
+    pipeline (``ops/dispatch.py::seq_parallel``), the batch staying split
+    over dp."""
+    from contextlib import nullcontext
+
+    if mesh is not None:
+        from vae_connexe_torch.parallel.mesh import axis_size
+
+        if axis_size(mesh, "sp") > 1:
+            from vae_connexe_torch.ops.dispatch import seq_parallel
+
+            return seq_parallel(mesh)
+    return nullcontext()
+
+
+def _mesh_checks(mesh, model: CRVAE, cfg, window_len: int):
+    """JAX's checks of a meshed fit; returns its batch sharding (None
+    without a mesh)."""
+    if mesh is None:
+        return None
+    from vae_connexe_torch.parallel.mesh import batch_sharding, check_mesh
+    from vae_connexe_torch.parallel.sharded import (
+        check_mesh_divisibility,
+        check_sp_compat,
+    )
+
+    check_mesh(mesh)
+    check_mesh_divisibility(mesh, model.p, cfg.batch_size)
+    check_sp_compat(mesh, window_len - model.enc_len)
+    return batch_sharding(mesh)
+
+
+def _shard_state(state, mesh):
+    """(this rank's part of ``state``, the state's sharding); unchanged
+    without a mesh."""
+    if mesh is None:
+        return state, None
+    from vae_connexe_torch.parallel import sharded
+    from vae_connexe_torch.parallel.mesh import global_device_put
+
+    fn = (sharded.phase1_state_sharding if isinstance(state, Phase1State)
+          else sharded.phase2_state_sharding)
+    sharding = fn(mesh, state.prior is not None)
+    return global_device_put(state, sharding), sharding
+
+
+def _gathered(params: CRVAEParams, mesh) -> CRVAEParams:
+    """The whole CRVAE params from every rank's part (a collective);
+    unchanged without a mesh."""
+    if mesh is None:
+        return params
+    from vae_connexe_torch.parallel.mesh import gather_tree
+    from vae_connexe_torch.parallel.sharded import crvae_param_sharding
+
+    return gather_tree(params, crvae_param_sharding(mesh))
 
 
 def _restore_if_resuming(ckpt, state, resume: bool):
@@ -260,15 +350,39 @@ def _live(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
+def _grads(loss: torch.Tensor, leaves: list, layout) -> list:
+    """d loss / d leaves.  On a mesh a rank may not use every leaf (an
+    ep rank other than the first leaves the prior out of its loss): its
+    gradient is zero there."""
+    if layout is None:
+        return list(torch.autograd.grad(loss, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, leaves)]
+
+
 def _sgd(tree, grads, lr: float):
     """``tree`` - lr * ``grads`` leaf by leaf (None stays None)."""
     return tree_map(lambda p, g: p - lr * g, tree, tree_unflatten(tree, grads))
 
 
+def _mesh_terms(layout, model: CRVAE, terms: dict) -> dict:
+    """The global values of a meshed step's scalar terms (each rank's
+    share summed over the mesh) and ``mean_loss`` from them; unmeshed
+    steps' terms pass unchanged."""
+    if layout is None:
+        return terms
+    from vae_connexe_torch.parallel.sharded import reduce_scalars
+
+    out = reduce_scalars(layout, terms)
+    out["mean_loss"] = (out["recon"] + out["ridge"]) / model.p
+    return out
+
+
 def _phase1_update(model: CRVAE, cfg: Phase1Config, params: CRVAEParams,
                    prior: Optional[GMMPrior], parents: torch.Tensor,
                    batch: torch.Tensor, eps: torch.Tensor, recurrences=None,
-                   forward=None):
+                   forward=None, layout=None):
     """One phase-1 update on a given batch and epsilon: the loss and its
     gradient at ``params`` and ``prior``, SGD on every leaf of both, then
     the mask projection and the prox.  Returns (new params, new prior,
@@ -276,24 +390,42 @@ def _phase1_update(model: CRVAE, cfg: Phase1Config, params: CRVAEParams,
     (``_crvae_loss``) the parameters carry a leading seed axis and there
     is no prior: one backward of the sum of the seeds' losses gives each
     seed its own gradient, since their parameters are disjoint, and the
-    metrics are (S,)."""
+    metrics are (S,).  With a ``layout`` (a meshed step; ``params``,
+    ``parents``' rows and the batch are this rank's) the gradients and the
+    terms are summed over the mesh before the update
+    (``parallel/sharded.py``)."""
     with torch.enable_grad():
         live, live_prior = _live(params), _live(prior)
         loss, aux = _crvae_loss(model, cfg, live, live_prior, batch, eps,
-                                parents, cfg.beta, recurrences, forward)
+                                parents, cfg.beta, recurrences, forward,
+                                layout)
         debug.check_finite("the loss", loss)
         leaves = tree_leaves(live)
-        grads = torch.autograd.grad(loss.sum(),
-                                    leaves + tree_leaves(live_prior))
+        grads = _grads(loss.sum(), leaves + tree_leaves(live_prior), layout)
     with torch.no_grad():
+        terms = {"loss": loss.detach(), "recon": aux["recon"].detach(),
+                 "latent_reg": aux["latent_reg"].detach(),
+                 "ridge": aux["ridge"].detach(),
+                 "mean_loss": aux["mean_loss"].detach()}
+        if layout is not None:
+            from vae_connexe_torch.parallel.sharded import reduce_crvae_grads
+
+            grads = reduce_crvae_grads(layout, params, grads)
+            terms = _mesh_terms(layout, model, terms)
         new = _sgd(params, grads[:len(leaves)], cfg.lr)
         new_prior = _sgd(prior, grads[len(leaves):], cfg.lr)
         new = _project_and_prox(new, parents, cfg.lam, cfg.lr)
         usage = (torch.linalg.vector_norm(new.heads.w_ih, dim=-2) > 0
                  ).float().mean(dim=(-2, -1))
-    metrics = {"loss": loss.detach(), "recon": aux["recon"].detach(),
-               "latent_reg": aux["latent_reg"].detach(),
-               "mean_loss": aux["mean_loss"].detach(), "variable_usage": usage}
+        if layout is not None:
+            from vae_connexe_torch.parallel.sharded import reduce_scalars
+
+            if layout.n_ep > 1:
+                usage = usage * (1.0 / layout.n_ep)
+            usage = reduce_scalars(layout, {"u": usage}, "ep")["u"]
+    metrics = {"loss": terms["loss"], "recon": terms["recon"],
+               "latent_reg": terms["latent_reg"],
+               "mean_loss": terms["mean_loss"], "variable_usage": usage}
     return new, new_prior, metrics
 
 
@@ -316,10 +448,39 @@ def _window_count(windows, n_windows) -> int:
     return windows.shape[0] if n_windows is None else n_windows
 
 
+def _layout_of(batch_sharding, model: CRVAE, batch_size: int):
+    """The ``RankLayout`` of a meshed step (None without a mesh)."""
+    if batch_sharding is None:
+        return None
+    from vae_connexe_torch.parallel.sharded import RankLayout
+
+    return RankLayout(batch_sharding.mesh, model.p, batch_size)
+
+
+def _draw_batch(layout, g: torch.Generator, n: int, batch_size: int,
+                windows: Optional[torch.Tensor]):
+    """One step's batch indices over ``n`` windows, drawn whole from ``g``
+    (every rank draws the same), and the batch this rank trains on: the
+    gathered windows of its dp slice of the indices (None when
+    ``windows`` is)."""
+    idx = torch.randint(0, n, (batch_size,), generator=g, device=g.device)
+    if layout is not None:
+        idx = layout.local(idx)
+    if windows is None:
+        return None
+    return windows[idx.to(windows.device)]
+
+
+def _draw_eps(layout, g: torch.Generator, shape) -> torch.Tensor:
+    """A (B, ...) normal draw, whole from ``g``; this rank's dp slice."""
+    eps = torch.randn(shape, generator=g, device=g.device)
+    return eps if layout is None else layout.local(eps)
+
+
 def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
                      parents: torch.Tensor,
                      fixed_batch: Optional[torch.Tensor] = None,
-                     stream: bool = False, *,
+                     batch_sharding=None, stream: bool = False, *,
                      n_windows: Optional[int] = None):
     """Build the phase-1 step: ``step(state, batch=None, eps=None)`` ->
     (new Phase1State, metrics).
@@ -339,11 +500,24 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
     may then be None) and discards them, so the generator's draws stay the
     in-memory step's and a caller that replays them gathers the same
     batches.
+
+    ``batch_sharding`` (``parallel/mesh.py::batch_sharding(mesh)``, meshed
+    fits): the step runs on this rank's part, its dp slice of every batch
+    and its ep share of the heads (the state holds this rank's params;
+    ``parents`` is the whole mask), and sums gradients and terms over the
+    mesh (``parallel/sharded.py``).  It draws every batch's indices and
+    epsilon whole, as the unmeshed step does, and keeps its slice, so the
+    generator's draws are the unmeshed step's; a ``batch``, ``eps`` or
+    ``fixed_batch`` given may be whole or this rank's slice.
     """
     check_latent_reg(cfg)
     n = _window_count(windows, n_windows)
     if fixed_batch is None and not cfg.resample_batches and not stream:
         fixed_batch = default_fixed_batch(windows, cfg.batch_size)
+    layout = _layout_of(batch_sharding, model, cfg.batch_size)
+    if layout is not None:
+        parents = layout.heads_of(parents)
+        fixed_batch = layout.local(fixed_batch)
 
     def step(state: Phase1State, batch: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None):
@@ -351,21 +525,22 @@ def make_phase1_step(model: CRVAE, cfg: Phase1Config, windows: torch.Tensor,
         if stream:
             if batch is None:
                 raise ValueError("a streamed step takes its batch")
-            torch.randint(0, n, (cfg.batch_size,), generator=g,
-                          device=g.device)
+            _draw_batch(layout, g, n, cfg.batch_size, None)
         elif batch is None:
             if fixed_batch is not None:
                 batch = fixed_batch
             else:
-                idx = torch.randint(0, n, (cfg.batch_size,), generator=g,
-                                    device=g.device)
-                batch = windows[idx.to(windows.device)]
+                batch = _draw_batch(layout, g, n, cfg.batch_size, windows)
+        if layout is not None:
+            batch = layout.local(batch)
         if eps is None:
-            eps = torch.randn((batch.shape[0], model.hidden), generator=g,
-                              device=g.device)
+            b = cfg.batch_size if layout is not None else batch.shape[0]
+            eps = _draw_eps(layout, g, (b, model.hidden))
+        elif layout is not None:
+            eps = layout.local(eps)
         params, prior, metrics = _phase1_update(
             model, cfg, state.params, state.prior, parents, batch,
-            eps.to(batch.device))
+            eps.to(batch.device), layout=layout)
         best_params, best_loss = _track_best(state, state.params,
                                              metrics["mean_loss"])
         return Phase1State(params=params, prior=prior,
@@ -398,75 +573,125 @@ def fit_phase1(model: CRVAE, params: CRVAEParams, windows: torch.Tensor,
     restores the latest snapshot, if there is one, into ``generator`` and
     the state and runs only the remaining chunks, bitwise equal to the
     uninterrupted fit.  A resumed finished phase is a pure restore.
-    ``mesh`` (ROADMAP A7) is not ported yet and raises.
+
+    ``mesh`` (``parallel/mesh.py::make_mesh``; this process is one rank of
+    it) runs the same loop sharded: every rank passes the same whole
+    ``params``, ``windows`` and an identically seeded ``generator``, draws
+    every batch whole and trains on its dp slice of it and its ep share of
+    the heads, the gradients summed over the mesh
+    (``parallel/sharded.py``); with an sp axis the decoder recurrence runs
+    through the sp pipeline.  The returned params are gathered whole and
+    the metrics are global, the same on every rank; the state holds this
+    rank's part.  Checkpoints are written by rank 0 from the gathered
+    state and restored on every rank.  A mesh of one rank is bit for bit
+    the unmeshed fit.
     """
     check_latent_reg(cfg)
-    _no_mesh(mesh, "phase-1")
+    bs = _mesh_checks(mesh, model, cfg, windows.shape[1])
     prior = _init_prior(cfg, model, generator, windows.device)
     fixed_batch = None
     if not cfg.resample_batches:
         idx = torch.randint(0, windows.shape[0], (cfg.batch_size,),
                             generator=generator, device=generator.device)
         fixed_batch = windows[idx.to(windows.device)]
-    step = make_phase1_step(model, cfg, windows, parents, fixed_batch)
+    step = make_phase1_step(model, cfg, windows, parents, fixed_batch,
+                            batch_sharding=bs)
     state = Phase1State(params=params, prior=prior, best_params=params,
                         best_loss=torch.tensor(float("inf"),
                                                device=windows.device),
                         generator=generator, step=0)
-    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, sharding = _shard_state(state, mesh)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every, mesh,
+                              sharding)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
-    state, metrics = _run_chunked(_stepper(step, "phase1"), state, cfg, ckpt,
-                                  resume_metrics, verbose, log_fn, callback,
-                                  "phase1")
-    return state.best_params, state, metrics
+    with _sp_context(mesh):
+        state, metrics = _run_chunked(_stepper(step, "phase1"), state, cfg,
+                                      ckpt, resume_metrics, verbose, log_fn,
+                                      callback, "phase1")
+    return _gathered(state.best_params, mesh), state, metrics
 
 
 def _phase2_update(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
                    state: Phase2State, parents: torch.Tensor,
                    batch: torch.Tensor, eps: torch.Tensor,
-                   eps_err: torch.Tensor):
+                   eps_err: torch.Tensor, layout=None, err_opt=None):
     """One phase-2 update on a given batch and draws: one backward of the
     CRVAE loss plus the error VAE's loss over the leaves of both models
     and of the prior, SGD and the mask projection on the CRVAE, SGD on the
-    prior, Adam on the error VAE.  Returns (params, prior, err_params,
-    err_opt, metrics of 0-d tensors)."""
+    prior, Adam on the error VAE (or ``err_opt(grads, opt_state, params)
+    -> (params, opt_state)``).  Returns (params, prior, err_params,
+    err_opt, metrics of 0-d tensors).  With a ``layout`` (a meshed step)
+    the residuals' columns are gathered over ep, the error VAE's terms
+    are this rank's share of the batch, and the gradients and terms are
+    summed over the mesh (``parallel/sharded.py``): the error VAE's over
+    dp, as every rank of an ep line computes the same."""
     with torch.enable_grad():
         live, live_prior = _live(state.params), _live(state.prior)
         err_live = _live(state.err_params)
         main_loss, aux = _crvae_loss(model, cfg, live, live_prior, batch, eps,
-                                     parents, cfg.beta)
+                                     parents, cfg.beta, layout=layout)
+        pred = aux["pred"]
+        if layout is not None and layout.n_ep > 1:
+            from vae_connexe_torch.parallel.collectives import cat_gather
+
+            pred = cat_gather(pred.detach(), layout.group("ep"), dim=-1)
         # The gradient firewall: the error VAE trains on the residuals as
         # data, so its loss sends no gradient into the CRVAE.
-        error = (batch[:, model.enc_len:, :] - aux["pred"]).detach()
+        error = (batch[:, model.enc_len:, :] - pred).detach()
         recon_e, mu_e, logvar_e = err_model.forward(err_live, error, eps_err)
         loss_e = torch.mean((recon_e - error) ** 2)
         kl_e = kl_gaussian(mu_e, logvar_e)
+        if layout is not None and layout.batch_scale != 1.0:
+            loss_e = loss_e * layout.batch_scale
+            kl_e = kl_e * layout.batch_scale
         smooth_e = loss_e + cfg.beta_error * kl_e
         debug.check_finite("the loss", main_loss, smooth_e)
         leaves, err_leaves = tree_leaves(live), tree_leaves(err_live)
         prior_leaves = tree_leaves(live_prior)
         # The two losses are gradient-disjoint, so one backward of their
         # sum serves both optimisers.
-        grads = torch.autograd.grad(main_loss + smooth_e,
-                                    leaves + prior_leaves + err_leaves)
+        grads = _grads(main_loss + smooth_e,
+                       leaves + prior_leaves + err_leaves, layout)
     with torch.no_grad():
         n, m = len(leaves), len(leaves) + len(prior_leaves)
+        terms = {"recon": aux["recon"].detach(),
+                 "latent_reg": aux["latent_reg"].detach(),
+                 "ridge": aux["ridge"].detach(),
+                 "mean_loss": aux["mean_loss"].detach(),
+                 "loss_e": smooth_e.detach(), "kl_e": kl_e.detach()}
+        if layout is not None:
+            from vae_connexe_torch.parallel.collectives import (
+                ordered_sum_flat,
+            )
+            from vae_connexe_torch.parallel.sharded import reduce_crvae_grads
+
+            grads = (reduce_crvae_grads(layout, state.params, grads[:m])
+                     + ordered_sum_flat(grads[m:], layout.group("dp")))
+            if not layout.count_latent:
+                # Every rank of an ep line computes the same error-VAE
+                # terms: one of them counts.
+                terms["loss_e"] = torch.zeros_like(terms["loss_e"])
+                terms["kl_e"] = torch.zeros_like(terms["kl_e"])
+            terms = _mesh_terms(layout, model, terms)
         params = _sgd(state.params, grads[:n], cfg.lr)
         params = _project_and_prox(params, parents, 0.0, cfg.lr)
         prior = _sgd(state.prior, grads[n:m], cfg.lr)
         g_err = tree_unflatten(state.err_params, grads[m:])
-        err_params, err_opt = adam_update(g_err, state.err_opt,
-                                          state.err_params, cfg.lr_error)
-    metrics = {"recon": aux["recon"].detach(),
-               "latent_reg": aux["latent_reg"].detach(),
-               "mean_loss": aux["mean_loss"].detach(),
-               "loss_e": smooth_e.detach(), "kl_e": kl_e.detach()}
-    return params, prior, err_params, err_opt, metrics
+        if err_opt is None:
+            err_params, err_state = adam_update(g_err, state.err_opt,
+                                                state.err_params,
+                                                cfg.lr_error)
+        else:
+            err_params, err_state = err_opt(g_err, state.err_opt,
+                                            state.err_params)
+    metrics = {k: terms[k] for k in ("recon", "latent_reg", "mean_loss",
+                                     "loss_e", "kl_e")}
+    return params, prior, err_params, err_state, metrics
 
 
 def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
                      windows: torch.Tensor, parents: torch.Tensor,
-                     stream: bool = False, *,
+                     batch_sharding=None, stream: bool = False, *,
                      n_windows: Optional[int] = None):
     """Build the phase-2 step: ``step(state, batch=None, eps=None,
     eps_err=None)`` -> (new Phase2State, metrics).
@@ -479,11 +704,14 @@ def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
     VAE's ``mean((recon - error)^2) + beta_error * KL`` on the detached
     residuals; SGD with the mask projection (lam = 0) updates the CRVAE,
     SGD the prior, Adam at ``cfg.lr_error`` the error VAE.  The best-model
-    pick sees the pre-update CRVAE params.  ``stream`` and ``n_windows`` as
-    in ``make_phase1_step``.
+    pick sees the pre-update CRVAE params.  ``batch_sharding``,
+    ``stream`` and ``n_windows`` as in ``make_phase1_step``.
     """
     check_latent_reg(cfg)
     n = _window_count(windows, n_windows)
+    layout = _layout_of(batch_sharding, model, cfg.batch_size)
+    if layout is not None:
+        parents = layout.heads_of(parents)
 
     def step(state: Phase2State, batch: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None,
@@ -492,21 +720,20 @@ def make_phase2_step(model: CRVAE, err_model: ErrorVAE, cfg: Phase2Config,
         if stream:
             if batch is None:
                 raise ValueError("a streamed step takes its batch")
-            torch.randint(0, n, (cfg.batch_size,), generator=g,
-                          device=g.device)
+            _draw_batch(layout, g, n, cfg.batch_size, None)
         elif batch is None:
-            idx = torch.randint(0, n, (cfg.batch_size,), generator=g,
-                                device=g.device)
-            batch = windows[idx.to(windows.device)]
+            batch = _draw_batch(layout, g, n, cfg.batch_size, windows)
         b = batch.shape[0]
-        if eps is None:
-            eps = torch.randn((b, model.hidden), generator=g, device=g.device)
-        if eps_err is None:
-            eps_err = torch.randn((b, err_model.latent), generator=g,
-                                  device=g.device)
+        if layout is not None:
+            batch, b = layout.local(batch), cfg.batch_size
+        eps = (_draw_eps(layout, g, (b, model.hidden)) if eps is None
+               else eps if layout is None else layout.local(eps))
+        eps_err = (_draw_eps(layout, g, (b, err_model.latent))
+                   if eps_err is None
+                   else eps_err if layout is None else layout.local(eps_err))
         params, prior, err_params, err_opt, metrics = _phase2_update(
             model, err_model, cfg, state, parents, batch,
-            eps.to(batch.device), eps_err.to(batch.device))
+            eps.to(batch.device), eps_err.to(batch.device), layout=layout)
         best_params, best_loss = _track_best(state, state.params,
                                              metrics["mean_loss"])
         return Phase2State(params=params, err_params=err_params,
@@ -534,24 +761,30 @@ def fit_phase2(model: CRVAE, err_model: ErrorVAE, params: CRVAEParams,
     ``generator``.  ``callback``, checkpoints and ``resume`` as in
     ``fit_phase1``; a snapshot carries both models, Adam's state, the
     prior, the best params and loss, the generator's state and the step.
-    ``mesh`` (ROADMAP A7) is not ported yet and raises.
+    ``mesh`` as in ``fit_phase1``: the error VAE and its Adam state are
+    replicated, its gradients summed over dp.
     """
     check_latent_reg(cfg)
-    _no_mesh(mesh, "phase-2")
+    bs = _mesh_checks(mesh, model, cfg, windows.shape[1])
     prior = _init_prior(cfg, model, generator, windows.device)
-    step = make_phase2_step(model, err_model, cfg, windows, parents)
+    step = make_phase2_step(model, err_model, cfg, windows, parents,
+                            batch_sharding=bs)
     state = Phase2State(params=params, err_params=err_params,
                         err_opt=adam_init(err_params), prior=prior,
                         best_params=params,
                         best_loss=torch.tensor(float("inf"),
                                                device=windows.device),
                         generator=generator, step=0)
-    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, sharding = _shard_state(state, mesh)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every, mesh,
+                              sharding)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
-    state, metrics = _run_chunked(_stepper(step, "phase2"), state, cfg, ckpt,
-                                  resume_metrics, verbose, log_fn, callback,
-                                  "phase2")
-    return state.best_params, state.err_params, state, metrics
+    with _sp_context(mesh):
+        state, metrics = _run_chunked(_stepper(step, "phase2"), state, cfg,
+                                      ckpt, resume_metrics, verbose, log_fn,
+                                      callback, "phase2")
+    return (_gathered(state.best_params, mesh), state.err_params, state,
+            metrics)
 
 
 def generate_from_draws(model: CRVAE, err_model: ErrorVAE, heads: GRUParams,
@@ -601,13 +834,28 @@ def generate_with_compensation(model: CRVAE, err_model: ErrorVAE,
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    groups = _serving_groups(params, err_params, parents, dtype)
+    h0_err, h0 = _generation_draws(model, err_model, generator, batch)
+    return generate_from_draws(model, err_model, *groups, h0_err, h0)
+
+
+def _serving_groups(params: CRVAEParams, err_params: ErrorVAEParams,
+                    parents: Optional[torch.Tensor], dtype) -> tuple:
+    """(masked heads, readout, ErrorVAE decoder, readout), cast to the
+    serving precision ``dtype``."""
     dt = serve_dtype(dtype)
     heads = params.heads if parents is None else masked_heads(params.heads, parents)
     groups = (heads, params.readout, err_params.dec, err_params.out)
     if dt != torch.float32:
         groups = tuple(cast_weights(g, dt) for g in groups)
+    return groups
+
+
+def _generation_draws(model: CRVAE, err_model: ErrorVAE,
+                      generator: torch.Generator, batch: int):
+    """(h0_err (B, H_err), h0 (B, H)), drawn in that order."""
     h0_err = torch.randn((batch, err_model.hidden), generator=generator,
                          device=generator.device)
     h0 = torch.randn((batch, model.hidden), generator=generator,
                      device=generator.device)
-    return generate_from_draws(model, err_model, *groups, h0_err, h0)
+    return h0_err, h0

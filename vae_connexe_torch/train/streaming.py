@@ -24,6 +24,11 @@ Pipelining: a host thread gathers the next chunk with the C++ loader into
 pinned memory while the card runs the current one; the chunk goes to the
 device with one non-blocking copy.  Chunks are check_every chunks split so
 that a host block stays under ``io_budget_bytes``.
+
+With ``mesh=`` (``parallel/mesh.py``) each rank replays the whole draws,
+as the meshed steps draw them, and gathers only its dp slice of each
+batch's indices: every chunk lands on the rank dp-sliced, and the steps
+are the meshed in-memory fits' (``train/crvae_trainer.py``), bit for bit.
 """
 
 from __future__ import annotations
@@ -49,10 +54,13 @@ from vae_connexe_torch.train.crvae_trainer import (
     Phase2State,
     _chunk_lengths,
     _init_prior,
+    _gathered,
     _make_checkpointer,
-    _no_mesh,
+    _mesh_checks,
     _restore_if_resuming,
     _run_chunked,
+    _shard_state,
+    _sp_context,
     _stepper,
     make_phase1_step,
     make_phase2_step,
@@ -97,6 +105,17 @@ def _remaining(groups: list[list[int]], start: int) -> list[int]:
     return lengths
 
 
+def _rank_rows(batch_sharding, batch_size: int) -> slice:
+    """The rows of each batch this rank gathers: its dp slice, or all."""
+    if batch_sharding is None:
+        return slice(None)
+    from vae_connexe_torch.parallel.mesh import axis_index, axis_size
+
+    k = batch_size // axis_size(batch_sharding.mesh, "dp")
+    d = axis_index(batch_sharding.mesh, "dp")
+    return slice(d * k, (d + 1) * k)
+
+
 def _gather_chunk(loader: NativeWindowLoader, idxs: np.ndarray, context: int,
                   pin: bool) -> torch.Tensor:
     """(length, B) start indices -> a (length, B, context, p) float32 host
@@ -111,18 +130,20 @@ def _gather_chunk(loader: NativeWindowLoader, idxs: np.ndarray, context: int,
 def _streamed_batches(loader, context: int, generator: torch.Generator,
                       lengths: list[int], batch_size: int, n_windows: int,
                       draws, device: torch.device, pool: ThreadPoolExecutor,
-                      io_stats: dict):
+                      io_stats: dict, rows: slice = slice(None)):
     """Yield every step's batch on ``device``, chunk by chunk: the next
     chunk's indices are replayed and its gather submitted to ``pool``
     before the current chunk's steps are yielded.  Adds the time spent
-    waiting on a gather to ``io_stats["gather_wait_s"]``."""
+    waiting on a gather to ``io_stats["gather_wait_s"]``.  ``rows``: the
+    batch rows this rank gathers (its dp slice on a mesh)."""
     mirror = torch.Generator(device=generator.device)
     mirror.set_state(generator.get_state())
     pin = device.type == "cuda"
 
     def prepare(length):
         idxs = _index_chunk(mirror, length, batch_size, n_windows, draws)
-        return pool.submit(_gather_chunk, loader, idxs, context, pin)
+        return pool.submit(_gather_chunk, loader,
+                           np.ascontiguousarray(idxs[:, rows]), context, pin)
 
     fut = prepare(lengths[0]) if lengths else None
     for i, length in enumerate(lengths):
@@ -159,11 +180,12 @@ def fit_phase1_streaming(model: CRVAE, params: CRVAEParams,
     ``gather_wait_s`` (wall time the loop waited on the next host block)
     and ``chunks``.  ``checkpoint_dir`` / ``checkpoint_every`` /
     ``resume`` as in ``fit_phase1``; on resume the host mirror restarts
-    from the restored generator.  ``mesh`` (ROADMAP A7) is not ported yet
-    and raises.
+    from the restored generator.  ``mesh`` as in ``fit_phase1``: each
+    rank gathers its dp slice of every batch (module doc).
     """
     check_latent_reg(cfg)
-    _no_mesh(mesh, "streamed phase-1")
+    bs = _mesh_checks(mesh, model, cfg, context)
+    rows = _rank_rows(bs, cfg.batch_size)
     dev = parents.device
     if n_windows is None:
         n_windows = loader.t - context
@@ -172,16 +194,18 @@ def fit_phase1_streaming(model: CRVAE, params: CRVAEParams,
         idx = torch.randint(0, n_windows, (cfg.batch_size,),
                             generator=generator, device=generator.device)
         fixed = torch.from_numpy(
-            loader.gather(idx.cpu().numpy(), context)).to(dev)
+            loader.gather(idx.cpu().numpy()[rows], context)).to(dev)
         step = make_phase1_step(model, cfg, None, parents, fixed,
-                                n_windows=n_windows)
+                                batch_sharding=bs, n_windows=n_windows)
     else:
-        step = make_phase1_step(model, cfg, None, parents, stream=True,
-                                n_windows=n_windows)
+        step = make_phase1_step(model, cfg, None, parents, batch_sharding=bs,
+                                stream=True, n_windows=n_windows)
     state = Phase1State(params=params, prior=prior, best_params=params,
                         best_loss=torch.tensor(float("inf"), device=dev),
                         generator=generator, step=0)
-    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, sharding = _shard_state(state, mesh)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every, mesh,
+                              sharding)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
     stats = {"gather_wait_s": 0.0, "chunks": 0}
     with ThreadPoolExecutor(1) as pool:
@@ -194,13 +218,14 @@ def fit_phase1_streaming(model: CRVAE, params: CRVAEParams,
                 loader, context, state.generator,
                 _remaining(groups, int(state.step)), cfg.batch_size,
                 n_windows, [(cfg.batch_size, model.hidden)], dev, pool,
-                stats)
-        state, metrics = _run_chunked(_stepper(step, "phase1", batches),
-                                      state, cfg, ckpt, resume_metrics,
-                                      verbose, log_fn, callback, "phase1")
+                stats, rows)
+        with _sp_context(mesh):
+            state, metrics = _run_chunked(_stepper(step, "phase1", batches),
+                                          state, cfg, ckpt, resume_metrics,
+                                          verbose, log_fn, callback, "phase1")
     if io_stats is not None:
         io_stats.update(stats)
-    return state.best_params, state, metrics
+    return _gathered(state.best_params, mesh), state, metrics
 
 
 def fit_phase2_streaming(model: CRVAE, err_model: ErrorVAE,
@@ -220,19 +245,23 @@ def fit_phase2_streaming(model: CRVAE, err_model: ErrorVAE,
     ``fit_phase1_streaming``; each step's replayed draws are its indices,
     epsilon (B, H) and the error VAE's epsilon (B, Z)."""
     check_latent_reg(cfg)
-    _no_mesh(mesh, "streamed phase-2")
+    bs = _mesh_checks(mesh, model, cfg, context)
+    rows = _rank_rows(bs, cfg.batch_size)
     dev = parents.device
     if n_windows is None:
         n_windows = loader.t - context
     prior = _init_prior(cfg, model, generator, dev)
-    step = make_phase2_step(model, err_model, cfg, None, parents, stream=True,
+    step = make_phase2_step(model, err_model, cfg, None, parents,
+                            batch_sharding=bs, stream=True,
                             n_windows=n_windows)
     state = Phase2State(params=params, err_params=err_params,
                         err_opt=adam_init(err_params), prior=prior,
                         best_params=params,
                         best_loss=torch.tensor(float("inf"), device=dev),
                         generator=generator, step=0)
-    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every)
+    state, sharding = _shard_state(state, mesh)
+    ckpt = _make_checkpointer(checkpoint_dir, checkpoint_every, mesh,
+                              sharding)
     state, resume_metrics = _restore_if_resuming(ckpt, state, resume)
     stats = {"gather_wait_s": 0.0, "chunks": 0}
     groups = _io_chunks(cfg.max_iter, cfg.check_every,
@@ -243,10 +272,12 @@ def fit_phase2_streaming(model: CRVAE, err_model: ErrorVAE,
             loader, context, state.generator,
             _remaining(groups, int(state.step)), cfg.batch_size, n_windows,
             [(cfg.batch_size, model.hidden),
-             (cfg.batch_size, err_model.latent)], dev, pool, stats)
-        state, metrics = _run_chunked(_stepper(step, "phase2", batches),
-                                      state, cfg, ckpt, resume_metrics,
-                                      verbose, log_fn, callback, "phase2")
+             (cfg.batch_size, err_model.latent)], dev, pool, stats, rows)
+        with _sp_context(mesh):
+            state, metrics = _run_chunked(_stepper(step, "phase2", batches),
+                                          state, cfg, ckpt, resume_metrics,
+                                          verbose, log_fn, callback, "phase2")
     if io_stats is not None:
         io_stats.update(stats)
-    return state.best_params, state.err_params, state, metrics
+    return (_gathered(state.best_params, mesh), state.err_params, state,
+            metrics)

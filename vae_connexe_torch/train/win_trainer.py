@@ -32,7 +32,10 @@ generators (to rounding: the kernels sum in another order at S * D heads
 than at D).  The host reads the metrics once a block of
 ``epochs_per_dispatch`` epochs, never inside the step loop.
 
-Not ported: ``mesh=`` (the seed axis over dp, ROADMAP A7) raises.
+``fit_many(mesh=)`` (``parallel/mesh.py``) splits the seed axis over dp,
+as the JAX package's shards it: each rank trains its slice of the seeds
+(still 2 + 2 / 4 + 4 launches a step) and the stacked results are
+gathered over dp, so every rank returns every seed's.
 """
 
 from __future__ import annotations
@@ -300,15 +303,39 @@ class WInTrainer:
         """Train S inits at once, their seeds folded into the kernels'
         heads.  ``params_stack`` has every leaf stacked on axis 0 (S, ...);
         ``generators`` is one run generator a seed (JAX: ``keys``).  Seed s
-        follows ``fit(params[s], windows, generators[s])``.  Returns
-        (params_stack after stage II, {metric: (S,) last value})."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "fit_many(mesh=) (the seed axis over dp) is not ported yet "
-                "(ROADMAP A7)")
+        follows ``fit(params[s], windows, generators[s])``.  ``mesh``: the
+        seed axis over dp (S must divide by dp); every rank gets every
+        seed's results.  Returns (params_stack after stage II, {metric:
+        (S,) last value})."""
         cfg = self.cfg
         e1 = cfg.stage1_epochs if stage1_epochs is None else stage1_epochs
         e2 = cfg.stage2_epochs if stage2_epochs is None else stage2_epochs
+        generators = list(generators)
+        group = None
+        if mesh is not None:
+            from vae_connexe_torch.parallel.mesh import (
+                axis_group,
+                axis_index,
+                axis_size,
+                check_mesh,
+            )
+
+            check_mesh(mesh)
+            n_dp, s = axis_size(mesh, "dp"), len(generators)
+            if s % n_dp:
+                raise ValueError(
+                    f"{s} seeds not divisible by the dp mesh size {n_dp} — "
+                    f"pad the seed count or shrink dp")
+            k, d = s // n_dp, axis_index(mesh, "dp")
+            params_stack = tree_map(lambda t: t[d * k:(d + 1) * k],
+                                    params_stack)
+            generators = generators[d * k:(d + 1) * k]
+            group = axis_group(mesh, "dp")
         out, m, _ = self._fit_stacked(params_stack, windows, generators, e1,
                                       e2, epochs_per_dispatch)
+        if group is not None:
+            from vae_connexe_torch.parallel.collectives import cat_gather
+
+            out = tree_map(lambda t: cat_gather(t, group), out)
+            m = {key: cat_gather(v, group) for key, v in m.items()}
         return out, m
