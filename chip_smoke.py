@@ -12,8 +12,9 @@
      every weight in shared memory, K1's heads over a thread-block
      cluster) at the serving width (p=20, H=64, T=21; B = 1, 8, 37, 3072),
      at p=4, H=8 with a random parents mask and at lorenz96_crvae's p=10;
-     on the streamed route at lorenz96_scaled's p=40, H=128 (B = 37, 512),
-     with the ErrorVAE at the same width; at henon_author's p=2, H=64 (B =
+     on the streamed route at lorenz96_scaled's p=40, H=128 (B = 1, 37, 512)
+     and lorenz96_xl's p=128, H=128 (B = 1, 37; also in bf16), with the
+     ErrorVAE at the same width; at henon_author's p=2, H=64 (B =
      1, 256: K1 on a 2-block cluster, one head a block); 1e-4 absolute (float32
      recurrences of 21 steps, products summed in another order); two
      calls on the same inputs give bitwise-equal outputs; each case's plan
@@ -202,7 +203,7 @@
    by the profiler) and B3's eleven kernels by
    device time (profiler); time K1, K2 and compensated generation at
    B=1 and B=3072 on both routes (resident at p=20, H=64; streamed at
-   p=40, H=128), and phase-1
+   p=40 and p=128, H=128), and phase-1
    steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
    (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes;
    the sweep's steps/s and seed-steps/s at p=10 and p=20 for 1, 8 and 32
@@ -266,6 +267,7 @@ CRVAE_P = 10
 # lorenz96_scaled (vae_connexe_tpu/configs/experiments.py): p=40, T=4096,
 # context 40, H=128, B=512; cut to 30 steps.
 SCALED_P, SCALED_H, SCALED_B, SCALED_CTX, SCALED_T = 40, 128, 512, 40, 4096
+XL_P, XL_H = 128, 128                                   # lorenz96_xl
 SCALED_STEPS = 30
 # lorenz96_crvae's phase-1 AUROC from the JAX package on a CPU at the same
 # configuration and 1000 steps (tools/jax_phase1_auroc.py), and the margin
@@ -334,9 +336,18 @@ VRAE_LINE = r"^\[(vrae) epoch=(\d+)\] total=([-\d.e+]+)"
 # the plain version, and the rows beyond BF16_TOL to at most twice those
 # of a second plain version that sums exactly (float64) before each bf16
 # rounding: summing in another order departs that far by itself.
-BF16_TOL, BF16_SAME = 2.0 ** -8, 0.9
+# At lorenz96_xl's width (128 heads) random weights flip a rounding within
+# a row's first steps too, and a plain version with exact sums shares
+# fewer than BF16_SAME of its elements with the plain version (K1 on an
+# H100: 0.77 at B=1, 0.85 at B=37, this script's check lines); there
+# ``departs_ok`` holds the kernel's share to WITNESS_SHARE of the
+# witness's and each row's first departure to the witness's.  On an H100
+# the kernel's share was 0.90 of the witness's at B=1 (0.69 against 0.77)
+# and 1.03 at B=37 (0.88 against 0.85), the float32 control's rounded to
+# bf16 at the output 0.54 and 0.53 (0.42, 0.45).
+BF16_TOL, BF16_SAME, WITNESS_SHARE = 2.0 ** -8, 0.9, 0.8
 BF16_SHAPES = ((P, H, SERVE_B), (P, H, 1), (SCALED_P, SCALED_H, SERVE_B),
-               (SCALED_P, SCALED_H, 1))
+               (SCALED_P, SCALED_H, 1), (XL_P, XL_H, 1), (XL_P, XL_H, 37))
 # Out of core: cli run lorenz96_crvae in memory and --out-of-core at
 # OOC_STEPS a phase; the throughput fit at p=20 from a file of OOC_ROWS
 # steps (a Lorenz-96 simulation of OOC_SIM steps tiled: 800 MB, whose
@@ -532,14 +543,17 @@ def rollout_plan_line(kind, p, b, d, hidden, dev, elem=4) -> str:
     cudaOccupancyMaxActiveClusters for a resident K1."""
     from vae_connexe_torch.ops import cuda_rollout as cr
 
-    plan, n_clusters = cr._plan(kind, p, b, d, hidden, dev, elem)
+    plan, launch = cr._plan(kind, p, b, d, hidden, dev, elem)
     line = (f"plan {kind}{'' if elem == 4 else ' bf16'} p={p} H={hidden} "
             f"B={b}: route={plan.route} "
             f"cluster={plan.cluster} heads_per_block={plan.heads_per_block} "
             f"bt={plan.bt} split={plan.split} threads={plan.threads} "
             f"smem={plan.smem}")
+    if plan.route == "streamed":
+        line += (f" M={plan.bt} blocks_a_step={plan.blocks} "
+                 f"kernels_a_call={T} scratch_bytes={plan.scratch}")
     if kind == "crvae" and plan.route == "resident":
-        line += (f" n_clusters={n_clusters} cudaOccupancyMaxActiveClusters="
+        line += (f" n_clusters={launch} cudaOccupancyMaxActiveClusters="
                  f"{cr.max_active_clusters(dev, plan, p, hidden, elem)}")
     return line
 
@@ -549,7 +563,8 @@ ROLLOUT_CASES = [
     (P, H, CHECK_BATCHES, False, "resident"),
     (4, 8, (1, 37), True, "resident"),
     (10, H, (37, SERVE_B), False, "resident"),          # lorenz96_crvae
-    (SCALED_P, SCALED_H, (37, SCALED_B), False, "streamed"),
+    (SCALED_P, SCALED_H, (1, 37, SCALED_B), False, "streamed"),
+    (XL_P, XL_H, (1, 37), False, "streamed"),           # lorenz96_xl
     (2, H, (1, TRAIN_B), False, "resident"),            # henon_author
 ]
 
@@ -816,14 +831,16 @@ def serve_scaled_path(dev, card):
 def time_all(dev, card, served_fn):
     """Phase 5: device times of both rollout kernels and their plain
     versions, and of the whole generation, at B=1 and B=3072 on both
-    routes; returns the per-kernel rows (B=3072, B=1 in ``extra``)."""
+    routes (the streamed one at lorenz96_scaled's and lorenz96_xl's
+    widths); returns the per-kernel rows (B=3072, B=1 in ``extra``)."""
     import torch
 
     from vae_connexe_torch.ops import cuda_rollout as cr
     from vae_connexe_torch.train import generate_from_draws
 
     res = {}
-    for suffix, p, hidden in (("", P, H), ("_streamed", SCALED_P, SCALED_H)):
+    for suffix, p, hidden in (("", P, H), ("_streamed", SCALED_P, SCALED_H),
+                              ("_xl", XL_P, XL_H)):
         model, err, params, eparams, g = make_models(p, hidden, 1, dev)
         for b in (1, SERVE_B):
             iters = 200 if b == 1 else 20
@@ -3358,6 +3375,53 @@ def bf16_ok(a) -> bool:
     return a["bf16"] and a["same"] >= BF16_SAME and a["worst"] <= BF16_TOL
 
 
+def departs_ok(a, witness) -> bool:
+    """Random weights at 128 heads, where a flipped bf16 rounding carries
+    on through a row's later steps (the share bit for bit then measures
+    when each row first departs, and a plain version with exact sums,
+    ``witness``, falls below BF16_SAME too): bf16 values only, every
+    element within BF16_TOL, a bit-equal share of at least WITNESS_SHARE
+    of the witness's, and each row's first departure from the plain
+    version by no more bf16 steps than the witness's (at least one)."""
+    return (a["bf16"] and a["worst"] <= BF16_TOL
+            and a["same"] >= WITNESS_SHARE * witness["same"]
+            and a["first_ulps"] <= max(1, witness["first_ulps"]))
+
+
+def plain_rollouts_exact(g16, x0, h0, h0e, p, noise, scale):
+    """K2's and K1's plain bf16 versions with exact sums: the same bf16
+    weights, inputs and carries, every product summed and every gate
+    computed in float64 before the bf16 rounding; (K2, K1) as float32.  A
+    second plain bf16 version that differs from the first only in how its
+    sums round."""
+    import torch
+
+    from vae_connexe_torch.ops.cuda_rollout import cast_weights
+    from vae_connexe_torch.ops.gru import gru_cell, gru_step_heads
+    from vae_connexe_torch.utils.layers import dense
+
+    f64 = torch.float64
+    heads, readout, dec, out = (cast_weights(w, f64) for w in g16)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(f64)
+
+    h, x, k2 = rnd(h0e), torch.zeros((h0e.shape[0], p), device=h0e.device,
+                                      dtype=f64), []
+    for _ in range(T):
+        h = rnd(gru_cell(dec, x, h))
+        x = rnd(dense(out, h))
+        k2.append(x)
+    h = rnd(h0).expand(p, *h0.shape)
+    x, noise, k1 = rnd(x0), rnd(noise), []
+    for t in range(T):
+        h = rnd(gru_step_heads(heads, x, h))
+        o = torch.einsum("pbh,poh->pbo", h, readout.w) + readout.b[:, None]
+        x = rnd(o[..., 0].T + scale * noise[:, t])
+        k1.append(x)
+    return (torch.stack(k2, 1).float(), torch.stack(k1, 1).float())
+
+
 def trained_ok(a, witness) -> bool:
     """Trained weights: bf16 values only, BF16_SAME bit for bit, each row
     within BF16_TOL where it first departs from the plain version, and the
@@ -3384,7 +3448,14 @@ def check_bf16_rollouts(dev, card, errors):
     route the plan names) and, as compensated generation on the same
     draws, against the float32 kernels within the JAX package's bounds;
     each plan printed for both storage types; times by CUDA events beside
-    the float32 kernels' and the bounds.  Returns the rows by shape."""
+    the float32 kernels' and the bounds.  Returns the rows by shape.
+
+    At lorenz96_xl's width (128 heads) a flipped bf16 rounding carries on
+    through a row's later steps as it does for trained weights: where the
+    plain version and a plain version with exact sums
+    (``plain_rollouts_exact``) share fewer than BF16_SAME of their
+    elements bit for bit there, the kernel is held by ``departs_ok``
+    against that witness (the controls must fail it too)."""
     import numpy as np
     import torch
 
@@ -3421,6 +3492,9 @@ def check_bf16_rollouts(dev, card, errors):
         r2 = cr.errvae_sample_plain(g16[2], g16[3], h0e, p, T)
         r1 = cr.crvae_free_run_plain(g16[0], g16[1], x0, h0, noise,
                                      model.noise_scale)
+        exact = dict(zip(("errvae_sample", "crvae_free_run"),
+                         plain_rollouts_exact(g16, x0, h0, h0e, p, noise,
+                                              model.noise_scale)))
         # The control: the float32 kernels on the same inputs.
         c2 = cr.errvae_sample_fused(f32[2], f32[3], h0e, p, T)
         c1 = cr.crvae_free_run_fused(f32[0], f32[1], x0, h0, noise,
@@ -3437,19 +3511,31 @@ def check_bf16_rollouts(dev, card, errors):
             agree = bf16_agreement(k, r)
             control = bf16_agreement(c, r)
             rounded = bf16_agreement(c.to(torch.bfloat16).float(), r)
+            witness = bf16_agreement(exact[name], r)
+            chaotic = p == XL_P and witness["same"] < BF16_SAME
+            holds = ((lambda x: departs_ok(x, witness)) if chaotic
+                     else bf16_ok)
             same = torch.equal(k, again)
             on_route = taken[f"{name}_bf16_{routes[kind]}"] == 2
             # The control fails, as it is and rounded once at the output.
-            told_apart = not bf16_ok(control) and not bf16_ok(rounded)
-            ok = (bool(torch.isfinite(k).all()) and bf16_ok(agree)
+            told_apart = not holds(control) and not holds(rounded)
+            ok = (bool(torch.isfinite(k).all()) and holds(agree)
                   and told_apart and same and on_route)
             key = f"{name}_bf16" + ("_streamed" if routes[kind] == "streamed"
                                     else "")
             errors[key] = max(errors.get(key, 0.0), e)
+            need = (f"bf16 values, max <= {BF16_TOL:g}, share >= "
+                    f"{WITNESS_SHARE * witness['same']:.5f}, first departure "
+                    f"<= {max(1, witness['first_ulps'])} bf16 steps"
+                    if chaotic else f"bf16 values, share >= {BF16_SAME}, "
+                    f"max <= {BF16_TOL:g}")
             log(f"check {name} bf16 {routes[kind]} p={p} H={hidden} B={b} "
                 f"T={T}: max_abs_err={e:.3e}, {agreement_text(agree)} "
-                f"(need bf16 values, share >= {BF16_SAME}, max <= "
-                f"{BF16_TOL:g}); control float32 kernel: bf16 values "
+                f"(need {need}; "
+                f"a plain version with exact sums: share "
+                f"{witness['same']:.5f}, first departure "
+                f"{witness['first_ulps']} bf16 steps); control float32 "
+                f"kernel: bf16 values "
                 f"{control['bf16']}, share {control['same']:.5f}, max "
                 f"{control['worst']:.3e}; rounded to bf16 at the output: "
                 f"share {rounded['same']:.5f}, max {rounded['worst']:.3e}, "
@@ -3742,15 +3828,17 @@ def cr_plan(kind, p, hidden, dev) -> dict:
     from vae_connexe_torch.ops import cuda_rollout as cr
 
     heads = p if kind == "crvae" else 1
-    plan, n_clusters = cr._plan(kind, heads, SERVE_B, p, hidden, dev)
-    return {**plan._asdict(), "n_clusters": n_clusters}
+    plan, launch = cr._plan(kind, heads, SERVE_B, p, hidden, dev)
+    if plan.route == "streamed":
+        return {**plan._asdict(), "kernels_a_call": T}
+    return {**plan._asdict(), "n_clusters": launch}
 
 
 # Meshes on the card (check_meshes): one H100, so a world of one over NCCL
 # and two ranks sharing the card over gloo with CUDA tensors.
 MESH_STEPS, MESH_SP_STEPS, MESH_XL_STEPS, MESH_RUN_STEPS = 100, 50, 30, 300
 LH_P, LH_CTX, LH_B, LH_T = 10, 128, 128, 4096     # lorenz96_longhorizon
-XL_P, XL_H, XL_B, XL_CTX, XL_T = 128, 128, 64, 40, 8192   # lorenz96_xl
+XL_B, XL_CTX, XL_T = 64, 40, 8192          # lorenz96_xl (XL_P, XL_H above)
 MESH_TOL = dict(rtol=2e-5, atol=1e-6)   # tests/test_meshed_fit.py:36-55
 MESH_LOSS_RTOL = 1e-4
 MESH_RANK_TIMEOUT = 420
@@ -4220,6 +4308,20 @@ def main() -> int:
                         "vae_connexe_torch/csrc/step.cu",
                         "vae_connexe_tpu/ops/pallas_step.py:353"),
     }
+    # lorenz96_xl's width on the streamed route: its times, bounds and plan
+    # in the streamed rows (the same kernels).
+    for name in ("crvae_free_run", "errvae_sample"):
+        k1 = name.startswith("crvae")
+        outs, heads = (1, XL_P) if k1 else (XL_P, 1)
+        row = times.pop(f"{name}_xl")
+        times[f"{name}_streamed"]["extra"]["xl"] = {
+            "p": XL_P, "hidden": XL_H, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], **row["extra"],
+            "bound_ms": bound(*rollout_cost(SERVE_B, T, heads, XL_H, XL_P,
+                                            outs, k1, k1))[0],
+            "b1_bound_ms": bound(*rollout_cost(1, T, heads, XL_H, XL_P, outs,
+                                               k1, k1))[0],
+            "plan": cr_plan("crvae" if k1 else "errvae", XL_P, XL_H, dev)}
     # B=1 bounds of the rollouts, beside their B=1 times, and their plans.
     for name, (b1_cost, p, hidden) in {
             "crvae_free_run": (rollout_cost(1, T, P, H, P, 1, True, True), P, H),

@@ -229,7 +229,9 @@ def test_route_counts_bf16_bytes():
     """bf16 weights halve a resident block's weight bytes: at
     lorenz96_scaled's d=40, H=128 K2 now takes the resident route, while
     K1's 40 heads need more blocks than a cluster holds and stay
-    streamed; at the serving width both stay resident on smaller blocks."""
+    streamed on the float32 plan (the streamed block holds its weights in
+    float32 in both types); at the serving width both stay resident on
+    smaller blocks."""
     f32 = cr.resident_smem_bytes(1, 4, 40, 128, 40, False)
     b16 = cr.resident_smem_bytes(1, 4, 40, 128, 40, False, elem=2)
     assert b16 < H100[0] < f32
@@ -239,8 +241,10 @@ def test_route_counts_bf16_bytes():
             "streamed"
         plan = cr.rollout_route("errvae", 1, batch, 40, 128, H100, 2)
         assert plan.route == "resident" and plan.smem <= H100[0]
-        assert cr.rollout_route("crvae", 40, batch, 40, 128, H100,
-                                2).route == "streamed"
+        k1 = cr.rollout_route("crvae", 40, batch, 40, 128, H100)
+        k1_16 = cr.rollout_route("crvae", 40, batch, 40, 128, H100, 2)
+        assert k1.route == k1_16.route == "streamed"
+        assert k1_16 == k1
         a = cr.rollout_route("crvae", 20, batch, 20, 64, H100)
         b = cr.rollout_route("crvae", 20, batch, 20, 64, H100, 2)
         assert (a.route, a.cluster) == (b.route, b.cluster) == ("resident", 7)

@@ -145,8 +145,9 @@ def cuda_device():
 @pytest.mark.parametrize("route,p,hidden,b,parents", [
     ("resident", 6, 16, 37, True),       # one head a block, cluster of 6
     ("resident", 20, 64, 37, False),     # the serving width, cluster of 7
-    ("streamed", 40, 128, 8, False),     # lorenz96_scaled's width
-], ids=["resident-p6", "resident-p20", "streamed-p40"])
+    ("streamed", 40, 128, 37, False),    # lorenz96_scaled's width, M=8
+    ("streamed", 128, 128, 37, True),    # lorenz96_xl's width, M=32
+], ids=["resident-p6", "resident-p20", "streamed-p40", "streamed-p128"])
 def test_kernels_match_plain_on_card(cuda_device, route, p, hidden, b,
                                      parents):
     """Both kernels against their plain versions on the card, on each

@@ -147,23 +147,118 @@ def test_cpu_tensors_never_launch(crvae):
                                      "errvae_sample_bf16": 0}
 
 
-@pytest.mark.parametrize("batch,heads,hidden,budget,want", [
-    (3072, 20, 64, 232448, 8),     # serving width: 384 blocks of 82,560 bytes
-    (1024, 20, 64, 232448, 4),     # 8 rows a block would leave SMs idle
-    (264, 20, 64, 232448, 2),      # exactly one block per SM
-    (37, 20, 64, 232448, 1),       # fewer rows than SMs: one row a block
-    (1, 20, 64, 232448, 1),
-    (3072, 20, 64, 49152, 4),      # a 48 KB budget forces narrow tiles
+@pytest.mark.parametrize("p", [40, 128], ids=["scaled", "xl"])
+def test_plain_rollouts_match_jax_at_hidden_128(p):
+    """K1's and K2's plain versions, the reference the streamed kernels are
+    held to on the card, against ``CRVAE._free_run`` and ``ErrorVAE.sample``
+    at lorenz96_scaled's (p=40) and lorenz96_xl's (p=128) widths, H=128,
+    B=3, T=21.  Tolerance: the module's 1e-5 (the two differ by ~5e-7 on
+    outputs of order 1: 21 float32 steps of 168-256-term sums, summed in
+    other orders by XLA and PyTorch)."""
+    hidden, b, t = 128, 3, 21
+    model = JCRVAE(p=p, hidden=hidden, rollout_len=t)
+    params = model.init(jax.random.key(5))
+    rng = np.random.default_rng(p)
+    x0, h0 = rng.normal(size=(b, p)), rng.normal(size=(b, hidden))
+    noise = rng.normal(size=(b, t, p))
+    ref = model._free_run(params, params.heads, jnp.asarray(x0, jnp.float32),
+                          jnp.broadcast_to(jnp.asarray(h0, jnp.float32),
+                                           (p, b, hidden)),
+                          jnp.asarray(noise, jnp.float32))
+    got = cuda_rollout.crvae_free_run_plain(
+        _port(gru.GRUParams, params.heads), _port(Dense, params.readout),
+        _t(x0), _t(h0), _t(noise), model.noise_scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    err = JErrorVAE(d=p, hidden=hidden, rollout_len=t)
+    eparams = err.init(jax.random.key(6))
+    key = jax.random.key(7)
+    ref2 = err.sample(eparams, key, b)                  # (B, T + 1, d)
+    eh0 = np.asarray(jax.random.normal(key, (b, hidden)))
+    got2 = cuda_rollout.errvae_sample_plain(
+        _port(gru.GRUParams, eparams.dec), _port(Dense, eparams.out),
+        _t(eh0), p, t)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(ref2)[:, 1:], **TOL)
+
+
+def test_packed_weights_follow_the_tensors():
+    """The wrappers' packed weights are reused for the same weight tensors,
+    packed again after an in-place write and dropped when a tensor is
+    freed; inference tensors, which keep no version counter, are packed at
+    every call."""
+    g = torch.Generator().manual_seed(1)
+    w_ih, w_hh = torch.randn((2, 24, 5), generator=g), torch.randn(
+        (2, 24, 8), generator=g)
+    key = (id(w_ih), id(w_hh))
+    first = cuda_rollout._packed_weights(w_ih, w_hh)
+    assert cuda_rollout._packed_weights(w_ih, w_hh) is first
+    with torch.no_grad():
+        w_ih.mul_(2.0)
+    again = cuda_rollout._packed_weights(w_ih, w_hh)
+    assert again is not first
+    assert torch.equal(again, cuda_rollout.pack_streamed(w_ih, w_hh))
+    assert key in cuda_rollout._PACKED
+    del w_ih
+    assert key not in cuda_rollout._PACKED
+    with torch.inference_mode():
+        a, b = w_hh.clone(), w_hh.clone()
+    assert cuda_rollout._packed_weights(a, b) is not \
+        cuda_rollout._packed_weights(a, b)
+
+
+@pytest.mark.parametrize("batch,heads,d,hidden,outs,budget,want", [
+    (3072, 40, 40, 128, 1, 232448, 32),   # lorenz96_scaled: 3840 blocks
+    (512, 40, 40, 128, 1, 232448, 32),    # 640 blocks of the widest tile
+    (37, 40, 40, 128, 1, 232448, 8),      # 16 rows would leave SMs idle
+    (1, 40, 40, 128, 1, 232448, 4),       # one block a head at any tile
+    (3072, 128, 128, 128, 1, 232448, 32),  # lorenz96_xl
+    (3072, 1, 40, 128, 40, 232448, 16),   # K2: one head, 192 blocks
+    (264, 1, 40, 128, 40, 232448, 4),     # K2: 66 blocks at best
+    (3072, 40, 40, 128, 1, 60000, 8),     # a 60 KB budget: narrower tiles
 ])
-def test_pick_bt(batch, heads, hidden, budget, want):
-    bt = cuda_rollout.pick_bt(batch, heads, hidden, heads, budget, n_sm=132)
-    assert bt == want
-    assert cuda_rollout.tile_smem_bytes(bt, heads, hidden, heads) <= budget
+def test_stream_tile(batch, heads, d, hidden, outs, budget, want):
+    m = cuda_rollout.stream_tile(batch, heads, d, hidden, outs, budget,
+                                 n_sm=132)
+    assert m == want
+    assert cuda_rollout.stream_smem_bytes(m, d, hidden, outs) <= budget
+    assert (cuda_rollout.stream_threads(m, hidden)
+            <= cuda_rollout.stream_max_threads(m))
 
 
-def test_pick_bt_raises_when_one_row_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_rollout.pick_bt(8, 128, 256, 128, 232448, n_sm=132)
+def test_stream_tile_raises_when_the_smallest_tile_does_not_fit():
+    need = cuda_rollout.stream_smem_bytes(4, 128, 1024, 1)
+    with pytest.raises(ValueError, match=f"{need} bytes of shared memory"):
+        cuda_rollout.stream_tile(8, 128, 128, 1024, 1, 232448, n_sm=132)
+
+
+@pytest.mark.parametrize("p,d,hidden", [
+    (3, 5, 36),        # pad rows to a whole chunk, pad units to 64
+    (2, 40, 128),      # lorenz96_scaled's widths: nothing padded
+    (None, 40, 128),   # K2: one head's (3H, D), (3H, H)
+])
+def test_pack_streamed_layout(p, d, hidden):
+    """The streamed kernels' packed weights: row k of head i holds gate g
+    of unit j at [i, k, g, j]: W_ih's columns, zero rows to a whole chunk,
+    W_hh's columns, zero rows past H; units past 32-rounded H zero; bf16
+    widened exactly to float32."""
+    g = torch.Generator().manual_seed(0)
+    heads = 1 if p is None else p
+    w_ih = torch.randn((heads, 3 * hidden, d), generator=g)
+    w_hh = torch.randn((heads, 3 * hidden, hidden), generator=g)
+    dp, hp = cuda_rollout.stream_dims(d, hidden)
+    assert (dp, hp) == (-(-d // 8) * 8, -(-hidden // 32) * 32)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = w_ih.to(dtype), w_hh.to(dtype)
+        got = (cuda_rollout.pack_streamed(a[0], b[0]) if p is None
+               else cuda_rollout.pack_streamed(a, b))
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert got.shape == (heads, dp + hp, 3, hp)
+        want = torch.zeros((heads, dp + hp, 3, hp))
+        for gate in range(3):
+            rows = slice(gate * hidden, (gate + 1) * hidden)
+            want[:, :d, gate, :hidden] = a[:, rows].float().transpose(1, 2)
+            want[:, dp:dp + hidden, gate, :hidden] = \
+                b[:, rows].float().transpose(1, 2)
+        assert torch.equal(got, want)
 
 
 def test_kernel_inputs_are_validated():

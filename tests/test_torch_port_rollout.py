@@ -29,15 +29,28 @@ H100 = (232448, 233472, 132, 2048, 8, 16)
     ("crvae", 4, 37, 4, 8, ("resident", 4, 1, 4, 4)),
     ("crvae", 6, 37, 6, 16, ("resident", 6, 1, 4, 4)),
     # Hidden 128 (lorenz96_scaled, lorenz96_xl): one head's weights alone
-    # are over a block's shared memory.
-    ("crvae", 40, 3072, 40, 128, ("streamed", 1, 40, 4, 0)),
-    ("crvae", 128, 3072, 128, 128, ("streamed", 1, 128, 1, 0)),
+    # are over a block's shared memory.  The streamed body: one block a
+    # (tile, head), the widest tile (32 rows) whenever heads x tiles still
+    # give all 132 SMs a block; at B=37 the 40 heads need tiles of 8 rows
+    # (200 blocks) for that; at B=1 no tile does, and the narrowest wastes
+    # the fewest rows.
+    ("crvae", 40, 3072, 40, 128, ("streamed", 1, 1, 32, 0)),
+    ("crvae", 40, 37, 40, 128, ("streamed", 1, 1, 8, 0)),
+    ("crvae", 40, 1, 40, 128, ("streamed", 1, 1, 4, 0)),
+    ("crvae", 128, 3072, 128, 128, ("streamed", 1, 1, 32, 0)),
+    ("crvae", 128, 37, 128, 128, ("streamed", 1, 1, 32, 0)),
+    # 128 heads at H=256: one row of every head's state overflowed the
+    # first port's block; one head a block has a plan.
+    ("crvae", 128, 8, 128, 256, ("streamed", 1, 1, 4, 0)),
     # The ErrorVAE: B1's cost model picks 24 rows (128 blocks) at B=3072;
     # at B=37 it ties 4 rows with 8, and the narrower tile is taken.
     ("errvae", 1, 3072, 20, 64, ("resident", 1, 1, 24, 2)),
     ("errvae", 1, 37, 20, 64, ("resident", 1, 1, 4, 4)),
     ("errvae", 1, 1, 20, 64, ("resident", 1, 1, 4, 4)),
-    ("errvae", 1, 512, 40, 128, ("streamed", 1, 1, 2, 0)),
+    # K2 at hidden 128 in float32: one head, so B=3072 needs 16-row tiles
+    # (192 blocks) and B=512 none gives every SM a block.
+    ("errvae", 1, 3072, 40, 128, ("streamed", 1, 1, 16, 0)),
+    ("errvae", 1, 512, 40, 128, ("streamed", 1, 1, 4, 0)),
 ])
 def test_rollout_route(kind, heads, batch, d, hidden, want):
     plan = cuda_rollout.rollout_route(kind, heads, batch, d, hidden, H100)
@@ -54,13 +67,23 @@ def test_rollout_route(kind, heads, batch, d, hidden, want):
         assert (plan.cluster - 1) * plan.heads_per_block < heads
         assert plan.cluster <= H100[4]
     else:
-        assert plan.smem == cuda_rollout.tile_smem_bytes(plan.bt, heads,
-                                                         hidden, d)
+        outs = 1 if kind == "crvae" else d
+        assert plan.smem == cuda_rollout.stream_smem_bytes(plan.bt, d, hidden,
+                                                           outs)
+        assert plan.threads == cuda_rollout.stream_threads(plan.bt, hidden)
+        assert plan.threads <= cuda_rollout.stream_max_threads(plan.bt)
+        assert plan.blocks == heads * -(-batch // plan.bt)
+        assert plan.scratch == cuda_rollout.stream_scratch_bytes(
+            plan.bt, heads, batch, d, hidden)
 
 
 def test_rollout_route_raises_where_neither_route_fits():
-    with pytest.raises(ValueError, match="neither route"):
-        cuda_rollout.rollout_route("crvae", 128, 8, 128, 256, H100)
+    """Hidden 1024: the streamed body's ring of 8-row weight chunks alone
+    is over a block at its smallest tile; the message names the bytes."""
+    need = cuda_rollout.stream_smem_bytes(4, 128, 1024, 1)
+    assert need > H100[0]
+    with pytest.raises(ValueError, match=f"neither route.* {need} bytes"):
+        cuda_rollout.rollout_route("crvae", 128, 8, 128, 1024, H100)
 
 
 def test_rollout_route_takes_a_larger_cluster_only_when_no_portable_one_fits():

@@ -1,18 +1,25 @@
-"""Sweep the resident rollout kernels' designs on one GPU.
+"""Sweep the rollout kernels' designs on one GPU.
 
-    python3 tools/torch_rollout_tiles.py
+    python3 tools/torch_rollout_tiles.py [--streamed]
 
 ``vae_connexe_torch/ops/cuda_rollout.rollout_route`` rests on this sweep.
-K1 (the CRVAE free run, T=21, H=64) at the serving width p=20 and at
-lorenz96_crvae's p=10: for each cluster size C of 4..8, 10 and 16 (heads
-per block ceil(p / C), spread as the kernel spreads them) and each batch
-tile of ``cuda_gru.FWD_TILES`` that fits a block, and each k split
-(``cuda_rollout.SPLITS``) whose gate tiles fit it, it prints the clusters
-the card holds at once (``cudaOccupancyMaxActiveClusters``) and, at
-B = 1, 37 and 3072, the device time of one launch (CUDA events) and the
+Resident route: K1 (the CRVAE free run, T=21, H=64) at the serving width
+p=20 and at lorenz96_crvae's p=10: for each cluster size C of 4..8, 10 and
+16 (heads per block ceil(p / C), spread as the kernel spreads them) and
+each batch tile of ``cuda_gru.FWD_TILES`` that fits a block, and each k
+split (``cuda_rollout.SPLITS``) whose gate tiles fit it, it prints the
+clusters the card holds at once (``cudaOccupancyMaxActiveClusters``) and,
+at B = 1, 37 and 3072, the device time of one launch (CUDA events) and the
 largest error against the plain version.  K2 (the ErrorVAE free run, d=20,
-H=64) at each tile and split.  The plan ``rollout_route`` picks is marked
-``*``.
+H=64) at each tile and split.
+Streamed route (hidden 128; ``--streamed`` runs this part alone): K1 at
+lorenz96_scaled's p=40 and lorenz96_xl's p=128, in float32 and bf16, and
+K2 at d=40 in float32, at B = 1, 37, 512 and 3072: each batch tile M of
+``cuda_rollout.STREAM_TILES`` whose block fits, with its blocks a step,
+the device time of one call (T launches; the weights packed before it) and
+the largest error against the plain version.  ``cuda_rollout.stream_tile``'s
+rule is read off it.
+The plan ``rollout_route`` picks is marked ``*``.
 The library is called directly, so the plan itself is bypassed.  Needs a
 CUDA device and nvcc.
 """
@@ -131,6 +138,65 @@ def sweep_k2(dev, g, d, limits) -> None:
         print(" | ".join(row), flush=True)
 
 
+STREAM_BATCHES = (1, 37, 512, 3072)
+
+
+def sweep_streamed(dev, g, kind, p, dtype, limits) -> None:
+    """Every streamed tile of one kernel at hidden 128 (``kind`` "crvae":
+    K1 with p heads; "errvae": K2 at d = p), weights of ``dtype``."""
+    hidden = 128
+    elem = 2 if dtype == torch.bfloat16 else 4
+    half = "_bf16" if elem == 2 else ""
+    if kind == "crvae":
+        params = CRVAE(p, hidden).init(g, dev)
+        w, ro = params.heads, params.readout
+        heads = p
+    else:
+        params = ErrorVAE(p, hidden).init(g, dev)
+        w, ro = params.dec, params.out
+        heads = 1
+    if elem == 2:
+        w, ro = cr.cast_weights(w, dtype), cr.cast_weights(ro, dtype)
+    rnd = cr._carries(dtype)
+    for b in STREAM_BATCHES:
+        h0 = rnd(torch.randn((b, hidden), generator=g).to(dev))
+        if kind == "crvae":
+            noise = rnd(torch.randn((b, T, p), generator=g).to(dev))
+            x0 = torch.zeros((b, p), device=dev)
+            ref = cr.crvae_free_run_plain(w, ro, x0, h0, noise, 0.1)
+            packed = cr.pack_streamed(w.w_ih, w.w_hh)
+            head = (x0, h0, noise, packed)
+        else:
+            ref = cr.errvae_sample_plain(w, ro, h0, p, T)
+            packed = cr.pack_streamed(w.w_ih[None], w.w_hh[None])
+            head = (h0, packed)
+        pick = cr.rollout_route(kind, heads, b, p, hidden, limits, elem)
+        row = [f"streamed {kind}{half} p={p} B={b}"]
+        for m in cr.STREAM_TILES:
+            outs = 1 if kind == "crvae" else p
+            smem = cr.stream_smem_bytes(m, p, hidden, outs)
+            if smem > limits[0]:
+                continue
+            plan = cr.RolloutPlan("streamed", 1, 1, m, 0,
+                                  cr.stream_threads(m, hidden), smem)
+            out = torch.empty((b, T, p), device=dev)
+            args = (*head, w.b_ih, w.b_hh, ro.w, ro.b, out,
+                    *cr._stream_scratch(plan, heads, b, p, hidden, dev))
+            if kind == "crvae":
+                fn, ints = (f"vcx_crvae_free_run_streamed{half}",
+                            (b, T, p, hidden, ctypes.c_float(0.1), m))
+            else:
+                fn, ints = (f"vcx_errvae_sample_streamed{half}",
+                            (b, T, p, hidden, m))
+            ms = time_ms(lambda: cr._launch(fn, dev, args, ints),
+                         iters=5 if b * p >= 100_000 else 20)
+            err = (out - ref).abs().max().item()
+            mark = "*" if (pick.route, pick.bt) == ("streamed", m) else ""
+            row.append(f"M={m}{mark} blocks={heads * -(-b // m)}: "
+                       f"{ms:.4f} ms err {err:.2e}")
+        print(" | ".join(row), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -142,9 +208,16 @@ def main() -> None:
     limits = cr.device_limits(dev)
     print(f"limits {limits}", flush=True)
     g = torch.Generator().manual_seed(0)
-    for p in (20, 10):
-        sweep_k1(dev, g, p, limits)
-    sweep_k2(dev, g, 20, limits)
+    if sys.argv[1:] != ["--streamed"]:
+        for p in (20, 10):
+            sweep_k1(dev, g, p, limits)
+        sweep_k2(dev, g, 20, limits)
+    for kind, p, dtype in (("crvae", 40, torch.float32),
+                           ("crvae", 40, torch.bfloat16),
+                           ("crvae", 128, torch.float32),
+                           ("crvae", 128, torch.bfloat16),
+                           ("errvae", 40, torch.float32)):
+        sweep_streamed(dev, g, kind, p, dtype, limits)
 
 
 if __name__ == "__main__":

@@ -45,19 +45,50 @@
 //   once, so no block starts the next tile's buffers, or exits, while a
 //   peer may still write into its shared memory.
 //
-// Streamed (rollout_tile, the first port's body, for shapes whose weights
-// do not fit a block: one head at hidden 128 with D = 40 is 269 KB).  One
-// thread computes one (head, unit) pair for BT rows; weights stream from
-// L2 every step in the (in, 3H) layout the wrapper transposes them into.
+// Streamed (stream_step, for shapes whose weights do not fit a block: one
+// head at hidden 128 with D = 40 is 269 KB in float32).  A time step is one
+// launch of grid (batch tiles of M rows, P heads); the kernel boundary is
+// the step's barrier, and nothing waits on the host between steps.  Block
+// (tile, head i) stages its rows of [x_t | h_i] in shared memory, streams
+// head i's weights from L2 through a ring of 8-row chunks, each one bulk
+// copy of the TMA engine completing on an mbarrier, and computes its
+// M x 3H gates as a register-tiled product: TR rows x TU units x the 3
+// gates a thread, so each weight a thread loads from shared memory feeds
+// TR rows and each chunk the block loads feeds all M.  The GRU update is
+// the product's epilogue and writes h_i back in place (only this block
+// owns h_i for these rows); the block then computes head i's readout for
+// its rows, adds the noise and stores out[:, t] and the next of two x
+// buffers.  M is picked by the wrapper (cuda_rollout.stream_tile): the
+// widest tile that still gives every SM a block (P x tiles >= SMs), so at
+// B = 1 the P heads' weight reads spread over P SMs instead of one.
+//   What the card showed (H100; tools/torch_rollout_tiles.py sweeps M):
+//   from 16 rows the product is bound by the issue of its multiply-adds
+//   and shared-memory loads, not by L2, so the thread tile is 8 x 2 (64
+//   accumulators, 128 registers) and M stops at 32, two blocks an SM (at
+//   64 rows one block holds an SM, which idles through its tile load,
+//   epilogue and readout).  At a small batch a step is a chain of
+//   latencies: the tile of 4 (8) rows splits the chunks over 4 (2) groups
+//   of threads, whose sums meet in shared memory in a fixed order; and a
+//   step after the first is a programmatic dependent launch, which starts
+//   its weight copies while the step before finishes and waits
+//   (griddepcontrol) only before it reads the state.  One cooperative
+//   launch of all T steps (a grid barrier a step, h kept in shared memory)
+//   was tried where the card holds a step's grid: at B = 1 it ran p = 40
+//   in 0.1821 ms against the T launches' 0.1862 and K2 in 0.1916 against
+//   0.1871, so the launches do not set the pace at those shapes; it gained
+//   13% only at p = 128 and 15% at p = 40, B = 37, too little for a second
+//   launch mode of every kernel (PERF.md, tools/torch_rollout_tiles.py).
 //
 // Bound.  At the serving shape (p=20, H=64, B=3072, T=21) K1 is ~4.2e10
 // f32 flops against ~13 MB of input and output: bound by f32 FMA
-// throughput (0.62 ms on an H100 SXM); the streamed body was instead held
-// back by re-reading 1.3 MB of weights from L2 per tile and step.  On the
-// resident route the arithmetic is the limit, on the busiest block of a
-// cluster (3 heads of 20 on 7 blocks).  At B=1 neither bound applies: the
-// 21-step dependency chain (a gate product, a readout, a barrier a step)
-// sets the time.
+// throughput (0.62 ms on an H100 SXM).  On the resident route the
+// arithmetic is the limit, on the busiest block of a cluster (3 heads of
+// 20 on 7 blocks).  On the streamed route at p=40, H=128, B=3072 it is
+// 3.3e11 flops (4.98 ms at 67 TFLOP/s); the body adds the state's round
+// trip through HBM (P x B x H x 4 bytes read and written a step: 126 MB at
+// p=40) and L2 reads of P x B / M x 258 KB a step.  At B=1 neither bound
+// applies: the 21-step dependency chain (a gate product, a readout, a
+// barrier or launch a step) sets the time.
 //
 // Storage type.  Every kernel is instantiated for float32 weights and for
 // bfloat16 weights (W = __nv_bfloat16, bf16 serving: JAX's _free_run and
@@ -69,7 +100,11 @@
 // the nearest bf16 (carry<W>), as JAX's bf16 carries are; x0, h0 and the
 // noise arrive as float32 holding bf16 values, and the output is float32.
 // The float32 instantiation is the code before bf16 existed (carry<float>
-// is the identity).
+// is the identity).  The streamed route's ring holds float32 weights in
+// both types (its wrapper widens bf16 ones, exactly): its product is
+// bound by issue, not by L2 bytes, and converting each bf16 weight in the
+// inner loop, or each chunk once a block in shared memory, made bf16
+// slower than float32 there; widened, the two run the same product.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -92,10 +127,6 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
-// A weight through the read-only cache, as float32.
-template <typename W>
-__device__ __forceinline__ float ldg_f(const W* p) { return to_f(__ldg(p)); }
-
 // A carry (new state, emitted x) as it is stored: unchanged in float32,
 // rounded to the nearest bf16 in bf16.
 template <typename W>
@@ -117,163 +148,566 @@ __device__ __forceinline__ float2 ld2(const W* p) {
 
 // ---- Streamed route ----------------------------------------------------------
 
+// Block (tile, head i) of a step's launch, shared memory in this order,
+// every region 16-byte aligned:
+//   bars [8]      one mbarrier a ring stage
+//   ring [S][kStreamChunk][3][Hp]  chunks of head i's packed float32
+//                 weights, S = stream_stages(M): two rounds of the KS
+//                 groups' chunks (at least 4), one round in flight ahead
+//   tile [Kp][M]  its rows of [x_t | h_i], transposed (float32): x in rows
+//                 [0, Dp), h_i in rows [Dp, Kp); zeros in the pad rows
+//   ro   [O][H+4] head i's readout rows (float32; 4 past H so that rows of
+//                 neighbouring columns start in other banks)
+//   bias [6H + O] head i's b_ih, b_hh and readout biases (float32)
+// The chunks, ro and the biases do not depend on the step before and are
+// started before the block waits for it; ro and the biases are read only
+// after the product.  The ring then holds the groups' partial sums.
+// Weights in global memory, packed by the wrapper: (P, Kp, 3, Hp) float32,
+// row k the gates r, z, n of every unit: W_ih^T rows, zero rows to Dp,
+// W_hh^T rows, zero rows to Kp = Dp + Hp; units past H zero.  A chunk is
+// then one contiguous run of bytes.  Dp rounds D up to a chunk, so a chunk
+// is all input or all state (the n gate keeps the two apart); Hp rounds H
+// up to 32.
+// State scratch (P, Hp, Bp) and x scratch (2, Dp, Bp), both transposed and
+// padded to whole tiles (Bp), so that a step's tile is copied in by
+// 16-byte cp.async with no mask; step 0 reads x0 (B, D) and h0 (B, H)
+// instead.  Step t reads x buffer t & 1 and writes (t + 1) & 1; only block
+// (tile, i) reads or writes h_i of its rows, so the state is updated in
+// place.
+constexpr int kStreamChunk = 8, kStreamMaxStages = 8;
+constexpr int kStreamBarBytes = kStreamMaxStages * 8;
+constexpr int kStreamTiles[4] = {32, 16, 8, 4};
+
+__host__ __device__ inline int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+__host__ __device__ inline int stream_dp(int D) {
+  return round_up(D, kStreamChunk);
+}
+__host__ __device__ inline int stream_hp(int H) { return round_up(H, 32); }
+// Row stride (in floats) of the staged readout rows.
+__host__ __device__ inline int stream_ro_ld(int H) { return H + 4; }
+
+// A thread tile: TR rows x TU units x the 3 gates, over 1 / KS of the
+// chunks: 4 x 1 split 4 ways at 4 rows, 4 x 2 split 2 ways at 8, 8 x 2
+// (64 accumulators a thread: r, z and the two parts of n) from 16.  A small
+// tile is a small batch, whose step is a chain of latencies: the split
+// puts KS groups of threads on its chunks at once.
+__host__ __device__ inline int stream_rows(int M) { return M >= 16 ? 8 : 4; }
+__host__ __device__ inline int stream_units(int M) { return M >= 8 ? 2 : 1; }
+__host__ __device__ inline int stream_split(int M) {
+  return M >= 16 ? 1 : (M == 8 ? 2 : 4);
+}
+// Threads of one group (a thread tile each) and of the block.
+__host__ __device__ inline int stream_group(int M, int H) {
+  return M / stream_rows(M) * (stream_hp(H) / stream_units(M));
+}
+__host__ __device__ inline int stream_threads(int M, int H) {
+  return stream_split(M) * stream_group(M, H);
+}
+// Ring stages: the chunks of the KS groups' step and of the next one.
+__host__ __device__ constexpr int stream_stages_of(int KS) {
+  return KS * 2 > 4 ? KS * 2 : 4;
+}
+__host__ __device__ inline int stream_stages(int M) {
+  return stream_stages_of(stream_split(M));
+}
+// A warp's lanes: RW row groups x UW unit groups, UW a power of two that
+// divides the unit groups, as many as make a lane's weight load of one
+// gate 128 bytes a warp (one wavefront), at most 32.  False where the
+// tiles do not cover whole warps.
+__host__ __device__ inline bool stream_layout(int M, int H, int& RW,
+                                              int& UW) {
+  const int NR = M / stream_rows(M), NU = stream_hp(H) / stream_units(M);
+  UW = 32 / stream_units(M);
+  while (UW > 1 && NU % UW != 0) UW /= 2;
+  RW = 32 / UW;
+  if (RW > NR) {
+    RW = NR;
+    UW = 32 / RW;
+  }
+  return NR % RW == 0 && NU % UW == 0 && RW * UW == 32;
+}
+// The most threads each instantiation takes (its __launch_bounds__): 512
+// at 64 accumulators a thread (128 registers), else 1024.
+__host__ __device__ constexpr int stream_max_threads(int TR, int TU) {
+  return TR * TU <= 8 ? 1024 : 512;
+}
+// Bytes of the regions of a streamed block (after the barriers).
+__host__ __device__ inline i64 stream_chunk_elems(int H) {
+  return (i64)kStreamChunk * 3 * stream_hp(H);
+}
+__host__ __device__ inline i64 stream_ring_bytes(int M, int H) {
+  return stream_stages(M) * stream_chunk_elems(H) * 4;
+}
+__host__ __device__ inline i64 stream_tile_bytes(int M, int D, int H) {
+  return (i64)(stream_dp(D) + stream_hp(H)) * M * 4;
+}
+__host__ __device__ inline i64 stream_ro_bytes(int H, int O) {
+  return (i64)O * stream_ro_ld(H) * 4;
+}
+__host__ __device__ inline i64 stream_smem_bytes(int M, int D, int H, int O) {
+  return kStreamBarBytes + stream_ring_bytes(M, H) +
+         stream_tile_bytes(M, D, H) + stream_ro_bytes(H, O) +
+         ((6LL * H + O) * 4 + 15) / 16 * 16;
+}
+
 template <typename W>
-struct RolloutArgs {
+struct StreamArgs {
+  // x0, h0 and the noise are float32; in bf16 the kernel rounds each to
+  // bf16 as it reads it (the resident route's wrapper rounds them first).
   const float* x0;      // (B, D), or nullptr for a zero start
   const float* h0;      // (B, H), every head's initial state
   const float* noise;   // (B, T, D), or nullptr for none
-  const W* w_ih_t;      // (P, D, 3H), gates [r; z; n] along the last axis
-  const W* w_hh_t;      // (P, H, 3H)
+  const float* w;       // (P, Kp, 3, Hp), packed as above, float32
   const W* b_ih;        // (P, 3H)
   const W* b_hh;        // (P, 3H)
   const W* ro_w;        // (P, O, H)
   const W* ro_b;        // (P, O)
   float* out;           // (B, T, D)
-  int B, T, P, H, O;
+  float* h;             // (P, Hp, Bp) state scratch
+  float* x;             // (2, Dp, Bp) x scratch, zero in the pad columns
+  int B, Bp, T, P, H, O, M;
   float noise_scale;
 };
 
-// Threads per block: a tile of few rows gets many threads, so that a single
-// stream spreads its p*H units over the SM; a wide tile keeps its
-// accumulators (4 * BT a thread) in registers.
-template <int BT>
-constexpr int max_threads() { return BT <= 2 ? 1024 : 2048 / BT; }
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+// The ring's barriers: each counts one arrival (the thread that starts a
+// stage's copy) and the copy's bytes.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Start one bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global src into shared dst; bar completes its phase when
+// they have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Programmatic dependent launch: a step's launch may start while the step
+// before it finishes; wait_prior_step returns once that step has completed
+// and its writes are visible, and allow_next_step lets the next step's
+// blocks be scheduled.
+__device__ __forceinline__ void wait_prior_step() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void allow_next_step() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
-template <int BT, typename W>
-__device__ __forceinline__ void rollout_tile(const RolloutArgs<W>& a) {
-  extern __shared__ float smem[];
-  const int P = a.P, H = a.H, O = a.O, D = P * O, G = 3 * H;
-  const int head_stride = BT * H;           // floats per head in a buffer
-  float* h_cur = smem;                      // [P][BT][H]
-  float* h_next = smem + P * head_stride;   // [P][BT][H]
-  float* x = smem + 2 * P * head_stride;    // [BT][D]
-  const int row0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, nth = blockDim.x;
+// Wait until bar has completed the phase of this parity.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
 
-  // Every head starts from the same h0 row; rows past B stay zero.
-  for (int e = tid; e < P * head_stride; e += nth) {
-    const int k = e % H, row = row0 + (e / H) % BT;
-    h_cur[e] = row < a.B ? a.h0[(size_t)row * H + k] : 0.0f;
+// Copy `rows` rows of `cols` weights from src (row stride src_ld) into
+// shared dst as float32 (row stride dst_ld): 16-byte cp.async for float32
+// rows of whole 16-byte pieces at 16-byte aligned addresses, else one
+// weight at a time, widened (bf16, and widths no shape of the repo has).
+template <typename W>
+__device__ __forceinline__ void stage_rows(float* dst, int dst_ld,
+                                           const W* src, i64 src_ld,
+                                           int rows, int cols) {
+  const bool vec = sizeof(W) == 4 && cols % 4 == 0 && dst_ld % 4 == 0 &&
+                   src_ld % 4 == 0 &&
+                   reinterpret_cast<size_t>(src) % 16 == 0 &&
+                   reinterpret_cast<size_t>(dst) % 16 == 0;
+  if (vec) {
+    const int pieces = cols / 4;
+    for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
+      const int r = e / pieces, q = e % pieces;
+      cp_async16(dst + r * dst_ld + q * 4, src + r * src_ld + q * 4);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, q = e % cols;
+      dst[r * dst_ld + q] = to_f(src[r * src_ld + q]);
+    }
   }
-  for (int e = tid; e < BT * D; e += nth) {
-    const int row = row0 + e / D;
-    x[e] = (a.x0 != nullptr && row < a.B) ? a.x0[(size_t)row * D + e % D]
-                                          : 0.0f;
+}
+
+// TU consecutive units' weights (float32) of one gate at p.
+template <int TU>
+__device__ __forceinline__ void ld_units(const float* p, float (&w)[TU]) {
+  if constexpr (TU == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *p;
+  }
+}
+
+// A thread's gate sums: TR rows x TU units of r, z, and the input and
+// hidden parts of n.
+template <int TR, int TU>
+struct StreamAcc {
+  float r[TR][TU], z[TR][TU];
+  float xn[TR][TU], hn[TR][TU];
+};
+
+// Add one chunk's rows: v (tile row k0, the thread's TR rows; row stride
+// M), w (float32 chunk, the thread's units of gate r; row stride 3 Hp).
+// HIDDEN: the chunk is state rows, whose n product goes to the hidden part.
+template <bool HIDDEN, int TR, int TU>
+__device__ __forceinline__ void stream_chunk(StreamAcc<TR, TU>& a,
+                                             const float* v, const float* w,
+                                             int M, int Hp) {
+#pragma unroll
+  for (int kk = 0; kk < kStreamChunk; ++kk) {
+    float xr[TR];
+#pragma unroll
+    for (int q = 0; q < TR / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(v + kk * M + 4 * q);
+      xr[4 * q] = x.x; xr[4 * q + 1] = x.y;
+      xr[4 * q + 2] = x.z; xr[4 * q + 3] = x.w;
+    }
+    float wr[TU], wz[TU], wn[TU];
+    const float* row = w + kk * 3 * Hp;
+    ld_units<TU>(row, wr);
+    ld_units<TU>(row + Hp, wz);
+    ld_units<TU>(row + 2 * Hp, wn);
+    float(&an)[TR][TU] = HIDDEN ? a.hn : a.xn;
+#pragma unroll
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int u = 0; u < TU; ++u) {
+        a.r[r][u] = fmaf(xr[r], wr[u], a.r[r][u]);
+        a.z[r][u] = fmaf(xr[r], wz[u], a.z[r][u]);
+        an[r][u] = fmaf(xr[r], wn[u], an[r][u]);
+      }
+  }
+}
+
+template <int TR, int TU>
+__device__ __forceinline__ void stream_chunk_at(StreamAcc<TR, TU>& a,
+                                                bool hidden, const float* v,
+                                                const float* w, int M,
+                                                int Hp) {
+  if (hidden)
+    stream_chunk<true, TR, TU>(a, v, w, M, Hp);
+  else
+    stream_chunk<false, TR, TU>(a, v, w, M, Hp);
+}
+
+// Step t of block (tile blockIdx.x, head blockIdx.y): the gate product of
+// its M rows as a register-tiled product over the chunks, the GRU update
+// in its epilogue (h_i written back in place), then the head's readout
+// (O columns) plus the noise, stored to out[:, t] and the next x buffer.
+// Every sum is taken in a fixed order, so two calls are bitwise equal.
+template <int TR, int TU, int KS, typename W>
+__device__ __forceinline__ void stream_step(const StreamArgs<W>& a, int t) {
+  extern __shared__ __align__(16) unsigned char stream_smem[];
+  constexpr int S = stream_stages_of(KS);
+  const int M = a.M, H = a.H, Hp = stream_hp(H), O = a.O, D = a.P * O;
+  const int Dp = stream_dp(D), Kp = Dp + Hp, Bp = a.Bp;
+  const int ldr = stream_ro_ld(H);
+  const int i = blockIdx.y, row0 = blockIdx.x * M;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int ce = (int)stream_chunk_elems(H);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(stream_smem);
+  unsigned char* at = stream_smem + kStreamBarBytes;
+  float* ring = reinterpret_cast<float*>(at);
+  at += stream_ring_bytes(M, H);
+  float* tile = reinterpret_cast<float*>(at);
+  at += stream_tile_bytes(M, D, H);
+  float* ro = reinterpret_cast<float*>(at);
+  float* bias = ro + O * ldr;
+  const float* wg = a.w + (i64)i * Kp * 3 * Hp;
+  const int n_chunks = Kp / kStreamChunk;
+
+  // What does not depend on the step before, while it may still run:
+  // thread 0 starts the first S - KS chunks' bulk copies; ro and the biases
+  // (float32 by cp.async, bf16 widened by plain loads).
+  auto load_chunk = [&](int c) {
+    if (tid == 0 && c < n_chunks)
+      bulk_load(ring + (c % S) * ce, wg + (i64)c * ce, ce * 4, bars + c % S);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + s);
+    mbar_init_fence();
+    for (int c = 0; c < S - KS; ++c) load_chunk(c);
+  }
+  stage_rows(ro, ldr, a.ro_w + (i64)i * O * H, H, O, H);
+  stage_rows(bias, 3 * H, a.b_ih + (i64)i * 3 * H, 0, 1, 3 * H);
+  stage_rows(bias + 3 * H, 3 * H, a.b_hh + (i64)i * 3 * H, 0, 1, 3 * H);
+  stage_rows(bias + 6 * H, O, a.ro_b + (i64)i * O, 0, 1, O);
+
+  // The step's tile, once the step before has written it: step 0 from x0
+  // and h0 (masked, transposed), later steps by cp.async from the scratch
+  // buffers.
+  wait_prior_step();
+  const int quads = M / 4;
+  if (t == 0) {
+    for (int e = tid; e < Kp * M; e += nth) {
+      const int m = e % M, k = e / M, row = row0 + m;
+      float v = 0.0f;
+      if (row < a.B) {
+        if (k < D)
+          v = a.x0 != nullptr ? a.x0[(i64)row * D + k] : 0.0f;
+        else if (k >= Dp && k - Dp < H)
+          v = a.h0[(i64)row * H + (k - Dp)];
+      }
+      tile[e] = carry<W>(v);
+    }
+  } else {
+    const float* xs = a.x + (i64)(t & 1) * Dp * Bp + row0;
+    const float* hs = a.h + (i64)i * Hp * Bp + row0;
+    for (int e = tid; e < Kp * quads; e += nth) {
+      const int q = e % quads, k = e / quads;
+      const float* src = k < Dp ? xs + (i64)k * Bp : hs + (i64)(k - Dp) * Bp;
+      cp_async16(tile + k * M + 4 * q, src + 4 * q);
+    }
+  }
+  vcx::cp_async_commit();
+  vcx::cp_async_wait_all();
+
+  // The thread tile of group g: a warp covers RW row groups x UW unit
+  // groups.
+  int RW, UW;
+  stream_layout(M, H, RW, UW);
+  const int WU = Hp / TU / UW, NB = stream_group(M, H);
+  const int g = tid / NB, b = tid % NB;
+  const int lane = b & 31, warp = b >> 5;
+  const int j = ((warp % WU) * UW + lane % UW) * TU;
+  const int r0 = ((warp / WU) * RW + lane / UW) * TR;
+
+  StreamAcc<TR, TU> acc;
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int u = 0; u < TU; ++u)
+      acc.r[r][u] = acc.z[r][u] = acc.xn[r][u] = acc.hn[r][u] = 0.0f;
+
+  // One barrier a round of KS chunks, group g taking chunk c0 + g: after
+  // it, every group is done with the last round's chunks, whose stages the
+  // copies of the round after this one then refill; a chunk is read once
+  // its own barrier completes.
+  for (int c0 = 0; c0 < n_chunks; c0 += KS) {
+    __syncthreads();
+    for (int c = c0 + S - KS; c < c0 + S; ++c) load_chunk(c);
+    const int c = c0 + g;
+    if (c < n_chunks) {
+      mbar_wait(bars + c % S, (c / S) & 1);
+      stream_chunk_at(acc, c * kStreamChunk >= Dp,
+                      tile + c * kStreamChunk * M + r0,
+                      ring + (c % S) * ce + j, M, Hp);
+    }
+  }
+  allow_next_step();
+  __syncthreads();              // every read of the tile and ring is done
+
+  // The groups' sums meet in the ring, [KS][4][TR][TU][NB], and group 0
+  // adds them in group order.
+  if constexpr (KS > 1) {
+    auto reduce = [&](float(&v)[TR][TU], int part, bool put) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int u = 0; u < TU; ++u) {
+          const int q = (part * TR + r) * TU + u;
+          if (put) {
+            ring[(g * 4 * TR * TU + q) * NB + b] = v[r][u];
+          } else {
+            float x = ring[q * NB + b];
+            for (int h = 1; h < KS; ++h)
+              x += ring[(h * 4 * TR * TU + q) * NB + b];
+            v[r][u] = x;
+          }
+        }
+    };
+    reduce(acc.r, 0, true);
+    reduce(acc.z, 1, true);
+    reduce(acc.xn, 2, true);
+    reduce(acc.hn, 3, true);
+    __syncthreads();
+    if (g == 0) {
+      reduce(acc.r, 0, false);
+      reduce(acc.z, 1, false);
+      reduce(acc.xn, 2, false);
+      reduce(acc.hn, 3, false);
+    }
+  }
+
+  // GRU update of the thread's units and rows (group 0), in place in the
+  // tile's state rows and in the state scratch; the biases added here.  Pad
+  // units (zero weights and biases) stay zero.
+  float* hs = tile + Dp * M;
+  float* hg = a.h + (i64)i * Hp * Bp + row0;
+  const float* bih = bias;
+  const float* bhh = bias + 3 * H;
+  if (g == 0) {
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      const int uj = j + u;
+      const bool on = uj < H;
+      const float br = on ? bih[uj] + bhh[uj] : 0.0f;
+      const float bz = on ? bih[H + uj] + bhh[H + uj] : 0.0f;
+      const float bxn = on ? bih[2 * H + uj] : 0.0f;
+      const float bhn = on ? bhh[2 * H + uj] : 0.0f;
+#pragma unroll
+      for (int q = 0; q < TR / 4; ++q) {
+        float* hq = hs + uj * M + r0 + 4 * q;
+        const float4 hv = *reinterpret_cast<const float4*>(hq);
+        const float hp[4] = {hv.x, hv.y, hv.z, hv.w};
+        float o[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 4 * q + r;
+          const float rr = sigmoid_f(acc.r[row][u] + br);
+          const float zz = sigmoid_f(acc.z[row][u] + bz);
+          const float nn =
+              tanhf(acc.xn[row][u] + bxn + rr * (acc.hn[row][u] + bhn));
+          o[r] = carry<W>((1.0f - zz) * nn + zz * hp[r]);
+        }
+        const float4 ov = make_float4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<float4*>(hq) = ov;
+        *reinterpret_cast<float4*>(hg + (i64)uj * Bp + r0 + 4 * q) = ov;
+      }
+    }
   }
   __syncthreads();
 
-  for (int t = 0; t < a.T; ++t) {
-    // Gates: one (head, unit) pair per thread, all BT rows at once.
-    for (int u = tid; u < P * H; u += nth) {
-      const int i = u / H, j = u % H;
-      const W* wi = a.w_ih_t + (size_t)i * D * G;
-      const W* wh = a.w_hh_t + (size_t)i * H * G;
-      const float* hi = h_cur + i * head_stride;
-      const W* bi = a.b_ih + (size_t)i * G;
-      const W* bh = a.b_hh + (size_t)i * G;
-      const float br = ldg_f(bi + j) + ldg_f(bh + j);
-      const float bz = ldg_f(bi + H + j) + ldg_f(bh + H + j);
-      const float bxn = ldg_f(bi + 2 * H + j), bhn = ldg_f(bh + 2 * H + j);
-      float ar[BT], az[BT], axn[BT], ahn[BT];
-#pragma unroll
-      for (int b = 0; b < BT; ++b) {
-        ar[b] = br; az[b] = bz; axn[b] = bxn; ahn[b] = bhn;
+  // Readout of the M x O outputs, each by L neighbouring lanes (L the
+  // largest power of two up to 32 that still gives every output its lanes
+  // in one round; 1 when there are more outputs than threads): lane q sums
+  // k = q, q + L, ... over four partial sums, and the L lanes add theirs
+  // by shuffles in a fixed order.  Outputs (row, column), rows fastest.
+  const int n_out = M * O;
+  int L = 1;
+  while (L < 32 && n_out * L * 2 <= nth) L *= 2;
+  const int span = ((n_out * L + nth - 1) / nth) * nth;
+  float* xn = a.x + (i64)((t + 1) & 1) * Dp * Bp;
+  for (int e = tid; e < span; e += nth) {
+    const int o = e / L, q = e % L;
+    const bool on = o < n_out;
+    const int m = on ? o % M : 0, c = on ? o / M : 0;
+    const float* w = ro + c * ldr;
+    const float* hv = hs + m;
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+    if (on) {
+      int k = q;
+      for (; k + 3 * L < H; k += 4 * L) {
+        s0 = fmaf(hv[k * M], w[k], s0);
+        s1 = fmaf(hv[(k + L) * M], w[k + L], s1);
+        s2 = fmaf(hv[(k + 2 * L) * M], w[k + 2 * L], s2);
+        s3 = fmaf(hv[(k + 3 * L) * M], w[k + 3 * L], s3);
       }
-      // Unrolled so that several steps' weight loads are in flight at once:
-      // each comes from L2, and one at a time would leave the SM waiting.
-#pragma unroll 4
-      for (int k = 0; k < D; ++k) {
-        const W* w = wi + (size_t)k * G + j;
-        const float wr = ldg_f(w), wz = ldg_f(w + H), wn = ldg_f(w + 2 * H);
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          const float v = x[b * D + k];
-          ar[b] = fmaf(v, wr, ar[b]);
-          az[b] = fmaf(v, wz, az[b]);
-          axn[b] = fmaf(v, wn, axn[b]);
-        }
-      }
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const W* w = wh + (size_t)k * G + j;
-        const float wr = ldg_f(w), wz = ldg_f(w + H), wn = ldg_f(w + 2 * H);
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          const float v = hi[b * H + k];
-          ar[b] = fmaf(v, wr, ar[b]);
-          az[b] = fmaf(v, wz, az[b]);
-          ahn[b] = fmaf(v, wn, ahn[b]);
-        }
-      }
-      float* hn = h_next + i * head_stride;
-#pragma unroll
-      for (int b = 0; b < BT; ++b) {
-        const float r = sigmoid_f(ar[b]);
-        const float z = sigmoid_f(az[b]);
-        const float n = tanhf(axn[b] + r * ahn[b]);
-        hn[b * H + j] = carry<W>((1.0f - z) * n + z * hi[b * H + j]);
-      }
+      for (; k < H; k += L) s0 = fmaf(hv[k * M], w[k], s0);
     }
-    __syncthreads();
-
-    // Readout: x[b, i*O + o] = h_i[b] . ro_w[i, o] + ro_b[i, o] (+ noise).
-    for (int e = tid; e < BT * D; e += nth) {
-      const int b = e / D, c = e % D, i = c / O;
-      const float* hv = h_next + i * head_stride + b * H;
-      const W* w = a.ro_w + (size_t)c * H;       // (P, O, H) row i*O + o = c
-      float acc = ldg_f(a.ro_b + c);
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) acc = fmaf(hv[k], ldg_f(w + k), acc);
-      const int row = row0 + b;
-      if (row < a.B) {
-        const size_t off = ((size_t)row * a.T + t) * D + c;
-        if (a.noise != nullptr) acc += a.noise_scale * a.noise[off];
-        acc = carry<W>(acc);
-        a.out[off] = acc;
-      }
-      x[e] = acc;
+    float v = (s0 + s1) + (s2 + s3);
+    for (int d = 1; d < L; d *= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+    if (!on || q != 0) continue;
+    const int col = i * O + c, row = row0 + m;
+    v += bias[6 * H + c];
+    if (row < a.B) {
+      const i64 off = ((i64)row * a.T + t) * D + col;
+      if (a.noise != nullptr) v += a.noise_scale * carry<W>(a.noise[off]);
+      v = carry<W>(v);
+      a.out[off] = v;
     }
-    __syncthreads();
-    float* tmp = h_cur; h_cur = h_next; h_next = tmp;
+    xn[(i64)col * Bp + row] = v;
   }
 }
 
-template <int BT, typename W>
-__global__ void __launch_bounds__(max_threads<BT>())
-crvae_free_run_kernel(RolloutArgs<W> a) { rollout_tile<BT, W>(a); }
+template <int TR, int TU, int KS, typename W>
+__global__ void __launch_bounds__(stream_max_threads(TR, TU))
+crvae_free_run_kernel(StreamArgs<W> a, int t) {
+  stream_step<TR, TU, KS, W>(a, t);
+}
 
-template <int BT, typename W>
-__global__ void __launch_bounds__(max_threads<BT>())
-errvae_sample_kernel(RolloutArgs<W> a) { rollout_tile<BT, W>(a); }
+template <int TR, int TU, int KS, typename W>
+__global__ void __launch_bounds__(stream_max_threads(TR, TU))
+errvae_sample_kernel(StreamArgs<W> a, int t) {
+  stream_step<TR, TU, KS, W>(a, t);
+}
 
-template <int BT, typename W>
-cudaError_t launch_tile(bool crvae, const RolloutArgs<W>& a, cudaStream_t s) {
-  void (*kern)(RolloutArgs<W>) =
-      crvae ? &crvae_free_run_kernel<BT, W> : &errvae_sample_kernel<BT, W>;
-  const size_t smem =
-      (2 * (size_t)a.P * BT * a.H + (size_t)BT * a.P * a.O) * sizeof(float);
+// Whether the streamed kernels take a launch of these sizes: a tile of
+// kStreamTiles, the scratch padded to whole tiles, thread tiles that cover
+// whole warps, threads within the instantiation's bound.
+bool stream_ok(int B, int Bp, int T, int P, int H, int O, int M) {
+  bool tile = false;
+  for (int m : kStreamTiles) tile = tile || m == M;
+  int RW, UW;
+  return tile && B >= 1 && T >= 1 && P >= 1 && P <= 65535 && H >= 1 &&
+         O >= 1 && Bp == round_up(B, M) && stream_layout(M, H, RW, UW) &&
+         stream_threads(M, H) <=
+             stream_max_threads(stream_rows(M), stream_units(M));
+}
+
+// The T launches of one call, on one stream, with no host synchronisation.
+// Steps after the first are programmatic dependent launches of the step
+// before (each waits for it in wait_prior_step); the first waits for the
+// stream's earlier work, which wrote the packed weights it reads at once.
+template <int TR, int TU, int KS, typename W>
+cudaError_t launch_stream(bool crvae, const StreamArgs<W>& a,
+                          cudaStream_t s) {
+  void (*kern)(StreamArgs<W>, int) =
+      crvae ? &crvae_free_run_kernel<TR, TU, KS, W>
+            : &errvae_sample_kernel<TR, TU, KS, W>;
+  const size_t smem = stream_smem_bytes(a.M, a.P * a.O, a.H, a.O);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  int threads = (a.P * a.H + 31) / 32 * 32;
-  if (threads > max_threads<BT>()) threads = max_threads<BT>();
-  const unsigned grid = (unsigned)((a.B + BT - 1) / BT);
-  kern<<<grid, threads, smem, s>>>(a);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3((unsigned)(a.Bp / a.M), (unsigned)a.P);
+  cfg.blockDim = dim3((unsigned)stream_threads(a.M, a.H));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  for (int t = 0; t < a.T; ++t) {
+    cfg.numAttrs = t > 0 ? 1 : 0;
+    e = cudaLaunchKernelEx(&cfg, kern, a, t);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
+// One call: T launches at the tile of a.M.
 template <typename W>
-cudaError_t launch(bool crvae, const RolloutArgs<W>& a, int bt, void* stream) {
-  if (a.B < 1 || a.T < 1 || a.P < 1 || a.H < 1 || a.O < 1)
-    return cudaErrorInvalidValue;
+int launch_streamed(bool crvae, const StreamArgs<W>& a, void* stream) {
+  if (!stream_ok(a.B, a.Bp, a.T, a.P, a.H, a.O, a.M))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bt) {
-    case 1: return launch_tile<1, W>(crvae, a, s);
-    case 2: return launch_tile<2, W>(crvae, a, s);
-    case 4: return launch_tile<4, W>(crvae, a, s);
-    case 8: return launch_tile<8, W>(crvae, a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (a.M >= 16) return (int)launch_stream<8, 2, 1, W>(crvae, a, s);
+  if (a.M == 8) return (int)launch_stream<4, 2, 2, W>(crvae, a, s);
+  return (int)launch_stream<4, 1, 4, W>(crvae, a, s);
 }
 
 // ---- Resident route ----------------------------------------------------------
@@ -761,28 +1195,31 @@ ResidentArgs<W> crvae_args(const float* x0, const float* h0,
 
 template <typename W>
 int crvae_streamed(const float* x0, const float* h0, const float* noise,
-                   const void* w_ih_t, const void* w_hh_t, const void* b_ih,
-                   const void* b_hh, const void* ro_w, const void* ro_b,
-                   float* out, int B, int T, int P, int H, float noise_scale,
-                   int bt, void* stream) {
-  RolloutArgs<W> a{x0, h0, noise, static_cast<const W*>(w_ih_t),
-                   static_cast<const W*>(w_hh_t), static_cast<const W*>(b_ih),
-                   static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
-                   static_cast<const W*>(ro_b), out, B, T, P, H, 1,
-                   noise_scale};
-  return (int)launch(true, a, bt, stream);
+                   const void* w, const void* b_ih, const void* b_hh,
+                   const void* ro_w, const void* ro_b, float* out,
+                   float* h_scratch, float* x_scratch, int B, int T, int P,
+                   int H, float noise_scale, int M, void* stream) {
+  const StreamArgs<W> a{
+      x0, h0, noise, static_cast<const float*>(w),
+      static_cast<const W*>(b_ih), static_cast<const W*>(b_hh),
+      static_cast<const W*>(ro_w),
+      static_cast<const W*>(ro_b), out, h_scratch, x_scratch, B,
+      M > 0 ? round_up(B, M) : 0, T, P, H, 1, M, noise_scale};
+  return launch_streamed(true, a, stream);
 }
 
 template <typename W>
-int errvae_streamed(const float* h0, const void* w_ih_t, const void* w_hh_t,
-                    const void* b_ih, const void* b_hh, const void* ro_w,
-                    const void* ro_b, float* out, int B, int T, int D, int H,
-                    int bt, void* stream) {
-  RolloutArgs<W> a{nullptr, h0, nullptr, static_cast<const W*>(w_ih_t),
-                   static_cast<const W*>(w_hh_t), static_cast<const W*>(b_ih),
-                   static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
-                   static_cast<const W*>(ro_b), out, B, T, 1, H, D, 0.0f};
-  return (int)launch(false, a, bt, stream);
+int errvae_streamed(const float* h0, const void* w, const void* b_ih,
+                    const void* b_hh, const void* ro_w, const void* ro_b,
+                    float* out, float* h_scratch, float* x_scratch, int B,
+                    int T, int D, int H, int M, void* stream) {
+  const StreamArgs<W> a{
+      nullptr, h0, nullptr, static_cast<const float*>(w),
+      static_cast<const W*>(b_ih), static_cast<const W*>(b_hh),
+      static_cast<const W*>(ro_w), static_cast<const W*>(ro_b), out,
+      h_scratch, x_scratch, B, M > 0 ? round_up(B, M) : 0, T, 1, H, D, M,
+      0.0f};
+  return launch_streamed(false, a, stream);
 }
 
 template <typename W>
@@ -859,51 +1296,65 @@ extern "C" {
 // noise are float32 either way (in bf16, holding bf16 values), and so is
 // the output.
 
-// CRVAE free run, streamed route.  x0 (B, D), h0 (B, H) shared by all
-// heads, noise (B, T, D); weights in the (in, 3H) layout; readout w
-// (P, 1, H), b (P, 1).  Writes out (B, T, D), D = P.  Returns a cudaError_t.
+// CRVAE free run, streamed route: tiles of M rows, one block a (tile,
+// head); T launches.  x0 (B, D), h0 (B, H) shared by all heads, noise
+// (B, T, D); w the packed float32 weights (P, Kp, 3, Hp) (see StreamArgs);
+// b (P, 3H); readout w (P, 1, H), b (P, 1).  Scratch (float32): h
+// (P, Hp, Bp), x (2, Dp, Bp) zero in its pad columns, Bp = B rounded up to
+// M.  Writes out (B, T, D), D = P.  Returns a cudaError_t.
 int vcx_crvae_free_run_streamed(const float* x0, const float* h0,
-                                const float* noise, const void* w_ih_t,
-                                const void* w_hh_t, const void* b_ih,
-                                const void* b_hh, const void* ro_w,
-                                const void* ro_b, float* out, int B, int T,
-                                int P, int H, float noise_scale, int bt,
-                                void* stream) {
-  return crvae_streamed<float>(x0, h0, noise, w_ih_t, w_hh_t, b_ih, b_hh,
-                               ro_w, ro_b, out, B, T, P, H, noise_scale, bt,
-                               stream);
+                                const float* noise, const void* w,
+                                const void* b_ih, const void* b_hh,
+                                const void* ro_w, const void* ro_b,
+                                float* out, float* h_scratch,
+                                float* x_scratch, int B, int T, int P, int H,
+                                float noise_scale, int M, void* stream) {
+  return crvae_streamed<float>(x0, h0, noise, w, b_ih, b_hh, ro_w, ro_b, out,
+                               h_scratch, x_scratch, B, T, P, H, noise_scale,
+                               M, stream);
 }
 int vcx_crvae_free_run_streamed_bf16(const float* x0, const float* h0,
-                                     const float* noise, const void* w_ih_t,
-                                     const void* w_hh_t, const void* b_ih,
-                                     const void* b_hh, const void* ro_w,
-                                     const void* ro_b, float* out, int B,
-                                     int T, int P, int H, float noise_scale,
-                                     int bt, void* stream) {
-  return crvae_streamed<bf16>(x0, h0, noise, w_ih_t, w_hh_t, b_ih, b_hh,
-                              ro_w, ro_b, out, B, T, P, H, noise_scale, bt,
-                              stream);
+                                     const float* noise, const void* w,
+                                     const void* b_ih, const void* b_hh,
+                                     const void* ro_w, const void* ro_b,
+                                     float* out, float* h_scratch,
+                                     float* x_scratch, int B, int T, int P,
+                                     int H, float noise_scale, int M,
+                                     void* stream) {
+  return crvae_streamed<bf16>(x0, h0, noise, w, b_ih, b_hh, ro_w, ro_b, out,
+                              h_scratch, x_scratch, B, T, P, H, noise_scale,
+                              M, stream);
 }
 
-// ErrorVAE free run from x0 = 0, streamed route.  h0 (B, H); weights
-// (1, D, 3H), (1, H, 3H), (1, 3H); readout w (D, H), b (D,).  Writes out
-// (B, T, D).
-int vcx_errvae_sample_streamed(const float* h0, const void* w_ih_t,
-                               const void* w_hh_t, const void* b_ih,
-                               const void* b_hh, const void* ro_w,
-                               const void* ro_b, float* out, int B, int T,
-                               int D, int H, int bt, void* stream) {
-  return errvae_streamed<float>(h0, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b,
-                                out, B, T, D, H, bt, stream);
+// ErrorVAE free run from x0 = 0, streamed route (P = 1, O = D).  h0 (B, H);
+// w packed (1, Kp, 3, Hp); b (3H,); readout w (D, H), b (D,); scratch as
+// above.  Writes out (B, T, D).
+int vcx_errvae_sample_streamed(const float* h0, const void* w,
+                               const void* b_ih, const void* b_hh,
+                               const void* ro_w, const void* ro_b, float* out,
+                               float* h_scratch, float* x_scratch, int B,
+                               int T, int D, int H, int M, void* stream) {
+  return errvae_streamed<float>(h0, w, b_ih, b_hh, ro_w, ro_b, out,
+                                h_scratch, x_scratch, B, T, D, H, M, stream);
 }
-int vcx_errvae_sample_streamed_bf16(const float* h0, const void* w_ih_t,
-                                    const void* w_hh_t, const void* b_ih,
-                                    const void* b_hh, const void* ro_w,
-                                    const void* ro_b, float* out, int B,
-                                    int T, int D, int H, int bt,
-                                    void* stream) {
-  return errvae_streamed<bf16>(h0, w_ih_t, w_hh_t, b_ih, b_hh, ro_w, ro_b,
-                               out, B, T, D, H, bt, stream);
+int vcx_errvae_sample_streamed_bf16(const float* h0, const void* w,
+                                    const void* b_ih, const void* b_hh,
+                                    const void* ro_w, const void* ro_b,
+                                    float* out, float* h_scratch,
+                                    float* x_scratch, int B, int T, int D,
+                                    int H, int M, void* stream) {
+  return errvae_streamed<bf16>(h0, w, b_ih, b_hh, ro_w, ro_b, out, h_scratch,
+                               x_scratch, B, T, D, H, M, stream);
+}
+
+// Bytes of shared memory of a streamed block of M rows at input width D,
+// hidden H, O readout columns a head (the wrapper holds its own sizing to
+// this), and its threads (0 where no kernel takes M), into out[2].
+void vcx_streamed_block(int M, int D, int H, int O, long long* out) {
+  bool tile = false;
+  for (int m : kStreamTiles) tile = tile || m == M;
+  out[0] = stream_smem_bytes(M, D, H, O);
+  out[1] = tile ? stream_threads(M, H) : 0;
 }
 
 // CRVAE free run, resident route: clusters of `cluster` blocks, tiles of bt

@@ -127,10 +127,10 @@ def rollout_library() -> ctypes.CDLL:
     for suffix in ("", "_bf16"):
         for fn, args in (
                 ("vcx_crvae_free_run_streamed",
-                 [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+                 [_P] * 11 + [_I] * 4 + [ctypes.c_float, _I, _P]),
                 ("vcx_crvae_free_run_resident",
                  [_P] * 10 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P]),
-                ("vcx_errvae_sample_streamed", [_P] * 8 + [_I] * 5 + [_P]),
+                ("vcx_errvae_sample_streamed", [_P] * 9 + [_I] * 5 + [_P]),
                 ("vcx_errvae_sample_resident", [_P] * 8 + [_I] * 6 + [_P])):
             getattr(lib, fn + suffix).argtypes = args
             getattr(lib, fn + suffix).restype = _I
@@ -138,6 +138,9 @@ def rollout_library() -> ctypes.CDLL:
     lib.vcx_resident_block.argtypes = [_I] * 7 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.vcx_resident_block.restype = None
+    lib.vcx_streamed_block.argtypes = [_I] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.vcx_streamed_block.restype = None
     lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
     for fn in ("vcx_crvae_max_clusters", "vcx_device_limits"):
         getattr(lib, fn).restype = _I

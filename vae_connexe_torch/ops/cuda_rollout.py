@@ -13,17 +13,23 @@ version or from one route to the other: a CUDA input launches or raises.
 before any launch, and each wrapper caches its plan per (shapes, device):
 ``"resident"`` where every weight of a block fits its shared memory (K1's
 heads spread over a thread-block cluster; the weights go in torch's layout,
-untransposed), else ``"streamed"`` (the first port's body, weights read from
-L2 every step in the (in, 3H) layout the wrapper transposes them into).
-Shapes that neither route takes raise.
+untransposed), else ``"streamed"``: a block for each (batch tile of M
+rows, head), which streams its head's weights from L2 through a ring of
+shared-memory chunks and feeds each to all M rows (``stream_tile`` picks
+M; the wrapper packs the weights as float32 (P, Kp, 3, Hp), see
+``pack_streamed``, once for as long as the weight tensors live unchanged,
+and allocates the state and x scratch); one
+launch a time step on the current stream, the steps after the first
+programmatic dependent launches.  Shapes that neither route takes raise.
 
 Each kernel has a float32 and a bfloat16 instantiation, chosen by the
 weights' dtype (bf16 serving, JAX's ``dtype=bfloat16``): in bf16 the
 weights stay bf16 (half the shared memory on the resident route, which
-``rollout_route`` counts, and half the L2 reads on the streamed one), x0,
-h0 and the noise are rounded to bf16, the products are accumulated and the
-gates computed in float32, each step's new state and emitted x are rounded
-to bf16, and the output is float32.  The plain versions do the same casts
+``rollout_route`` counts; the streamed route widens them to float32 as it
+packs them, see ``csrc/rollout.cu``), x0, h0 and the noise are rounded to
+bf16, the products are accumulated and the gates computed in float32, each
+step's new state and emitted x are rounded to bf16, and the output is
+float32.  The plain versions do the same casts
 in PyTorch.  Each instantiation has its own counts (``crvae_free_run_bf16``,
 ``errvae_sample_bf16``).  Sums are taken in another order than the plain
 versions' ``einsum``, so the two agree to float32 rounding in float32 and
@@ -36,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -57,9 +64,10 @@ LAUNCHES = {"crvae_free_run": 0, "errvae_sample": 0,
 ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in LAUNCHES
                   for r in ("resident", "streamed")}
 
-# Batch tiles the streamed kernels are instantiated for (csrc/rollout.cu,
-# launch()).
-_TILES = (8, 4, 2, 1)
+# Batch tiles of the streamed kernels, widest first (rollout.cu
+# kStreamTiles); the input rows of a weight chunk (kStreamChunk).
+STREAM_TILES = (32, 16, 8, 4)
+STREAM_CHUNK = 8
 # Hopper's cluster sizes: at most 8 blocks portably, 16 where the kernel
 # allows a non-portable size.
 PORTABLE_CLUSTER, MAX_CLUSTER = 8, 16
@@ -134,31 +142,88 @@ def weight_stride(hidden: int, elem: int = 4) -> int:
     return g + (96 - g % 64) % 64
 
 
-def tile_smem_bytes(bt: int, heads: int, hidden: int, d: int) -> int:
-    """Dynamic shared memory of one streamed block: double-buffered hidden
-    states of every head plus the tile's input row, float32."""
-    return 4 * (2 * heads * bt * hidden + bt * d)
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
-def pick_bt(batch: int, heads: int, hidden: int, d: int, budget: int,
-            n_sm: int) -> int:
-    """Batch tile of the streamed kernels: the widest tile whose shared
-    memory fits ``budget`` bytes and that still gives every one of the
-    ``n_sm`` SMs a block; one row per block when the batch is too small for
-    that.  A wider tile reuses each weight it loads for more rows, but a
-    block runs on one SM, so below one block per SM width only idles SMs.
-    Raises when even one row does not fit.  A ragged last tile is masked in
-    the kernel."""
-    fitting = [bt for bt in _TILES
-               if tile_smem_bytes(bt, heads, hidden, d) <= budget]
+def stream_dims(d: int, hidden: int) -> tuple[int, int]:
+    """(Dp, Hp) of the streamed body: the input width rounded up to a
+    weight chunk, the hidden width to 32 (rollout.cu ``stream_dp``,
+    ``stream_hp``)."""
+    return _round_up(d, STREAM_CHUNK), _round_up(hidden, 32)
+
+
+def stream_shape(m: int) -> tuple[int, int, int]:
+    """(rows, units, split) of a streamed thread tile at a batch tile of
+    ``m`` rows: rows x units x the 3 gates over 1 / split of the weight
+    chunks; 4 x 1 split 4 ways at 4 rows, 4 x 2 split 2 ways at 8, 8 x 2
+    from 16 (rollout.cu ``stream_rows``, ``stream_units``,
+    ``stream_split``)."""
+    if m >= 16:
+        return 8, 2, 1
+    return (4, 2, 2) if m == 8 else (4, 1, 4)
+
+
+def stream_threads(m: int, hidden: int) -> int:
+    """Threads of a streamed block of ``m`` rows: a thread tile a thread,
+    times the split."""
+    rows, units, split = stream_shape(m)
+    return split * (m // rows) * (stream_dims(1, hidden)[1] // units)
+
+
+def stream_max_threads(m: int) -> int:
+    """The most threads the thread tile at ``m`` rows is compiled for
+    (rollout.cu ``stream_max_threads``): 512 at 64 accumulators a thread,
+    else 1024."""
+    rows, units, _ = stream_shape(m)
+    return 1024 if rows * units <= 8 else 512
+
+
+def stream_smem_bytes(m: int, d: int, hidden: int, outs: int) -> int:
+    """Dynamic shared memory of a streamed block of ``m`` rows and ``outs``
+    readout columns a head, float32 in both storage types: the ring's
+    barriers, the ring of weight chunks (two rounds of the split's chunks,
+    at least 4), the tile of [x | h], the readout rows (4 floats past H),
+    the gate and readout biases (rollout.cu ``stream_smem_bytes``)."""
+    dp, hp = stream_dims(d, hidden)
+    stages = max(4, 2 * stream_shape(m)[2])
+    return 4 * (16 + stages * STREAM_CHUNK * 3 * hp + (dp + hp) * m
+                + outs * (hidden + 4) + _round_up(6 * hidden + outs, 4))
+
+
+def stream_scratch_bytes(m: int, heads: int, batch: int, d: int,
+                         hidden: int) -> int:
+    """Bytes of the streamed route's scratch: the state (heads, Hp, Bp) and
+    two x buffers (2, Dp, Bp), float32, Bp = batch rounded up to ``m``."""
+    dp, hp = stream_dims(d, hidden)
+    return 4 * _round_up(batch, m) * (heads * hp + 2 * dp)
+
+
+def stream_tile(batch: int, heads: int, d: int, hidden: int, outs: int,
+                budget: int, n_sm: int) -> int:
+    """Batch tile M of the streamed kernels: the widest of
+    ``STREAM_TILES`` whose block fits ``budget`` bytes of shared memory and
+    its instantiation's threads, and whose ``heads`` x ceil(batch / M)
+    blocks a step still give every one of the ``n_sm`` SMs a block; the
+    narrowest that fits when none does (a small batch: every tile is then
+    one block a head, and a narrower one wastes fewer rows).  A wider tile
+    feeds each weight chunk it loads from L2 to more rows; below one block
+    an SM it only idles SMs.  Raises ValueError, naming the bytes, when
+    even the narrowest tile does not fit."""
+    fitting = [m for m in STREAM_TILES
+               if stream_smem_bytes(m, d, hidden, outs) <= budget
+               and stream_threads(m, hidden) <= stream_max_threads(m)]
     if not fitting:
+        m = STREAM_TILES[-1]
         raise ValueError(
-            f"rollout kernel: one batch row of {heads} heads x hidden "
-            f"{hidden} needs {tile_smem_bytes(1, heads, hidden, d)} bytes of "
-            f"shared memory, over the device's {budget}")
-    for bt in fitting:
-        if -(-batch // bt) >= n_sm:
-            return bt
+            f"rollout kernel: the streamed body's smallest tile ({m} rows) "
+            f"at D={d}, H={hidden} needs "
+            f"{stream_smem_bytes(m, d, hidden, outs)} bytes of shared "
+            f"memory (over the device's {budget}) and "
+            f"{stream_threads(m, hidden)} threads")
+    for m in fitting:
+        if heads * -(-batch // m) >= n_sm:
+            return m
     return fitting[-1]
 
 
@@ -201,9 +266,12 @@ def resident_split(heads: int, bt: int, hidden: int) -> int | None:
 class RolloutPlan(NamedTuple):
     """A rollout kernel's launch plan.  ``cluster``: blocks of a K1
     cluster (1 for K2 and the streamed route); ``heads_per_block``: heads
-    of the fullest block; ``bt``: rows of a batch tile; ``split``: lanes a
-    resident thread tile's k is split over (0 on the streamed route);
-    ``smem``: dynamic shared memory of a block in bytes."""
+    of the fullest block; ``bt``: rows of a batch tile (M on the streamed
+    route); ``split``: lanes a resident thread tile's k is split over (0 on
+    the streamed route); ``smem``: dynamic shared memory of a block in
+    bytes.  Streamed route only: ``blocks``, blocks a step (heads x
+    tiles); ``scratch``, bytes of its state and x scratch
+    (``stream_scratch_bytes``)."""
     route: str
     cluster: int
     heads_per_block: int
@@ -211,6 +279,8 @@ class RolloutPlan(NamedTuple):
     split: int
     threads: int
     smem: int
+    blocks: int = 0
+    scratch: int = 0
 
 
 def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
@@ -250,7 +320,8 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
     as few blocks as that needs; K2 on one block a tile, its tile by B1's
     cost model (``fwd_step_cost``), a tie to the narrower tile.  The k
     split of a resident block by ``resident_split``.  Else ``"streamed"``,
-    at ``pick_bt``'s tile.  Raises ValueError when neither route fits.
+    one head a block, at ``stream_tile``'s tile.  Raises ValueError when
+    neither route fits.
     """
     optin, _, n_sm, _, portable, largest = limits
     if kind == "crvae":
@@ -286,18 +357,20 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
                 resident_smem_bytes(1, bt, d, hidden, d, False, elem))
     else:
         raise ValueError(f"unknown rollout kind {kind!r}")
-    if tile_smem_bytes(1, heads, hidden, d) > optin:
+    outs = 1 if kind == "crvae" else d
+    try:
+        m = stream_tile(batch, heads, d, hidden, outs, optin, n_sm)
+    except ValueError as e:
         raise ValueError(
             f"{kind} rollout: at {heads} heads, D={d}, H={hidden} neither "
             f"route fits the device's {optin} bytes of shared memory a "
             f"block: one head's weights need "
             f"{resident_smem_bytes(1, 4, d, hidden, 1, False, elem)} "
-            f"resident, one "
-            f"row of the streamed kernel {tile_smem_bytes(1, heads, hidden, d)}")
-    bt = pick_bt(batch, heads, hidden, d, optin, n_sm)
-    threads = min(-(-heads * hidden // 32) * 32, 1024 if bt <= 2 else 2048 // bt)
-    return RolloutPlan("streamed", 1, heads, bt, 0, threads,
-                       tile_smem_bytes(bt, heads, hidden, d))
+            f"resident; {e}") from None
+    return RolloutPlan("streamed", 1, 1, m, 0, stream_threads(m, hidden),
+                       stream_smem_bytes(m, d, hidden, outs),
+                       heads * -(-batch // m),
+                       stream_scratch_bytes(m, heads, batch, d, hidden))
 
 
 @functools.cache
@@ -332,16 +405,23 @@ def max_active_clusters(device: torch.device, plan: RolloutPlan, heads: int,
 @functools.cache
 def _plan(kind: str, heads: int, batch: int, d: int, hidden: int,
           device: torch.device, elem: int = 4) -> tuple[RolloutPlan, int]:
-    """(plan, clusters to launch) of a rollout on ``device`` with weights
-    of ``elem`` bytes.  A resident plan's block is checked against the
-    kernel's own sizing; K1's clusters are the fewer of the batch tiles and
-    what the card holds at once, and a card that holds none raises before
-    any launch."""
+    """(plan, clusters to launch: K1's resident route, else 0) of a rollout
+    on ``device`` with weights of ``elem`` bytes.  A block is checked
+    against the kernel's own sizing.  K1's resident clusters are the fewer
+    of the batch tiles and what the card holds at once, and a card that
+    holds none raises before any launch."""
     from vae_connexe_torch.ops._build import rollout_library
 
     plan = rollout_route(kind, heads, batch, d, hidden, device_limits(device),
                          elem)
     if plan.route == "streamed":
+        got = (ctypes.c_longlong * 2)()
+        rollout_library().vcx_streamed_block(
+            plan.bt, d, hidden, 1 if kind == "crvae" else d, got)
+        if tuple(got) != (plan.smem, plan.threads):
+            raise RuntimeError(f"csrc/rollout.cu sizes a streamed block as "
+                               f"{tuple(got)}, cuda_rollout as "
+                               f"{(plan.smem, plan.threads)}")
         return plan, 0
     outs = 1 if kind == "crvae" else d
     got = (ctypes.c_longlong * 2)()
@@ -392,6 +472,71 @@ def _launch(fn_name: str, device: torch.device, tensors, ints) -> None:
                            f"{lib.vcx_error_string(rc).decode()} (cuda {rc})")
 
 
+def pack_streamed(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The streamed kernels' weights: (P, 3H, D) and (P, 3H, H) in torch's
+    layout (or one head's (3H, D), (3H, H)) -> float32 (P, Kp, 3, Hp), row
+    k holding the gates r, z, n of every unit: W_ih^T's D rows, zero rows
+    to Dp, W_hh^T's H rows, zero rows to Kp = Dp + Hp; units past H zero
+    (``stream_dims``).  bf16 weights are widened exactly (see rollout.cu's
+    note).  Two copies on the weights' device; at D = 40 or 128 and H = 128
+    nothing is padded."""
+    if w_ih.dim() == 2:
+        w_ih, w_hh = w_ih[None], w_hh[None]
+    p, g, d = w_ih.shape
+    hidden = g // 3
+    dp, hp = stream_dims(d, hidden)
+    padded = dp > d or hp > hidden
+    w = (torch.zeros if padded else torch.empty)(
+        (p, dp + hp, 3, hp), device=w_ih.device, dtype=torch.float32)
+    w[:, :d, :, :hidden] = w_ih.reshape(p, 3, hidden, d).permute(0, 3, 1, 2)
+    w[:, dp:dp + hidden, :, :hidden] = \
+        w_hh.reshape(p, 3, hidden, hidden).permute(0, 3, 1, 2)
+    return w
+
+
+# pack_streamed's result for each pair of weight tensors a streamed rollout
+# was called with: a served model passes the same tensors at every call,
+# and at a small batch packing them again costs as much as the rollout
+# (K2 at d=40, H=128, B=1: 0.31 ms a call against 0.19 on an H100,
+# PERF.md).  An entry is used while both tensors' version counters (bumped
+# by every in-place write) and storage are unchanged, and goes when either
+# tensor is freed.
+_PACKED: dict = {}
+
+
+def _packed_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """``pack_streamed(w_ih, w_hh)``, packed again only when the weights
+    change."""
+    try:
+        stamp = (w_ih._version, w_hh._version, w_ih.data_ptr(),
+                 w_hh.data_ptr())
+    except RuntimeError:        # inference tensors keep no version counter
+        return pack_streamed(w_ih, w_hh)
+    key = (id(w_ih), id(w_hh))
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    if hit is None:
+        for w in (w_ih, w_hh):
+            weakref.finalize(w, _PACKED.pop, key, None)
+    packed = pack_streamed(w_ih, w_hh)
+    _PACKED[key] = (stamp, packed)
+    return packed
+
+
+def _stream_scratch(plan: RolloutPlan, heads: int, batch: int, d: int,
+                    hidden: int, device: torch.device):
+    """The streamed route's state (heads, Hp, Bp) and x (2, Dp, Bp)
+    scratch, float32; the x buffers' pad columns zero (the kernel never
+    writes them, and the padded weight rows meet them)."""
+    dp, hp = stream_dims(d, hidden)
+    bp = _round_up(batch, plan.bt)
+    x = (torch.zeros if dp > d else torch.empty)(
+        (2, dp, bp), device=device, dtype=torch.float32)
+    return torch.empty((heads, hp, bp), device=device,
+                       dtype=torch.float32), x
+
+
 # --------------------------------------------------------------------------
 # K1: CRVAE free run, p heads; the emitted x feeds every head's next step.
 # --------------------------------------------------------------------------
@@ -432,8 +577,6 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
     if x0.device.type == "cpu":
         return crvae_free_run_plain(heads, readout, x0, h0_shared, noise,
                                     noise_scale)
-    rnd = _carries(dtype)
-    x0, h0_shared, noise = rnd(x0), rnd(h0_shared), rnd(noise)
     dev = x0.device
     p, hidden = heads.w_ih.shape[0], heads.hidden
     b, t_len = noise.shape[:2]
@@ -444,18 +587,22 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
            ro_b=(readout.b, (p, 1)), x0=(x0, (b, p)),
            h0=(h0_shared, (b, hidden)), noise=(noise, (b, t_len, p)))
     half = dtype == torch.bfloat16
-    plan, n_clusters = _plan("crvae", p, b, p, hidden, dev, 2 if half else 4)
+    plan, launch = _plan("crvae", p, b, p, hidden, dev, 2 if half else 4)
     out = torch.empty((b, t_len, p), device=dev, dtype=torch.float32)
+    if plan.route == "resident":    # the streamed kernel rounds as it reads
+        rnd = _carries(dtype)
+        x0, h0_shared, noise = rnd(x0), rnd(h0_shared), rnd(noise)
+    inputs = (x0.contiguous(), h0_shared.contiguous(), noise.contiguous())
+    biases = (heads.b_ih.contiguous(), heads.b_hh.contiguous(),
+              readout.w.contiguous(), readout.b.contiguous())
     if plan.route == "resident":
-        w_ih, w_hh = heads.w_ih.contiguous(), heads.w_hh.contiguous()
-        tail = (plan.cluster, plan.bt, plan.split, n_clusters)
+        tensors = (*inputs, heads.w_ih.contiguous(), heads.w_hh.contiguous(),
+                   *biases, out)
+        tail = (plan.cluster, plan.bt, plan.split, launch)
     else:
-        w_ih = heads.w_ih.transpose(1, 2).contiguous()
-        w_hh = heads.w_hh.transpose(1, 2).contiguous()
+        tensors = (*inputs, _packed_weights(heads.w_ih, heads.w_hh), *biases,
+                   out, *_stream_scratch(plan, p, b, p, hidden, dev))
         tail = (plan.bt,)
-    tensors = (x0.contiguous(), h0_shared.contiguous(), noise.contiguous(),
-               w_ih, w_hh, heads.b_ih.contiguous(), heads.b_hh.contiguous(),
-               readout.w.contiguous(), readout.b.contiguous(), out)
     name = "crvae_free_run_bf16" if half else "crvae_free_run"
     _launch(f"vcx_crvae_free_run_{plan.route}{'_bf16' if half else ''}", dev,
             tensors, (b, t_len, p, hidden, ctypes.c_float(noise_scale), *tail))
@@ -493,7 +640,6 @@ def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
     dtype = _weights_dtype(dec, out)
     if h0.device.type == "cpu":
         return errvae_sample_plain(dec, out, h0, d, t_len)
-    h0 = _carries(dtype)(h0)
     dev = h0.device
     b, hidden = h0.shape
     g = 3 * hidden
@@ -504,16 +650,20 @@ def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
     half = dtype == torch.bfloat16
     plan, _ = _plan("errvae", 1, b, d, hidden, dev, 2 if half else 4)
     res = torch.empty((b, t_len, d), device=dev, dtype=torch.float32)
-    w_ih, w_hh = ((dec.w_ih.contiguous(), dec.w_hh.contiguous())
-                  if plan.route == "resident" else
-                  (dec.w_ih.T.contiguous(), dec.w_hh.T.contiguous()))
-    tensors = (h0.contiguous(), w_ih, w_hh, dec.b_ih.contiguous(),
-               dec.b_hh.contiguous(), out.w.contiguous(), out.b.contiguous(),
-               res)
+    if plan.route == "resident":    # the streamed kernel rounds as it reads
+        h0 = _carries(dtype)(h0)
+    biases = (dec.b_ih.contiguous(), dec.b_hh.contiguous(),
+              out.w.contiguous(), out.b.contiguous())
+    if plan.route == "resident":
+        tensors = (h0.contiguous(), dec.w_ih.contiguous(),
+                   dec.w_hh.contiguous(), *biases, res)
+    else:
+        tensors = (h0.contiguous(), _packed_weights(dec.w_ih, dec.w_hh),
+                   *biases, res, *_stream_scratch(plan, 1, b, d, hidden, dev))
     name = "errvae_sample_bf16" if half else "errvae_sample"
     _launch(f"vcx_errvae_sample_{plan.route}{'_bf16' if half else ''}", dev,
-            tensors, (b, t_len, d, hidden, plan.bt)
-            + ((plan.split,) if plan.route == "resident" else ()))
+            tensors, (b, t_len, d, hidden, plan.bt,
+                      *((plan.split,) if plan.route == "resident" else ())))
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[f"{name}_{plan.route}"] += 1
     return res
