@@ -67,8 +67,14 @@
      stage-I step and 4 + 4 a stage-II step at S = 1, 3, 8; a 3-seed
      ``fit_many`` against the three single ``fit``s on the card (same
      tolerance), bitwise repeatable.
-   - K1/K2's bf16 instantiations (bf16 weights and carries, float32
-     products) at the serving width (p=20, H=64) and lorenz96_scaled's
+   - vrae_demo's training step (the GRU encoder through B1/B2): five
+     steps at its schedule on the card against the same steps on the
+     CPU's plain recurrences, from the same parameters and data with the
+     same epsilon and coins passed in: params, Adam's moments and metrics
+     rtol 1e-4, atol 1e-6; one B1 and one B2 launch a step.
+   - K1/K2 in bf16 (bf16 weights and carries, float32 sums; on the
+     resident route the tensor-core body, mma.sync on bf16 with float32
+     accumulators) at the serving width (p=20, H=64) and lorenz96_scaled's
      (p=40, H=128), B = 3072 and 1, against their plain bf16 versions
      (``bf16_agreement``): every output element a bf16 value, at least
      BF16_SAME of them equal to the plain version's bit for bit, each
@@ -78,7 +84,10 @@
      in bf16 K2 at H=128 is resident, K1 there stays streamed); the bf16
      generation against the float32 kernels' on the same draws within the
      JAX package's bounds (tests/test_serve_dtype.py); timed by CUDA
-     events beside the float32 kernels and the bf16 bound.
+     events beside the float32 kernels and the bf16 bound, with each
+     plan's cluster, tile and shared memory and the bit-equal share.
+     ``python3 chip_smoke.py --phase bf16`` runs the build, this check and
+     the vrae_demo step check alone.
    - B1/B2 at the sweep's call sites: five steps of a 3-seed sweep at
      lorenz96_crvae's width (the encoder one 3-head launch, the decoder
      one 30-head launch a step) against each seed's single-seed step loop
@@ -313,6 +322,9 @@ WIN_DISCOVER_EPOCHS, WIN_RATE_EPOCHS = 200, 5
 CS_NAME, CS_B1, CS_B2 = "lorenz96_crcsrae", 2048, 1024
 JAX_CS_AUROC, JAX_CSRAE_ACC, A4_MARGIN = 0.9875, 0.881, 0.05
 CSRAE_RATE_EPOCHS, VRAE_RATE_EPOCHS = 5, 50
+# vrae_demo's step on the card against the CPU's: epochs of its schedule
+# from the same parameters, data, epsilon and coins.
+VRAE_CHECK_STEPS = 5
 VRAE_LINE = r"^\[(vrae) epoch=(\d+)\] total=([-\d.e+]+)"
 # bf16 serving (K1/K2's bf16 instantiations, bf16 weights and carries):
 # a kernel's output against its plain bf16 version on the same inputs
@@ -2908,6 +2920,109 @@ def check_cs_steps(dev, errors):
     return out
 
 
+def check_vrae_steps(dev, errors):
+    """Phase 3h: ``vrae_demo``'s training step (``make_vrae_step``: the GRU
+    encoder through B1/B2, the decoder a PyTorch loop of the cell that
+    takes the teacher-forcing coins) on the card against the same steps on
+    the CPU's plain recurrences: VRAE_CHECK_STEPS epochs at the run's
+    schedule, lr and beta from the same parameters and data, with the same
+    epsilon and coins (drawn on the CPU, passed in); one B1 and one B2
+    launch a step.  After every step, STEP_TOL: the metrics; Adam's
+    moments (the gradients so far); the card's parameters against Adam's
+    step from its own previous parameters and moments, recomputed on the
+    CPU (the update is the same function); and the card's parameters
+    against the CPU's, at every element where that comparison is well
+    conditioned.  It is not where Adam divides a gradient of the order of
+    its eps (1e-8) by itself: there a few per cent of rounding in the
+    gradient moves the step by more than STEP_TOL, and the CPU's float32
+    step departs that far from the same step in float64 (the witness,
+    whose departing elements are excluded and printed)."""
+    import torch
+
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.configs.experiments import vrae_model
+    from vae_connexe_torch.models.vrae import (
+        exponential_teacher_forcing_schedule,
+    )
+    from vae_connexe_torch.ops import cuda_gru
+    from vae_connexe_torch.optim import adam_init
+    from vae_connexe_torch.optim.adam import adam_apply
+    from vae_connexe_torch.train.vrae_trainer import make_vrae_step
+    from vae_connexe_torch.utils.tree import tree_leaves, tree_map
+
+    exp = get_experiment("vrae_demo")
+    model = vrae_model(exp)
+    lr = 1e-3
+    g = torch.Generator().manual_seed(71)
+    params = model.init(g, "cpu")
+    data = torch.randn((32, exp.t, exp.p), generator=g)
+    draws = [(exponential_teacher_forcing_schedule(e, decay_rate=0.02),
+              torch.randn((data.shape[0], exp.latent), generator=g),
+              torch.rand((exp.t,), generator=g))
+             for e in range(VRAE_CHECK_STEPS)]
+
+    def run(on, dtype=torch.float32):
+        """(previous params, params, Adam's state, metrics) of each step,
+        on the CPU."""
+        to = lambda t: t.to(on, dtype)    # noqa: E731
+        cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)   # noqa: E731
+        step = make_vrae_step(model, to(data), lr, 0.5)
+        ps = tree_map(to, params)
+        state, trail = adam_init(ps), []
+        for tf, eps, coins in draws:
+            new, state, met = step(ps, state, tf, to(eps), to(coins))
+            trail.append((cpu(ps), cpu(new), cpu(state), torch.stack(
+                [met[k] for k in ("total", "rec", "kld")]).cpu()))
+            ps = new
+        return trail
+
+    cuda_gru.reset_launches()
+    card = run(dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_gru.LAUNCHES)
+    ref, exact = run(torch.device("cpu")), run(torch.device("cpu"),
+                                               torch.float64)
+    n = VRAE_CHECK_STEPS
+    log(f"check vrae_step vrae_demo (B=32, T={exp.t}, D={exp.p}, "
+        f"H={exp.hidden}, Z={exp.latent}), {n} steps: launches {launches} "
+        f"(1 + 1 a step); losses card "
+        f"{[round(float(k[3][0]), 4) for k in card]} cpu "
+        f"{[round(float(r[3][0]), 4) for r in ref]}")
+    if launches != {"gru_forward": n, "gru_backward": n,
+                    "gru_forward_wide": 0, "gru_backward_wide": 0}:
+        raise AssertionError("the vrae step took other launches")
+
+    def moments(state):
+        return _flat([*tree_leaves(state.mu), *tree_leaves(state.nu)])
+
+    for i, (k, r, x) in enumerate(zip(card, ref, exact)):
+        what = f"vrae_demo step {i + 1} of {n} (tf_ratio {draws[i][0]:.4f})"
+        _assert_close("vrae_step", k[3], r[3], errors, **STEP_TOL,
+                      what=what + ": metrics")
+        _assert_close("vrae_step", moments(k[2]), moments(r[2]), errors,
+                      **STEP_TOL, what=what + ": Adam's moments")
+        _assert_close("vrae_step", _flat(tree_leaves(k[1])),
+                      _flat(tree_leaves(adam_apply(k[0], k[2], lr))), errors,
+                      **STEP_TOL, what=what + ": params against Adam's step "
+                      "from the card's own moments")
+        got, want = _flat(tree_leaves(k[1])), _flat(tree_leaves(r[1]))
+        wit = _flat(tree_leaves(x[1])).float()
+        bound = STEP_TOL["atol"] + STEP_TOL["rtol"] * want.abs()
+        ill = (want - wit).abs() > bound
+        grad = _flat(tree_leaves(r[2].mu)).abs() / 0.1 if i == 0 else None
+        log(f"check vrae_step {what}: {int(ill.sum())} of {ill.numel()} "
+            f"params ill-conditioned (the CPU's float32 step departs from "
+            f"float64 beyond STEP_TOL: at most "
+            f"{float(((want - wit).abs() / bound).max()):.3f} x)"
+            + (f", their first-step |gradient| "
+               f"{[f'{v:.2e}' for v in grad[ill].tolist()]}"
+               if grad is not None else "")
+            + f"; card vs cpu there {(got - want).abs()[ill].tolist()}")
+        _assert_close("vrae_step", got[~ill], want[~ill], errors, **STEP_TOL,
+                      what=what + ": params where well conditioned")
+    return launches
+
+
 def crcsrae_main_path(dev, card, out_dir):
     """Phase 4n: lorenz96_crcsrae through ``run_experiment`` (the function
     ``cli run`` calls) with checkpoints, phase 1 at its full 2000 steps,
@@ -3504,11 +3619,13 @@ def check_bf16_rollouts(dev, card, errors):
             noise_of(cr.errvae_sample_fused(f32[2], f32[3], h0e, p, T)),
             model.noise_scale)
         torch.cuda.synchronize()
+        shares = {}
         for name, k, again, r, c, kind in (
                 ("errvae_sample", k2, k2b, r2, c2, "errvae"),
                 ("crvae_free_run", k1, k1b, r1, c1, "crvae")):
             e = (k - r).abs().max().item()
             agree = bf16_agreement(k, r)
+            shares[kind] = agree["same"]
             control = bf16_agreement(c, r)
             rounded = bf16_agreement(c.to(torch.bfloat16).float(), r)
             witness = bf16_agreement(exact[name], r)
@@ -3557,6 +3674,7 @@ def check_bf16_rollouts(dev, card, errors):
         iters = 200 if b == 1 else 20
         k1a = (x0, h0, noise, model.noise_scale)
         row = {"route_k1": routes["crvae"], "route_k2": routes["errvae"],
+               "k1_share": shares["crvae"], "k2_share": shares["errvae"],
                "plan_k1": cr._plan("crvae", p, b, p, hidden, dev,
                                    2)[0]._asdict(),
                "plan_k2": cr._plan("errvae", 1, b, p, hidden, dev,
@@ -3575,13 +3693,18 @@ def check_bf16_rollouts(dev, card, errors):
             *rollout_cost(b, T, p, hidden, p, 1, True, True, 2), BF16_FLOPS)
         row["k2_bound_ms"], row["k2_bound_by"] = bound(
             *rollout_cost(b, T, 1, hidden, p, p, False, False, 2), BF16_FLOPS)
-        log(f"time bf16 p={p} H={hidden} B={b}: K1 ({routes['crvae']}) "
-            f"{row['k1_ms']:.4f} ms (float32 {row['k1_f32_ms']:.4f}, plain "
-            f"bf16 {row['k1_plain_ms']:.4f}, bound {row['k1_bound_ms']:.4f} "
-            f"by {row['k1_bound_by']}); K2 ({routes['errvae']}) "
-            f"{row['k2_ms']:.4f} ms (float32 {row['k2_f32_ms']:.4f}, plain "
-            f"bf16 {row['k2_plain_ms']:.4f}, bound {row['k2_bound_ms']:.4f} "
-            f"by {row['k2_bound_by']}) [{card}]")
+        plan = {k: row[f"plan_{k}"] for k in ("k1", "k2")}
+        log(f"time bf16 p={p} H={hidden} B={b}: K1 ({routes['crvae']}, "
+            f"cluster {plan['k1']['cluster']}, tile {plan['k1']['bt']}, "
+            f"smem {plan['k1']['smem']}) {row['k1_ms']:.4f} ms (float32 "
+            f"{row['k1_f32_ms']:.4f}, plain bf16 {row['k1_plain_ms']:.4f}, "
+            f"bound {row['k1_bound_ms']:.4f} by {row['k1_bound_by']}, "
+            f"bit-equal share {row['k1_share']:.5f}); K2 "
+            f"({routes['errvae']}, tile {plan['k2']['bt']}, smem "
+            f"{plan['k2']['smem']}) {row['k2_ms']:.4f} ms (float32 "
+            f"{row['k2_f32_ms']:.4f}, plain bf16 {row['k2_plain_ms']:.4f}, "
+            f"bound {row['k2_bound_ms']:.4f} by {row['k2_bound_by']}, "
+            f"bit-equal share {row['k2_share']:.5f}) [{card}]")
         rows[(p, b)] = row
     return rows
 
@@ -4233,6 +4356,7 @@ def main() -> int:
     series10 = lorenz_windows(dev, CRVAE_P, seed=4)
     check_sweep(dev, card, errors, series10)
     check_cs_steps(dev, errors)
+    check_vrae_steps(dev, errors)
     bf16_rows = check_bf16_rollouts(dev, card, errors)
     launches, served_fn = serve_main_path(dev)
     launches.update(serve_scaled_path(dev, card))
@@ -4395,6 +4519,7 @@ def main() -> int:
                               for k in ("phase1", "phase2")},
             launches_vrae=vrae["launches"][name],
             cs_step_max_abs_err=errors["cs_step"],
+            vrae_step_max_abs_err=errors["vrae_step"],
             a4_shapes={k: {f: r.get(f) for f in r if (f in fwd_keys) ==
                            (name == "gru_forward")}
                        for k, r in a4_shapes.items()})
@@ -4508,6 +4633,31 @@ def _main_meshes() -> int:
     return 0
 
 
+def _main_bf16() -> int:
+    """``--phase bf16``: build the kernels and run check_bf16_rollouts and
+    check_vrae_steps alone."""
+    import torch
+
+    from vae_connexe_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = smi_line()
+    log(f"card: {card}")
+    built = _build.build_all(list(_build.SOURCES))
+    for name, (_, report) in built.items():
+        for line in ptxas_summary(report):
+            log(f"  ptxas {name}: {line}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, errors = torch.device("cuda"), {}
+    check_vrae_steps(dev, errors)
+    rows = check_bf16_rollouts(dev, card, errors)
+    log(json.dumps({"bf16": {f"{p}x{b}": row for (p, b), row in rows.items()},
+                    "max_abs_err": errors}, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         try:
@@ -4521,4 +4671,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--phase", "meshes"]:
         sys.exit(_main_meshes())
+    if sys.argv[1:] == ["--phase", "bf16"]:
+        sys.exit(_main_bf16())
     sys.exit(main())

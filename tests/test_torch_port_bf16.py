@@ -227,28 +227,103 @@ def test_wrappers_take_one_storage_type(pair):
 
 def test_route_counts_bf16_bytes():
     """bf16 weights halve a resident block's weight bytes: at
-    lorenz96_scaled's d=40, H=128 K2 now takes the resident route, while
-    K1's 40 heads need more blocks than a cluster holds and stay
-    streamed on the float32 plan (the streamed block holds its weights in
-    float32 in both types); at the serving width both stay resident on
-    smaller blocks."""
+    lorenz96_scaled's d=40, H=128 K2 takes the resident route, while K1's
+    40 heads need more blocks than a cluster holds and stay streamed on the
+    float32 plan (the streamed block holds its weights in float32 in both
+    types); at the serving width both stay resident on smaller blocks.  A
+    bf16 resident block is the tensor-core body's (``mma_smem_bytes``):
+    bf16 rows of [W_ih | W_hh], x and the state, each row stride 4 words
+    past a multiple of 8, so that an ldmatrix phase meets no bank twice;
+    tiles of a multiple of 16 rows and no k split."""
     f32 = cr.resident_smem_bytes(1, 4, 40, 128, 40, False)
-    b16 = cr.resident_smem_bytes(1, 4, 40, 128, 40, False, elem=2)
+    b16 = cr.resident_smem_bytes(1, 16, 40, 128, 40, False, elem=2)
     assert b16 < H100[0] < f32
-    assert cr.weight_stride(128, 2) // 2 % 32 == 16      # disjoint banks
+    assert b16 == cr.mma_smem_bytes(1, 16, 40, 128, 40, False)
+    kx, kh, hu = cr.mma_dims(40, 128)
+    assert (kx, kh, hu) == (48, 128, 128)
+    for n in (kx, kh, kx + kh):
+        assert cr.mma_ld(n) // 2 % 8 == 4                # disjoint banks
     for batch in (3072, 1):
         assert cr.rollout_route("errvae", 1, batch, 40, 128, H100).route == \
             "streamed"
         plan = cr.rollout_route("errvae", 1, batch, 40, 128, H100, 2)
         assert plan.route == "resident" and plan.smem <= H100[0]
+        assert (plan.split, plan.bt % cr.MMA_ROWS) == (0, 0)
         k1 = cr.rollout_route("crvae", 40, batch, 40, 128, H100)
         k1_16 = cr.rollout_route("crvae", 40, batch, 40, 128, H100, 2)
         assert k1.route == k1_16.route == "streamed"
         assert k1_16 == k1
         a = cr.rollout_route("crvae", 20, batch, 20, 64, H100)
         b = cr.rollout_route("crvae", 20, batch, 20, 64, H100, 2)
-        assert (a.route, a.cluster) == (b.route, b.cluster) == ("resident", 7)
-        assert b.smem < a.smem
+        assert (a.route, a.cluster) == ("resident", 7)
+        assert b.route == "resident" and b.threads == cr.MMA_THREADS
+        assert b.smem <= H100[0] and b.cluster <= H100[5]
+
+
+# The bf16 resident plans (route, cluster, heads a block, tile, split,
+# threads, shared memory) at an H100's limits, the shared memory written
+# out region by region: weights 3 x Hu rows of mma_ld(Kx + Kh) bf16 a head,
+# biases 4 x Hu floats a head, readout rows (K1: round4(H) floats a column;
+# K2: round8(D) bf16 rows of mma_ld(Kh)) and their biases (16 bytes at
+# least), two x buffers of mma_ld(Kx) bf16 a row, two state buffers of
+# mma_ld(Kh) bf16 a row a head, K1's two noise buffers of a float a column
+# and row.
+@pytest.mark.parametrize("kind,heads,batch,d,hidden,want", [
+    # Serving width, Kx 32, Kh 64, Hu 64.  At B=3072 4 heads a block on
+    # 5-block clusters with 48-row tiles: 64 tiles over the 23 clusters the
+    # card is taken to hold, 3 rounds of 4 items a warp.  At B=1 and 37 2
+    # heads a block on 10 blocks (non-portable), the narrowest tile: one
+    # round, and 16 items a block where 3 heads would take 24.
+    ("crvae", 20, 3072, 20, 64, ("resident", 5, 4, 48, 0, 768,
+                                 4 * 3 * 64 * 104 * 2 + 4 * 4 * 64 * 4
+                                 + 4 * 64 * 4 + 16 + 2 * 48 * 40 * 2
+                                 + 2 * 4 * 48 * 72 * 2 + 2 * 4 * 48 * 4)),
+    ("crvae", 20, 37, 20, 64, ("resident", 10, 2, 16, 0, 768,
+                               2 * 3 * 64 * 104 * 2 + 2 * 4 * 64 * 4
+                               + 2 * 64 * 4 + 16 + 2 * 16 * 40 * 2
+                               + 2 * 2 * 16 * 72 * 2 + 2 * 2 * 16 * 4)),
+    ("crvae", 20, 1, 20, 64, ("resident", 10, 2, 16, 0, 768,
+                              2 * 3 * 64 * 104 * 2 + 2 * 4 * 64 * 4
+                              + 2 * 64 * 4 + 16 + 2 * 16 * 40 * 2
+                              + 2 * 2 * 16 * 72 * 2 + 2 * 2 * 16 * 4)),
+    # lorenz96_scaled's ErrorVAE: one head, d=40 outputs; Kx 48, Kh 128.
+    ("errvae", 1, 3072, 40, 128, ("resident", 1, 1, 32, 0, 768,
+                                  3 * 128 * 184 * 2 + 4 * 128 * 4
+                                  + 40 * 136 * 2 + 160 + 2 * 32 * 56 * 2
+                                  + 2 * 32 * 136 * 2)),
+    ("errvae", 1, 37, 40, 128, ("resident", 1, 1, 16, 0, 768,
+                                3 * 128 * 184 * 2 + 4 * 128 * 4
+                                + 40 * 136 * 2 + 160 + 2 * 16 * 56 * 2
+                                + 2 * 16 * 136 * 2)),
+    ("errvae", 1, 1, 40, 128, ("resident", 1, 1, 16, 0, 768,
+                               3 * 128 * 184 * 2 + 4 * 128 * 4
+                               + 40 * 136 * 2 + 160 + 2 * 16 * 56 * 2
+                               + 2 * 16 * 136 * 2)),
+    # An odd width: H=7 pads to 8 units and to k 16, D=6 to k 16.
+    ("crvae", 6, 37, 6, 7, ("resident", 6, 1, 16, 0, 768,
+                            3 * 8 * 40 * 2 + 4 * 8 * 4 + 32 + 16
+                            + 2 * 16 * 24 * 2 + 2 * 16 * 24 * 2
+                            + 2 * 16 * 4)),
+    ("errvae", 1, 37, 6, 7, ("resident", 1, 1, 16, 0, 768,
+                             3 * 8 * 40 * 2 + 4 * 8 * 4 + 8 * 24 * 2 + 32
+                             + 2 * 16 * 24 * 2 + 2 * 16 * 24 * 2)),
+    # henon_author's p=2: a 2-block cluster, one head a block.
+    ("crvae", 2, 256, 2, 64, ("resident", 2, 1, 16, 0, 768,
+                              3 * 64 * 88 * 2 + 4 * 64 * 4 + 64 * 4 + 16
+                              + 2 * 16 * 24 * 2 + 2 * 16 * 72 * 2
+                              + 2 * 16 * 4)),
+])
+def test_bf16_plan_is_the_tensor_core_body(kind, heads, batch, d, hidden,
+                                           want):
+    plan = cr.rollout_route(kind, heads, batch, d, hidden, H100, 2)
+    assert tuple(plan)[:7] == want
+    outs = 1 if kind == "crvae" else d
+    assert plan.smem == cr.resident_smem_bytes(
+        plan.heads_per_block, plan.bt, d, hidden, outs, kind == "crvae", 2)
+    assert plan.smem <= H100[0]
+    assert plan.bt % cr.MMA_ROWS == 0
+    assert cr.mma_items(plan.heads_per_block, plan.bt, hidden) == (
+        plan.heads_per_block * plan.bt // 16 * -(-hidden // 8))
 
 
 def test_ops_are_the_wrappers(pair):

@@ -261,6 +261,35 @@ def test_pack_streamed_layout(p, d, hidden):
         assert torch.equal(got, want)
 
 
+H100 = (232448, 233472, 132, 2048, 8, 16)
+
+
+@pytest.mark.parametrize("kind,heads,d,hidden,want", [
+    # (plan at B = 1, 37, 3072) as the float32 kernels took them before
+    # the bf16 resident body changed its sizing.
+    ("crvae", 20, 20, 64, [("resident", 7, 3, 4, 4, 512, 217440, 0, 0)] * 2
+     + [("resident", 7, 3, 8, 2, 512, 224416, 0, 0)]),
+    ("errvae", 1, 20, 64, [("resident", 1, 1, 4, 4, 512, 77888, 0, 0)] * 2
+     + [("resident", 1, 1, 24, 2, 512, 91488, 0, 0)]),
+    ("errvae", 1, 40, 128, [("streamed", 1, 1, 4, 0, 512, 125408, 1, 3328),
+                            ("streamed", 1, 1, 4, 0, 512, 125408, 10, 33280),
+                            ("streamed", 1, 1, 16, 0, 128, 84320, 192,
+                             2555904)]),
+    ("crvae", 2, 2, 64, [("resident", 2, 1, 4, 4, 512, 57376, 0, 0)] * 2
+     + [("resident", 2, 1, 32, 2, 512, 72608, 0, 0)]),
+    ("crvae", 6, 6, 7, [("resident", 6, 1, 4, 4, 512, 3072, 0, 0)] * 2
+     + [("resident", 6, 1, 32, 4, 512, 6656, 0, 0)]),
+    ("errvae", 1, 6, 7, [("resident", 1, 1, 4, 4, 512, 3232, 0, 0)] * 2
+     + [("resident", 1, 1, 24, 4, 512, 5632, 0, 0)]),
+])
+def test_float32_plans_unchanged(kind, heads, d, hidden, want):
+    """The float32 route, tile, split and shared memory stay as they were
+    at the main and edge shapes."""
+    got = [tuple(cuda_rollout.rollout_route(kind, heads, b, d, hidden, H100))
+           for b in (1, 37, 3072)]
+    assert got == want
+
+
 def test_kernel_inputs_are_validated():
     """Before a launch, every input must be float32 of the shape the kernel
     reads it by (checked here on the CPU, where no launch follows)."""

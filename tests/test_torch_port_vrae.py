@@ -201,3 +201,49 @@ def test_fit_vrae_replays_from_its_draws():
         assert torch.equal(a, r)
     assert metrics == {**{k: float(v) for k, v in met.items()},
                        "tf_ratio": sched(2)}
+
+
+def test_vrae_step_float32_departs_only_at_vanishing_gradients():
+    """vrae_demo's step in float32 against the same step in float64, from
+    the same parameters, data, epsilon and coins: the metrics and Adam's
+    moments within the step tolerance, and every parameter beyond it is
+    one whose first gradient is of the order of Adam's eps (1e-8), where
+    Adam divides the gradient by itself and a few per cent of rounding
+    moves the step by more than the tolerance.  ``chip_smoke.py``'s
+    card-against-CPU check of this step excludes such parameters by this
+    witness."""
+    from vae_connexe_torch.configs import get_experiment
+    from vae_connexe_torch.configs.experiments import vrae_model
+    from vae_connexe_torch.utils.tree import tree_map
+
+    exp = get_experiment("vrae_demo")
+    m = vrae_model(exp)
+    g = torch.Generator().manual_seed(71)
+    params = m.init(g, "cpu")
+    x = torch.randn((32, exp.t, exp.p), generator=g)
+    draws = [(exponential_teacher_forcing_schedule(e, decay_rate=0.02),
+              torch.randn((32, exp.latent), generator=g),
+              torch.rand((exp.t,), generator=g)) for e in range(2)]
+
+    def run(dtype):
+        to = lambda t: t.to(dtype)    # noqa: E731
+        step, p = make_vrae_step(m, to(x), 1e-3, 0.5), tree_map(to, params)
+        state, out = adam_init(p), []
+        for tf, eps, coins in draws:
+            p, state, met = step(p, state, tf, to(eps), to(coins))
+            out.append((torch.cat([t.reshape(-1) for t in tree_leaves(p)]),
+                        torch.cat([t.reshape(-1) for t in
+                                   tree_leaves(state.mu)
+                                   + tree_leaves(state.nu)]),
+                        torch.stack(list(met.values())),
+                        torch.cat([t.reshape(-1).abs() for t in
+                                   tree_leaves(state.mu)]) / 0.1))
+        return out
+
+    got, want = run(torch.float32), run(torch.float64)
+    first_grad = want[0][3]
+    for (p, mom, met, _), (rp, rmom, rmet, _) in zip(got, want):
+        torch.testing.assert_close(met.double(), rmet, **STEP)
+        torch.testing.assert_close(mom.double(), rmom, **STEP)
+        off = (p.double() - rp).abs() > STEP["atol"] + STEP["rtol"] * rp.abs()
+        assert bool((first_grad[off] < 1e-6).all()), first_grad[off]

@@ -90,21 +90,56 @@
 // applies: the 21-step dependency chain (a gate product, a readout, a
 // barrier or launch a step) sets the time.
 //
-// Storage type.  Every kernel is instantiated for float32 weights and for
-// bfloat16 weights (W = __nv_bfloat16, bf16 serving: JAX's _free_run and
-// ErrorVAE.sample with dtype=bfloat16).  In bf16 the weights, biases and
-// readout stay bf16 in memory (the resident route stages them as bf16 in
-// shared memory, rows at res_weight_stride: half the bytes, so a head at
-// hidden 128 fits a block), the products are accumulated and the gate math
-// done in float32, and each step's new state and emitted x are rounded to
-// the nearest bf16 (carry<W>), as JAX's bf16 carries are; x0, h0 and the
-// noise arrive as float32 holding bf16 values, and the output is float32.
-// The float32 instantiation is the code before bf16 existed (carry<float>
-// is the identity).  The streamed route's ring holds float32 weights in
-// both types (its wrapper widens bf16 ones, exactly): its product is
-// bound by issue, not by L2 bytes, and converting each bf16 weight in the
-// inner loop, or each chunk once a block in shared memory, made bf16
-// slower than float32 there; widened, the two run the same product.
+// Storage type.  Both routes take float32 weights and bfloat16 weights
+// (bf16 serving: JAX's _free_run and ErrorVAE.sample with
+// dtype=bfloat16).  In bf16 the weights, biases and readout stay bf16 in
+// memory, the products are accumulated and the gate math done in float32,
+// and each step's new state and emitted x are rounded to the nearest bf16
+// (carry<W>), as JAX's bf16 carries are; x0, h0 and the noise arrive as
+// float32 and are rounded to bf16 as they are read, and the output is
+// float32.  The streamed
+// route instantiates stream_step for both types, carry<float> being the
+// identity; its ring holds float32 weights in both (its wrapper widens
+// bf16 ones, exactly): its product is bound by issue, not by L2 bytes, and
+// converting each bf16 weight in the inner loop, or each chunk once a
+// block in shared memory, made bf16 slower than float32 there.
+//
+// Resident route in bf16 (mma_body, its own kernels crvae_free_run_mma_kernel
+// and errvae_sample_mma_kernel; resident_body is the float32 body).  The
+// carries are bf16 values, so [x_t | h_i] is a bf16 matrix exactly, and the
+// gate product runs on the tensor cores: mma.sync m16n8k16, bf16 operands,
+// float32 accumulators.  The weights' torch layout (3H, K), K contiguous,
+// is the instruction's column-major B operand as it is: a block stages each
+// of its heads' rows once, untransposed, as [W_ih row | zeros to Kx | W_hh
+// row | zeros to Kx + Kh] (Kx, Kh: D and H rounded up to 16; units rounded
+// up to 8 a gate, zero rows past H).  x and each head's state live in
+// shared memory as bf16 rows (two buffers each), so ldmatrix reads the A
+// fragments; every row stride is 8 elements past a multiple of 16, so the
+// 8 rows an ldmatrix phase reads start 4 words apart modulo 32 banks, free
+// of conflicts (weights too).  A warp's item is 16 rows x 8 units of one
+// head, with the r, z and n rows of those units together: its four
+// accumulators (r, z, the input and the hidden part of n) hold the same
+// (row, unit) pairs in the same lane, so the GRU update is a register
+// epilogue in float32 (sigmoid_f, tanhf, carry), written back as bf16
+// pairs.  The accumulators start from the biases; the hidden half (W_hh h,
+// local) comes first, and K1's cluster wait sits between it and the input
+// half of a warp's first item, as in resident_body.  The readout is one
+// thread's dot over H a (row, column), from the bf16 state, in
+// resident_body's order; K1 stores x_{t+1} as bf16 into every peer's x
+// buffer; K2's readout (D outputs) runs on mma.sync too.  The tile sweep
+// (tools/torch_rollout_tiles.py --bf16) also times a build in which each
+// mma starts from zero and its k16 partial joins the running sum by a
+// rounded float32 add.
+//   Bound: at p=20, H=64, B=3072, T=21 K1 is 4.2e10 flops, 0.042 ms at the
+// 989 TFLOP/s of wgmma, the rate the bounds in PERF.md use; mma.sync issues
+// from one warp at a time and tops out below it.  The body is bound first
+// by the shared-memory reads of its fragments (1280 bytes an item and k16
+// for 3 mma: about a third of the tensor rate at 128 bytes a clock) and by
+// the gate math on the CUDA cores (two sigmoids and a tanh a row and unit);
+// at B=1 by the 21-step chain of a product, a readout and a barrier.  wgmma
+// was not taken: its tiles are 64 rows a warpgroup against batch tiles of
+// 16-96 rows (one live row at B=1), and its asynchronous issue and fences
+// add latency to every link of that chain.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -255,7 +290,7 @@ __host__ __device__ inline i64 stream_smem_bytes(int M, int D, int H, int O) {
 template <typename W>
 struct StreamArgs {
   // x0, h0 and the noise are float32; in bf16 the kernel rounds each to
-  // bf16 as it reads it (the resident route's wrapper rounds them first).
+  // bf16 as it reads it (the resident route's too).
   const float* x0;      // (B, D), or nullptr for a zero start
   const float* h0;      // (B, H), every head's initial state
   const float* noise;   // (B, T, D), or nullptr for none
@@ -758,8 +793,7 @@ __host__ __device__ inline i64 res_weights_floats(int D, int H, bool half) {
 
 // Layout in shared memory (floats), every region 16-byte aligned:
 //   w   [nh][res_weights_floats(D, H)]  W_ih^T then W_hh^T of each head,
-//                                       rows at res_weight_stride(H), in
-//                                       the weights' type
+//                                       rows at res_weight_stride(H)
 //   ro  [nh * O][res_row_ld(H)]         readout rows, zero past H
 //   rob [nh * O]                        readout biases
 //   x   [2][D][bt]                      the step's input, transposed
@@ -768,8 +802,8 @@ __host__ __device__ inline i64 res_weights_floats(int D, int H, bool half) {
 // x and h are read as float4s of 4 rows, as B1 reads them.
 __host__ __device__ inline i64 resident_smem_floats(int nh, int bt, int D,
                                                     int H, int O,
-                                                    bool noise, bool half) {
-  return nh * res_weights_floats(D, H, half) +
+                                                    bool noise) {
+  return nh * res_weights_floats(D, H, false) +
          vcx::round4(nh * O * res_row_ld(H)) + vcx::round4(nh * O) +
          2LL * D * bt + 2LL * nh * res_row_ld(H) * bt +
          (noise ? 2LL * nh * O * bt : 0);
@@ -911,22 +945,10 @@ __device__ __forceinline__ void gate_finish(const GateAcc& a, unsigned mask,
 }
 
 // Stage one head's weight (3H rows of `cols`) transposed into dst at row
-// stride ld, zeros in the pad unit's columns: gru_fwd.cuh's staging in
-// float32, the same layout element by element in bf16.
+// stride ld, zeros in the pad unit's columns: gru_fwd.cuh's staging.
 __device__ inline void stage_transposed(float* dst, const float* src, int H,
                                         int cols, int ld) {
   vcx::fwd_stage_transposed(dst, src, H, cols, ld);
-}
-__device__ inline void stage_transposed(bf16* dst, const bf16* src, int H,
-                                        int cols, int ld) {
-  const int G = 3 * H;
-  for (int e = threadIdx.x; e < G * cols; e += blockDim.x) {
-    const int g = e % G, c = e / G;
-    dst[c * ld + vcx::fwd_weight_col(g, H)] = __ldg(src + (i64)g * cols + c);
-  }
-  if (H % 2)
-    for (int e = threadIdx.x; e < 3 * cols; e += blockDim.x)
-      dst[(e / 3) * ld + (e % 3) * (H + 1) + H] = __float2bfloat16_rn(0.0f);
 }
 
 // The two halves of a cluster barrier: arrive releases this thread's
@@ -941,9 +963,10 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // One block (K2) or one block of a cluster (K1, CLUSTER) over its batch
-// tiles, the k of a step split over S lanes, weights of type W;
-// kResidentThreads threads, dynamic shared memory resident_smem_floats(a.nh,
-// a.bt, P * O, a.H, a.O, noise buffers: K1, bf16 weights).
+// tiles, the k of a step split over S lanes; instantiated for float32
+// weights (bf16 ones run mma_body); kResidentThreads threads, dynamic
+// shared memory resident_smem_floats(a.nh, a.bt, P * O, a.H, a.O, noise
+// buffers: K1).
 template <bool CLUSTER, int S, typename W>
 __device__ void resident_body(const ResidentArgs<W>& a) {
   extern __shared__ __align__(16) float smem[];
@@ -1127,27 +1150,569 @@ errvae_sample_resident_kernel(ResidentArgs<W> a) {
   resident_body<false, S, W>(a);
 }
 
-// The kernels at split 2 or 4 (resident_ok checks the split).
-template <typename W>
-using ResidentKernel = void (*)(ResidentArgs<W>);
-template <typename W>
-ResidentKernel<W> crvae_kernel(int split) {
-  return split == 4 ? crvae_free_run_resident_kernel<4, W>
-                    : crvae_free_run_resident_kernel<2, W>;
+// ---- Resident route, bf16: the tensor-core body ------------------------------
+
+// Threads of a bf16 resident block: 24 warps that take the step's items (16
+// rows x 8 units of one head) in turn; one block an SM, at most 85
+// registers a thread.
+constexpr int kMmaThreads = 768;
+// An item's rows (an mma's m), units (its n) and an mma's k.
+constexpr int kMmaRows = 16, kMmaUnits = 8, kMmaK = 16;
+
+// The input and state widths rounded up to an mma's k; the units of a gate
+// rounded up to an item's.
+__host__ __device__ inline int mma_kx(int D) { return round_up(D, kMmaK); }
+__host__ __device__ inline int mma_kh(int H) { return round_up(H, kMmaK); }
+__host__ __device__ inline int mma_units(int H) {
+  return round_up(H, kMmaUnits);
 }
-template <typename W>
-ResidentKernel<W> errvae_kernel(int split) {
-  return split == 4 ? errvae_sample_resident_kernel<4, W>
-                    : errvae_sample_resident_kernel<2, W>;
+// Row stride (bf16 elements) of rows of n elements, n a multiple of 16: 8
+// past it, so that rows start 4 words apart modulo 8 and the 8 rows an
+// ldmatrix phase reads meet in disjoint banks.
+__host__ __device__ inline int mma_ld(int n) { return n + 8; }
+__host__ __device__ inline i64 round16(i64 n) { return (n + 15) & ~15LL; }
+
+// Layout in shared memory (bytes), every region 16-byte aligned:
+//   w    [nh][3][Hu][mma_ld(Kx + Kh)] bf16  row (gate, unit) of each head:
+//        [W_ih row | 0 to Kx | W_hh row | 0 to Kx + Kh]; zero rows past H
+//   bias [nh][4][Hu] float  r and z (b_ih + b_hh), n's input and hidden
+//        parts; zero past H
+//   ro   K1: [nh * O][round4(H)] float  readout rows, zero past H;
+//        K2: [round8(O)][mma_ld(Kh)] bf16  readout rows as the readout
+//        mma's B operand, zero past H and O
+//   rob  [nh * O] float             readout biases
+//   x    [2][bt][mma_ld(Kx)] bf16   the step's input rows, zero past D
+//   h    [2][nh][bt][mma_ld(Kh)] bf16  each head's state rows, zero past H
+//   nz   [2][nh * O][bt] float      a step's noise columns (if noise)
+// (Hu = mma_units(H), Kx = mma_kx(D), Kh = mma_kh(H).)
+__host__ __device__ inline i64 mma_w_bytes(int nh, int D, int H) {
+  return round16((i64)nh * 3 * mma_units(H) * mma_ld(mma_kx(D) + mma_kh(H)) *
+                 2);
+}
+__host__ __device__ inline i64 mma_bias_bytes(int nh, int H) {
+  return round16((i64)nh * 4 * mma_units(H) * 4);
+}
+__host__ __device__ inline i64 mma_ro_rows_bytes(int nh, int H, int O,
+                                                 bool k1) {
+  return k1 ? round16((i64)nh * O * vcx::round4(H) * 4)
+            : round16((i64)round_up(O, kMmaUnits) * mma_ld(mma_kh(H)) * 2);
+}
+__host__ __device__ inline i64 mma_ro_bytes(int nh, int H, int O, bool k1) {
+  return mma_ro_rows_bytes(nh, H, O, k1) + round16((i64)nh * O * 4);
+}
+__host__ __device__ inline i64 mma_x_bytes(int bt, int D) {
+  return round16(2LL * bt * mma_ld(mma_kx(D)) * 2);
+}
+__host__ __device__ inline i64 mma_h_bytes(int nh, int bt, int H) {
+  return round16(2LL * nh * bt * mma_ld(mma_kh(H)) * 2);
+}
+// k1: K1's block (float32 readout rows, noise buffers), else K2's.
+__host__ __device__ inline i64 mma_smem_bytes(int nh, int bt, int D, int H,
+                                              int O, bool k1) {
+  return mma_w_bytes(nh, D, H) + mma_bias_bytes(nh, H) +
+         mma_ro_bytes(nh, H, O, k1) + mma_x_bytes(bt, D) +
+         mma_h_bytes(nh, bt, H) + (k1 ? 2LL * nh * O * bt * 4 : 0);
 }
 
-// Whether a resident launch of these sizes is one the kernels take: bt a
-// multiple of 4, a split of 2 or 4 whose gate tiles fit the block.
+// Four (x4) or two (x2) 8 x 8 bf16 matrices from shared memory, each
+// lane's fragment in the layout mma.sync takes; lane l gives the address
+// of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += A B over one k16: A 16 x 16 (a), B 16 x 8 (b0, b1), float32 sums.
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k span (n_k, a multiple of 16) of an item's r, z and n products.
+// act: this lane's ldmatrix row of the 16-row activation tile at the span's
+// first k; wrz, wn: its rows of the r and z weights (x4) and of the n
+// weights (x2) at that k.
+__device__ __forceinline__ void mma_span(float (&r)[4], float (&z)[4],
+                                         float (&n)[4], const bf16* act,
+                                         const bf16* wrz, const bf16* wn,
+                                         int n_k) {
+#pragma unroll 2
+  for (int k = 0; k < n_k; k += kMmaK) {
+    unsigned a[4], b[4], c[2];
+    ldsm_x4(a, act + k);
+    ldsm_x4(b, wrz + k);
+    ldsm_x2(c, wn + k);
+    mma16816(r, a, b[0], b[1]);
+    mma16816(z, a, b[2], b[3]);
+    mma16816(n, a, c[0], c[1]);
+  }
+}
+
+// A warp's item: head hl of the block, rows [16 mt, 16 mt + 16) of the
+// tile, units [8 ug, 8 ug + 8) of each gate.
+struct MmaItem {
+  int hl, mt, ug;
+};
+__device__ __forceinline__ MmaItem mma_item(int it, int n_mt, int n_ug) {
+  return {it / (n_mt * n_ug), (it / n_ug) % n_mt, it % n_ug};
+}
+
+// An item's sums in a lane: r, z and the input and hidden parts of n, at
+// (row g, unit 2 q), (g, 2 q + 1), (g + 8, 2 q), (g + 8, 2 q + 1) of its
+// tile, g = lane / 4, q = lane % 4.
+struct MmaAcc {
+  float r[4], z[4], xn[4], hn[4];
+};
+
+// The GRU update of a lane's rows row, row + 8 and units u, u + 1: h_prev
+// from hp, the new state rounded to bf16 into ho (row stride ld); units
+// past H stay zero.  The rows from row - row % 8 + live on are not live
+// (past the batch): a half of the tile with none live is skipped by the
+// whole warp, and its rows keep their old (finite) state.
+__device__ __forceinline__ void mma_update(const MmaAcc& c, const bf16* hp,
+                                           bf16* ho, int row, int u, int H,
+                                           int ld, int live) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (8 * half >= live) break;
+    const int m = row + 8 * half;
+    const float2 hv = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(hp + m * ld + u));
+    const float h2[2] = {hv.x, hv.y};
+    float o[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = 2 * half + j;
+      const float rr = sigmoid_f(c.r[e]), zz = sigmoid_f(c.z[e]);
+      const float nn = tanhf(c.xn[e] + rr * c.hn[e]);
+      o[j] = u + j < H ? (1.0f - zz) * nn + zz * h2[j] : 0.0f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(ho + m * ld + u) =
+        __floats2bfloat162_rn(o[0], o[1]);
+  }
+}
+
+// cp.async of N (4, 8 or 16) bytes, both ends N-byte aligned.
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+// Copy `rows` rows of n bf16 (source row stride n) into dst rows of stride
+// ws (16-byte aligned): by cp.async in pieces of the widest of 16, 8 and 4
+// bytes that the source rows' alignment allows, one element at a time for
+// odd n.  Every thread's copies are in flight at once.
+__device__ inline void mma_stage_rows(bf16* dst, int ws, const bf16* src,
+                                      int rows, int n) {
+  const size_t at = reinterpret_cast<size_t>(src);
+  int piece = 1;                                   // elements a copy
+  for (int e = 8; e >= 2; e /= 2)
+    if (n % e == 0 && at % (2 * e) == 0) {
+      piece = e;
+      break;
+    }
+  const int per_row = n / piece;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, k = e % per_row * piece;
+    bf16* d = dst + (i64)r * ws + k;
+    const bf16* s = src + (i64)r * n + k;
+    if (piece == 8)
+      cp_async_n<16>(d, s);
+    else if (piece == 4)
+      cp_async_n<8>(d, s);
+    else if (piece == 2)
+      cp_async_n<4>(d, s);
+    else
+      *d = *s;
+  }
+}
+
+// Stage the block's heads' weights (see the layout above) into w, whose
+// pads the caller has zeroed: each head's 3H rows of W_ih and of W_hh,
+// untransposed, gate g's rows at g Hu.
+__device__ inline void mma_stage_weights(bf16* w, const ResidentArgs<bf16>& a,
+                                         int head0, int nh, int D) {
+  const int H = a.H, G = 3 * H, Kx = mma_kx(D), Hu = mma_units(H);
+  const int ws = mma_ld(Kx + mma_kh(H));
+  for (int i = 0; i < nh; ++i)
+    for (int g = 0; g < 3; ++g) {
+      bf16* dst = w + (i64)((i * 3 + g) * Hu) * ws;
+      const i64 row = (i64)(head0 + i) * G + g * H;
+      mma_stage_rows(dst, ws, a.w_ih + row * D, H, D);
+      mma_stage_rows(dst + Kx, ws, a.w_hh + row * H, H, H);
+    }
+}
+
+// What a lane of mma_body needs for an item: the block's weights, biases
+// and buffers, their row strides and widths, and its ldmatrix offsets.
+struct MmaLane {
+  const bf16* w;        // weights, rows at ws
+  const float* bias;    // [nh][4][Hu]
+  bf16* xs;             // x buffers, rows at xld, xbuf apart
+  bf16* hs;             // state buffers, rows at hld, hbuf apart
+  int ws, xld, hld, xbuf, hbuf, bt, H, Hu, Kx, Kh;
+  int a_row, a_off;     // the lane's row and k offset in an activation tile
+  int rz_off, n_off;    // its rows in the r and z (x4) and n (x2) weights
+  int g_row, g_unit;    // its first row and unit of an item's sums
+};
+
+// An item's hidden half: its sums from the biases, then W_hh h from state
+// buffer k.
+__device__ __forceinline__ void mma_hidden_half(const MmaLane& l, MmaAcc& c,
+                                                const MmaItem& q, int k) {
+  const float* bb = l.bias + q.hl * 4 * l.Hu + q.ug * kMmaUnits + l.g_unit;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c.r[e] = bb[e & 1];
+    c.z[e] = bb[l.Hu + (e & 1)];
+    c.xn[e] = bb[2 * l.Hu + (e & 1)];
+    c.hn[e] = bb[3 * l.Hu + (e & 1)];
+  }
+  const bf16* wq =
+      l.w + (i64)(q.hl * 3 * l.Hu + q.ug * kMmaUnits) * l.ws + l.Kx;
+  mma_span(c.r, c.z, c.hn,
+           l.hs + k * l.hbuf + (q.hl * l.bt + q.mt * kMmaRows + l.a_row) *
+                                   l.hld + l.a_off,
+           wq + l.rz_off, wq + l.n_off, l.Kh);
+}
+
+// An item's input half (W_ih x from x buffer k) and its GRU update into
+// state buffer k ^ 1, ``live`` rows of the tile live.
+__device__ __forceinline__ void mma_input_half(const MmaLane& l, MmaAcc& c,
+                                               const MmaItem& q, int k,
+                                               int live) {
+  const bf16* wq = l.w + (i64)(q.hl * 3 * l.Hu + q.ug * kMmaUnits) * l.ws;
+  mma_span(c.r, c.z, c.xn,
+           l.xs + k * l.xbuf + (q.mt * kMmaRows + l.a_row) * l.xld + l.a_off,
+           wq + l.rz_off, wq + l.n_off, l.Kx);
+  const int hb = q.hl * l.bt * l.hld;
+  mma_update(c, l.hs + k * l.hbuf + hb, l.hs + (k ^ 1) * l.hbuf + hb,
+             q.mt * kMmaRows + l.g_row, q.ug * kMmaUnits + l.g_unit, l.H,
+             l.hld, live - q.mt * kMmaRows);
+}
+
+// One block (K2) or one block of a cluster (K1, CLUSTER) over its batch
+// tiles of bt rows (a multiple of 16), bf16 weights, on the tensor cores
+// (see the note at the head of this file); kMmaThreads threads, dynamic
+// shared memory mma_smem_bytes(a.nh, a.bt, P * O, a.H, a.O, noise: K1).
+template <bool CLUSTER>
+__device__ void mma_body(const ResidentArgs<bf16>& a) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int H = a.H, O = a.O, D = a.P * O, G = 3 * H, T = a.T, bt = a.bt;
+  const int Kx = mma_kx(D), Kh = mma_kh(H), Hu = mma_units(H);
+  const int H4 = vcx::round4(H);
+  const int ws = mma_ld(Kx + Kh), xld = mma_ld(Kx), hld = mma_ld(Kh);
+  int rank = 0, size = 1, group = blockIdx.x, n_groups = gridDim.x;
+  if constexpr (CLUSTER) {
+    cg::cluster_group cl = cg::this_cluster();
+    rank = (int)cl.block_rank();
+    size = (int)cl.num_blocks();
+    group = blockIdx.x / size;
+    n_groups = gridDim.x / size;
+  }
+  // This block's heads: [head0, head0 + nh).
+  const int head0 = rank * (a.P / size) + min(rank, a.P % size);
+  const int nh = a.P / size + (rank < a.P % size ? 1 : 0);
+  const int col0 = head0 * O, ncols = nh * O;
+  unsigned char* at = mma_smem;
+  bf16* w = reinterpret_cast<bf16*>(at);
+  at += mma_w_bytes(a.nh, D, H);
+  float* bias = reinterpret_cast<float*>(at);
+  at += mma_bias_bytes(a.nh, H);
+  float* ro = reinterpret_cast<float*>(at);   // K1
+  bf16* rw = reinterpret_cast<bf16*>(at);     // K2
+  float* rob = reinterpret_cast<float*>(at + mma_ro_rows_bytes(a.nh, H, O,
+                                                               CLUSTER));
+  at += mma_ro_bytes(a.nh, H, O, CLUSTER);
+  bf16* xs = reinterpret_cast<bf16*>(at);
+  at += mma_x_bytes(bt, D);
+  bf16* hs = reinterpret_cast<bf16*>(at);
+  at += mma_h_bytes(a.nh, bt, H);
+  float* nz = reinterpret_cast<float*>(at);
+  const int xbuf = bt * xld, hbuf = a.nh * bt * hld, nbuf = a.nh * O * bt;
+
+  // Zero everything from the weights to the state buffers: the weights'
+  // and the buffers' pads (columns past D and H, units past H), which no
+  // copy or step writes.
+  {
+    uint4* z = reinterpret_cast<uint4*>(mma_smem);
+    const i64 n = (at - mma_smem) / 16;
+    for (i64 e = threadIdx.x; e < n; e += blockDim.x)
+      z[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  mma_stage_weights(w, a, head0, nh, D);
+  for (int e = threadIdx.x; e < nh * Hu; e += blockDim.x) {
+    const int i = e / Hu, u = e % Hu;
+    const bf16* bih = a.b_ih + (i64)(head0 + i) * G;
+    const bf16* bhh = a.b_hh + (i64)(head0 + i) * G;
+    float* bb = bias + i * 4 * Hu + u;
+    const bool on = u < H;
+    bb[0] = on ? to_f(bih[u]) + to_f(bhh[u]) : 0.0f;
+    bb[Hu] = on ? to_f(bih[H + u]) + to_f(bhh[H + u]) : 0.0f;
+    bb[2 * Hu] = on ? to_f(bih[2 * H + u]) : 0.0f;
+    bb[3 * Hu] = on ? to_f(bhh[2 * H + u]) : 0.0f;
+  }
+  if constexpr (CLUSTER) {
+    for (int e = threadIdx.x; e < ncols * H4; e += blockDim.x) {
+      const int k = e % H4, c = e / H4;
+      ro[e] = k < H ? to_f(a.ro_w[(i64)(col0 + c) * H + k]) : 0.0f;
+    }
+  } else {
+    mma_stage_rows(rw, hld, a.ro_w, O, H);
+  }
+  vcx::cp_async_commit();
+  for (int e = threadIdx.x; e < ncols; e += blockDim.x)
+    rob[e] = to_f(a.ro_b[col0 + e]);
+  // The weights have landed; K1 then waits for every block of the cluster,
+  // so that no peer's readout writes into x before it is zeroed.
+  vcx::cp_async_wait_all();
+  if constexpr (CLUSTER) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5, n_ug = Hu / kMmaUnits;
+  // This lane's ldmatrix rows: of the activation tile (matrices rows 0-7 /
+  // 8-15 at k, then at k + 8), of the r and z weights (r at k, r at k + 8,
+  // z at k, z at k + 8) and of the n weights (at k, at k + 8).
+  const MmaLane l{w, bias, xs, hs, ws, xld, hld, xbuf, hbuf, bt, H, Hu, Kx,
+                  Kh, lane & 15, (lane >> 4) * 8,
+                  ((lane >> 4) * Hu + (lane & 7)) * ws + ((lane >> 3) & 1) * 8,
+                  (2 * Hu + (lane & 7)) * ws + ((lane >> 3) & 1) * 8,
+                  lane >> 2, 2 * (lane & 3)};
+
+  const int n_tiles = (a.B + bt - 1) / bt;
+  for (int tile = group; tile < n_tiles; tile += n_groups) {
+    // Items of the tile's 16-row groups that hold a live row (past the
+    // batch, a tile's rows are not live and cost no work).
+    const int row0 = tile * bt, live = min(bt, a.B - row0);
+    const int n_mt = (live + kMmaRows - 1) / kMmaRows;
+    const int n_items = nh * n_mt * n_ug;
+    if (a.noise != nullptr) prefetch_noise(nz, a, col0, ncols, row0, 0);
+    for (int e = threadIdx.x; e < nh * bt * H; e += blockDim.x) {
+      const int k = e % H, b = e / H % bt, i = e / (H * bt);
+      hs[(i * bt + b) * hld + k] = __float2bfloat16_rn(
+          b < live ? a.h0[(i64)(row0 + b) * H + k] : 0.0f);
+    }
+    for (int e = threadIdx.x; e < bt * D; e += blockDim.x) {
+      const int c = e % D, b = e / D;
+      xs[b * xld + c] = __float2bfloat16_rn(
+          a.x0 != nullptr && b < live ? a.x0[(i64)(row0 + b) * D + c] : 0.0f);
+    }
+    vcx::cp_async_wait_all();
+    __syncthreads();
+
+    // A step: a warp's first item's hidden half; the wait for the last
+    // step's readout (K1: the cluster barrier it arrived at, x_t is then in
+    // every block; K2: a block barrier); the input half and update of that
+    // item and the whole of the warp's other items; a block barrier; the
+    // readout of x_{t+1} into every block for the tile's live rows, by the
+    // block's last threads first, so that at a small batch warps without
+    // items take it while the others start the next step's hidden half;
+    // then (K1) arrive.
+    for (int t = 0, k = 0; t < T; ++t, k ^= 1) {
+      MmaAcc c;
+      MmaItem q = mma_item(warp, n_mt, n_ug);
+      if (warp < n_items) mma_hidden_half(l, c, q, k);
+      if constexpr (CLUSTER) {
+        if (t > 0) cluster_wait();
+      }
+      if constexpr (!CLUSTER) {
+        if (t > 0) __syncthreads();
+      }
+      if (a.noise != nullptr && t + 1 < T)
+        prefetch_noise(nz + (k ^ 1) * nbuf, a, col0, ncols, row0, t + 1);
+      for (int it = warp; it < n_items; it += n_warps) {
+        if (it != warp) {
+          q = mma_item(it, n_mt, n_ug);
+          mma_hidden_half(l, c, q, k);
+        }
+        mma_input_half(l, c, q, k, live);
+      }
+      if (a.noise != nullptr) {   // this step's noise has landed
+        if (t + 1 < T)
+          vcx::cp_async_wait_one();
+        else
+          vcx::cp_async_wait_all();
+      }
+      __syncthreads();
+
+      // The readout of x_{t+1}, by the block's last threads or warps
+      // first.  K2: on the tensor cores, an item (16 rows, 8 outputs) a
+      // warp, the sums from the readout biases.  K1 (one output a head):
+      // (column, row) a thread, rows fastest, four partial sums over k in
+      // resident_body's order; stored into every block of the cluster.
+      if constexpr (!CLUSTER) {
+        const int n_ot = (O + kMmaUnits - 1) / kMmaUnits;
+        for (int it = n_warps - 1 - warp; it < n_mt * n_ot; it += n_warps) {
+          const int mt = it / n_ot, u0 = it % n_ot * kMmaUnits;
+          float acc[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = u0 + l.g_unit + (e & 1);
+            acc[e] = col < O ? rob[col] : 0.0f;
+          }
+          const bf16* act = hs + (k ^ 1) * hbuf +
+                            (mt * kMmaRows + l.a_row) * hld + l.a_off;
+          const bf16* wr = rw + (u0 + (lane & 7)) * hld + ((lane >> 3) & 1) * 8;
+          for (int kk = 0; kk < Kh; kk += kMmaK) {
+            unsigned af[4], bf[2];
+            ldsm_x4(af, act + kk);
+            ldsm_x2(bf, wr + kk);
+            mma16816(acc, af, bf[0], bf[1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = mt * kMmaRows + l.g_row + 8 * (e >> 1);
+            const int col = u0 + l.g_unit + (e & 1);
+            if (row >= live || col >= O) continue;
+            const float v = carry<bf16>(acc[e]);
+            a.out[((i64)(row0 + row) * T + t) * D + col] = v;
+            xs[(k ^ 1) * xbuf + row * xld + col] = __float2bfloat16_rn(v);
+          }
+        }
+      } else {
+        for (int e = blockDim.x - 1 - threadIdx.x; e < ncols * live;
+             e += blockDim.x) {
+          const int b = e % live, c = e / live;
+          const bf16* hv = hs + (k ^ 1) * hbuf + (c * bt + b) * hld;
+          const float* wv = ro + c * H4;
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+          int j = 0;
+          for (; j + 8 <= H; j += 8) {
+            const uint4 h8 = *reinterpret_cast<const uint4*>(hv + j);
+            const float4 w0 = *reinterpret_cast<const float4*>(wv + j);
+            const float4 w1 = *reinterpret_cast<const float4*>(wv + j + 4);
+            // A bf16 is the high half of its float32: element 2 p in the
+            // low half of word p, 2 p + 1 in the high half.
+            const unsigned hw[4] = {h8.x, h8.y, h8.z, h8.w};
+            float hf[8];
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              hf[2 * p] = __uint_as_float(hw[p] << 16);
+              hf[2 * p + 1] = __uint_as_float(hw[p] & 0xffff0000u);
+            }
+            s0 = fmaf(hf[0], w0.x, s0);
+            s1 = fmaf(hf[1], w0.y, s1);
+            s2 = fmaf(hf[2], w0.z, s2);
+            s3 = fmaf(hf[3], w0.w, s3);
+            s0 = fmaf(hf[4], w1.x, s0);
+            s1 = fmaf(hf[5], w1.y, s1);
+            s2 = fmaf(hf[6], w1.z, s2);
+            s3 = fmaf(hf[7], w1.w, s3);
+          }
+          for (; j + 4 <= H; j += 4) {
+            s0 = fmaf(to_f(hv[j]), wv[j], s0);
+            s1 = fmaf(to_f(hv[j + 1]), wv[j + 1], s1);
+            s2 = fmaf(to_f(hv[j + 2]), wv[j + 2], s2);
+            s3 = fmaf(to_f(hv[j + 3]), wv[j + 3], s3);
+          }
+          for (; j < H; ++j) s0 = fmaf(to_f(hv[j]), wv[j], s0);
+          float v = (s0 + s1) + (s2 + s3) + rob[c];
+          if (a.noise != nullptr)
+            v += a.noise_scale * carry<bf16>(nz[k * nbuf + c * bt + b]);
+          v = carry<bf16>(v);
+          const int col = col0 + c;
+          a.out[((i64)(row0 + b) * T + t) * D + col] = v;
+          const bf16 xv = __float2bfloat16_rn(v);
+          bf16* dst = xs + (k ^ 1) * xbuf + b * xld + col;
+          cg::cluster_group cl = cg::this_cluster();
+          for (int r = 0; r < size; ++r) *cl.map_shared_rank(dst, r) = xv;
+        }
+      }
+      if constexpr (CLUSTER) {
+        cluster_arrive();
+        // After the tile's last step, every peer's stores have landed and
+        // its reads are done before this block starts the next tile's
+        // buffers or exits.
+        if (t + 1 == T) cluster_wait();
+      } else {
+        if (t + 1 == T) __syncthreads();
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+crvae_free_run_mma_kernel(ResidentArgs<bf16> a) {
+  mma_body<true>(a);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+errvae_sample_mma_kernel(ResidentArgs<bf16> a) {
+  mma_body<false>(a);
+}
+
+// ---- Resident launches -------------------------------------------------------
+
+// Whether a resident launch of these sizes is one the float32 kernels take:
+// bt a multiple of 4, a split of 2 or 4 whose gate tiles fit the block.
 bool resident_ok(int B, int T, int H, int nh, int bt, int split) {
   return B >= 1 && T >= 1 && H >= 1 && bt >= 4 && bt % 4 == 0 &&
          (split == 2 || split == 4) &&
          gate_threads(nh, bt, H, split) <= kResidentThreads;
 }
+
+template <typename W>
+using ResidentKernel = void (*)(ResidentArgs<W>);
+
+// What a resident launch runs for weights of type W: its kernels, their
+// threads and shared memory, and whether they take the launch's sizes.
+// float32: resident_body at a k split of 2 or 4; bf16: mma_body, which
+// splits no k (split 0) and takes tiles of a multiple of 16 rows.
+template <typename W>
+struct Resident;
+template <>
+struct Resident<float> {
+  static constexpr int kThreads = kResidentThreads;
+  static ResidentKernel<float> crvae(int split) {
+    return split == 4 ? crvae_free_run_resident_kernel<4, float>
+                      : crvae_free_run_resident_kernel<2, float>;
+  }
+  static ResidentKernel<float> errvae(int split) {
+    return split == 4 ? errvae_sample_resident_kernel<4, float>
+                      : errvae_sample_resident_kernel<2, float>;
+  }
+  static bool ok(int B, int T, int H, int nh, int bt, int split) {
+    return resident_ok(B, T, H, nh, bt, split);
+  }
+  static size_t smem(int nh, int bt, int D, int H, int O, bool noise) {
+    return resident_smem_floats(nh, bt, D, H, O, noise) *
+           sizeof(float);
+  }
+};
+template <>
+struct Resident<bf16> {
+  static constexpr int kThreads = kMmaThreads;
+  static ResidentKernel<bf16> crvae(int) { return crvae_free_run_mma_kernel; }
+  static ResidentKernel<bf16> errvae(int) { return errvae_sample_mma_kernel; }
+  static bool ok(int B, int T, int H, int, int bt, int split) {
+    return B >= 1 && T >= 1 && H >= 1 && bt >= kMmaRows &&
+           bt % kMmaRows == 0 && split == 0;
+  }
+  static size_t smem(int nh, int bt, int D, int H, int O, bool noise) {
+    return (size_t)mma_smem_bytes(nh, bt, D, H, O, noise);   // noise: K1
+  }
+};
 
 // Set K1's shared-memory limit (and, above 8 blocks, its non-portable
 // cluster permission) and fill a launch configuration with the cluster
@@ -1157,8 +1722,7 @@ cudaError_t cluster_config(ResidentKernel<W> kern, const ResidentArgs<W>& a,
                            int cluster, int n_clusters, cudaStream_t s,
                            cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
-  const size_t smem = resident_smem_floats(a.nh, a.bt, a.P, a.H, 1, true,
-                                           sizeof(W) == 2) * sizeof(float);
+  const size_t smem = Resident<W>::smem(a.nh, a.bt, a.P, a.H, 1, true);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && cluster > 8)
@@ -1167,7 +1731,7 @@ cudaError_t cluster_config(ResidentKernel<W> kern, const ResidentArgs<W>& a,
   if (e != cudaSuccess) return e;
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3((unsigned)(n_clusters * cluster));
-  cfg.blockDim = dim3(kResidentThreads);
+  cfg.blockDim = dim3(Resident<W>::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -1230,12 +1794,12 @@ int crvae_resident(const float* x0, const float* h0, const float* noise,
                    int cluster, int bt, int split, int n_clusters,
                    void* stream) {
   if (cluster < 1 || cluster > P || n_clusters < 1 ||
-      !resident_ok(B, T, H, (P + cluster - 1) / cluster, bt, split))
+      !Resident<W>::ok(B, T, H, (P + cluster - 1) / cluster, bt, split))
     return (int)cudaErrorInvalidValue;
   const ResidentArgs<W> a =
       crvae_args<W>(x0, h0, noise, w_ih, w_hh, b_ih, b_hh, ro_w, ro_b, out, B,
                     T, P, H, noise_scale, cluster, bt);
-  const ResidentKernel<W> kern = crvae_kernel<W>(split);
+  const ResidentKernel<W> kern = Resident<W>::crvae(split);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = cluster_config(kern, a, cluster, n_clusters,
@@ -1249,13 +1813,13 @@ template <typename W>
 int crvae_max_clusters(int P, int H, int cluster, int bt, int split,
                        int* out) {
   if (cluster < 1 || cluster > P ||
-      !resident_ok(1, 1, H, (P + cluster - 1) / cluster, bt, split))
+      !Resident<W>::ok(1, 1, H, (P + cluster - 1) / cluster, bt, split))
     return (int)cudaErrorInvalidValue;
   const ResidentArgs<W> a =
       crvae_args<W>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                     nullptr, nullptr, nullptr, nullptr, 1, 1, P, H, 0.0f,
                     cluster, bt);
-  const ResidentKernel<W> kern = crvae_kernel<W>(split);
+  const ResidentKernel<W> kern = Resident<W>::crvae(split);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t e = cluster_config(kern, a, cluster, 1, nullptr, cfg, attr);
@@ -1268,21 +1832,19 @@ int errvae_resident(const float* h0, const void* w_ih, const void* w_hh,
                     const void* b_ih, const void* b_hh, const void* ro_w,
                     const void* ro_b, float* out, int B, int T, int D, int H,
                     int bt, int split, void* stream) {
-  if (D < 1 || !resident_ok(B, T, H, 1, bt, split))
+  if (D < 1 || !Resident<W>::ok(B, T, H, 1, bt, split))
     return (int)cudaErrorInvalidValue;
   const ResidentArgs<W> a{
       nullptr, h0, nullptr, static_cast<const W*>(w_ih),
       static_cast<const W*>(w_hh), static_cast<const W*>(b_ih),
       static_cast<const W*>(b_hh), static_cast<const W*>(ro_w),
       static_cast<const W*>(ro_b), out, B, T, 1, H, D, bt, 1, 0.0f};
-  const ResidentKernel<W> kern = errvae_kernel<W>(split);
-  const size_t smem =
-      resident_smem_floats(1, bt, D, H, D, false, sizeof(W) == 2) *
-      sizeof(float);
+  const ResidentKernel<W> kern = Resident<W>::errvae(split);
+  const size_t smem = Resident<W>::smem(1, bt, D, H, D, false);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<(B + bt - 1) / bt, kResidentThreads, smem,
+  kern<<<(B + bt - 1) / bt, Resident<W>::kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1293,8 +1855,9 @@ extern "C" {
 
 // Each entry point below has a twin with the suffix _bf16 that takes the
 // weights (w_ih, w_hh, b_ih, b_hh, ro_w, ro_b) as bfloat16; x0, h0 and the
-// noise are float32 either way (in bf16, holding bf16 values), and so is
-// the output.
+// noise are float32 either way (in bf16 the kernels round them to bf16 as
+// they read them), and so is the output.  The resident twins run
+// mma_body: split 0 (no k split), bt a multiple of 16.
 
 // CRVAE free run, streamed route: tiles of M rows, one block a (tile,
 // head); T launches.  x0 (B, D), h0 (B, H) shared by all heads, noise
@@ -1422,9 +1985,13 @@ int vcx_errvae_sample_resident_bf16(const float* h0, const void* w_ih,
 // (the wrapper holds its own sizing to this), and its threads, into out[2].
 void vcx_resident_block(int nh, int bt, int D, int H, int O, int noise,
                         int half, long long* out) {
-  out[0] = resident_smem_floats(nh, bt, D, H, O, noise != 0, half != 0) *
-           sizeof(float);
-  out[1] = kResidentThreads;
+  if (half) {
+    out[0] = (long long)Resident<bf16>::smem(nh, bt, D, H, O, noise != 0);
+    out[1] = Resident<bf16>::kThreads;
+  } else {
+    out[0] = (long long)Resident<float>::smem(nh, bt, D, H, O, noise != 0);
+    out[1] = Resident<float>::kThreads;
+  }
 }
 
 // The limits the routes are chosen by, into out[4]: opt-in shared memory

@@ -22,14 +22,16 @@ and allocates the state and x scratch); one
 launch a time step on the current stream, the steps after the first
 programmatic dependent launches.  Shapes that neither route takes raise.
 
-Each kernel has a float32 and a bfloat16 instantiation, chosen by the
-weights' dtype (bf16 serving, JAX's ``dtype=bfloat16``): in bf16 the
-weights stay bf16 (half the shared memory on the resident route, which
-``rollout_route`` counts; the streamed route widens them to float32 as it
-packs them, see ``csrc/rollout.cu``), x0, h0 and the noise are rounded to
-bf16, the products are accumulated and the gates computed in float32, each
-step's new state and emitted x are rounded to bf16, and the output is
-float32.  The plain versions do the same casts
+Each kernel has a float32 and a bfloat16 version, chosen by the weights'
+dtype (bf16 serving, JAX's ``dtype=bfloat16``): in bf16 the weights stay
+bf16 (on the resident route its own body, on the tensor cores: bf16
+weights and state rows in shared memory, ``mma.sync`` with float32 sums,
+tiles of a multiple of 16 rows and no k split, sized by
+``mma_smem_bytes``; the streamed route widens them to float32 as it packs
+them, see ``csrc/rollout.cu``), the kernels round x0, h0 and the noise to
+bf16 as they read them, the products are accumulated and the gates
+computed in float32, each step's new state and emitted x are rounded to
+bf16, and the output is float32.  The plain versions do the same casts
 in PyTorch.  Each instantiation has its own counts (``crvae_free_run_bf16``,
 ``errvae_sample_bf16``).  Sums are taken in another order than the plain
 versions' ``einsum``, so the two agree to float32 rounding in float32 and
@@ -82,6 +84,23 @@ SPLITS = (4, 2)
 # a split of 4 halves; a fuller block keeps the split of 2, whose fewer
 # exchanges and loads win there (tools/torch_rollout_tiles.py).
 SPLIT4_MAX_LANES = 192
+# The bf16 resident body (rollout.cu mma_body): threads of a block (24
+# warps, one block an SM); an item's rows and units (16 x 8, an mma's m and
+# n) and an mma's k; its batch tiles, widest first.
+MMA_THREADS = 768
+MMA_ROWS, MMA_UNITS, MMA_K = 16, 8, 16
+MMA_TILES = (128, 112, 96, 80, 64, 48, 32, 16)
+# mma_step_cost's terms, in microseconds of an H100 (fitted to
+# tools/torch_rollout_tiles.py --bf16 on one, 700 W: K1 at p=20 on 7-block
+# clusters, K2 at d=20, H=64 and d=40, H=128, B=3072): a step's fixed part;
+# an item's update and bookkeeping; each k16 of its product; each k of a
+# readout dot; all but the fixed part spread over the block's warps.
+MMA_STEP_US, MMA_ITEM_US, MMA_K16_US, MMA_DOT_US = 1.2, 0.99, 0.284, 4.66e-4
+# An H100's SMs sit in graphics processing clusters of 16 or more, and a
+# thread-block cluster never spans two: the card held 30, 22, 17, 15, 15, 7
+# and 7 clusters of 4, 5, 6, 7, 8, 10 and 16 one-block-an-SM blocks
+# (cudaOccupancyMaxActiveClusters, tools/torch_rollout_tiles.py --bf16).
+GPC_SMS = 16
 
 
 def reset_launches() -> None:
@@ -132,18 +151,52 @@ def _as_f32(group):
         cast_weights(group, torch.float32)
 
 
-def weight_stride(hidden: int, elem: int = 4) -> int:
-    """Row stride of a resident block's staged W^T rows (rollout.cu
-    ``res_weight_stride``): B1's in float32; in bf16 (``elem`` 2) 3U padded
-    to 32 past a multiple of 64."""
-    if elem == 4:
-        return fwd_weight_stride(hidden)
-    g = 3 * fwd_units(hidden)
-    return g + (96 - g % 64) % 64
-
-
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def mma_dims(d: int, hidden: int) -> tuple[int, int, int]:
+    """(Kx, Kh, Hu) of the bf16 resident body: the input and state widths
+    rounded up to an mma's k, the units of a gate to an item's (rollout.cu
+    ``mma_kx``, ``mma_kh``, ``mma_units``)."""
+    return (_round_up(d, MMA_K), _round_up(hidden, MMA_K),
+            _round_up(hidden, MMA_UNITS))
+
+
+def mma_ld(n: int) -> int:
+    """Row stride (bf16 elements) of the bf16 body's rows of ``n`` elements
+    (a multiple of 16): 8 past it, so that rows start 4 words apart modulo
+    8 and an ldmatrix phase's 8 rows meet in disjoint banks (rollout.cu
+    ``mma_ld``)."""
+    return n + 8
+
+
+def mma_smem_bytes(heads: int, bt: int, d: int, hidden: int, outs: int,
+                   noise: bool) -> int:
+    """Shared memory of a bf16 resident block (rollout.cu
+    ``mma_smem_bytes``), each region rounded up to 16 bytes: each head's
+    3 x Hu weight rows [W_ih | W_hh] at ``mma_ld(Kx + Kh)`` bf16, its four
+    bias rows of Hu floats, the readout rows and biases, two buffers of x
+    rows (``mma_ld(Kx)`` bf16) and of each head's state rows
+    (``mma_ld(Kh)``).  ``noise``: K1's block, its readout rows float32 (H
+    rounded up to 4) and two buffers of the noise columns (float32); else
+    K2's, its readout rows bf16 at ``mma_ld(Kh)``, ``outs`` rounded up to
+    8 (the readout mma's B operand)."""
+    kx, kh, hu = mma_dims(d, hidden)
+    r16 = lambda n: _round_up(n, 16)    # noqa: E731
+    ro = (heads * outs * _round4(hidden) * 4 if noise
+          else _round_up(outs, MMA_UNITS) * mma_ld(kh) * 2)
+    return (r16(heads * 3 * hu * mma_ld(kx + kh) * 2) + r16(heads * 4 * hu * 4)
+            + r16(ro) + r16(heads * outs * 4)
+            + r16(2 * bt * mma_ld(kx) * 2)
+            + r16(2 * heads * bt * mma_ld(kh) * 2)
+            + (2 * heads * outs * bt * 4 if noise else 0))
+
+
+def mma_items(heads: int, bt: int, hidden: int) -> int:
+    """Items of a bf16 resident block's step: 16 rows x 8 units of one
+    head, each a warp's in turn."""
+    return heads * (bt // MMA_ROWS) * (mma_dims(1, hidden)[2] // MMA_UNITS)
 
 
 def stream_dims(d: int, hidden: int) -> tuple[int, int]:
@@ -233,13 +286,15 @@ def _round4(n: int) -> int:
 
 def resident_smem_bytes(heads: int, bt: int, d: int, hidden: int, outs: int,
                         noise: bool, elem: int = 4) -> int:
-    """Shared memory of a resident block of ``heads`` heads (rollout.cu
-    ``resident_smem_floats``): each head's W_ih^T and W_hh^T at
-    ``weight_stride``, in weights of ``elem`` bytes (4 float32, 2 bf16),
-    the readout rows and biases, two buffers of x (d columns) and of every
-    head's state, and two of the noise columns (float32)."""
+    """Shared memory of a resident block of ``heads`` heads with weights of
+    ``elem`` bytes.  float32 (rollout.cu ``resident_smem_floats``): each
+    head's W_ih^T and W_hh^T at B1's row stride, the readout rows and
+    biases, two buffers of x (d columns) and of every head's state, and two
+    of the noise columns.  bf16 (``elem`` 2): ``mma_smem_bytes``."""
+    if elem == 2:
+        return mma_smem_bytes(heads, bt, d, hidden, outs, noise)
     ld_row = fwd_units(hidden) + 1
-    weights = _round4((d + hidden) * weight_stride(hidden, elem) * elem // 4)
+    weights = _round4((d + hidden) * fwd_weight_stride(hidden))
     return 4 * (heads * weights + _round4(heads * outs * ld_row)
                 + _round4(heads * outs) + 2 * d * bt
                 + 2 * heads * ld_row * bt
@@ -254,9 +309,10 @@ def gate_threads(heads: int, bt: int, hidden: int, split: int) -> int:
 
 
 def resident_split(heads: int, bt: int, hidden: int) -> int | None:
-    """The k split of a resident block of ``heads`` heads of ``bt`` rows: 4
-    where its gate tiles at a split of 2 hold at most ``SPLIT4_MAX_LANES``
-    lanes, else 2; None when they do not fit the block even at 2."""
+    """The k split of a float32 resident block of ``heads`` heads of ``bt``
+    rows: 4 where its gate tiles at a split of 2 hold at most
+    ``SPLIT4_MAX_LANES`` lanes, else 2; None when they do not fit the block
+    even at 2.  (The bf16 body splits no k: its plans hold 0.)"""
     lanes = gate_threads(heads, bt, hidden, 2)
     if lanes > RESIDENT_THREADS:
         return None
@@ -283,19 +339,80 @@ class RolloutPlan(NamedTuple):
     scratch: int = 0
 
 
+def mma_step_cost(bt: int, heads: int, d: int, hidden: int, outs: int,
+                  batch: int, k1: bool) -> float:
+    """A bf16 resident block's step in microseconds (``MMA_*_US``) at a
+    tile of ``bt`` rows of which ``min(bt, batch)`` are live: the items of
+    its live 16-row tiles and its readout (K1: a dot over H a row and
+    column; K2: an mma item a 16-row tile and 8 outputs), spread over its
+    warps, and the step's fixed part."""
+    kx, kh, _ = mma_dims(d, hidden)
+    live = min(bt, batch)
+    rows = _round_up(live, MMA_ROWS)
+    readout = (heads * outs * live * hidden * MMA_DOT_US if k1
+               else rows // MMA_ROWS * -(-outs // MMA_UNITS) * MMA_K16_US
+               * kh / MMA_K)
+    work = (mma_items(heads, rows, hidden)
+            * (MMA_ITEM_US + MMA_K16_US * (kx + kh) / MMA_K) + readout)
+    return MMA_STEP_US + work / (MMA_THREADS // 32)
+
+
+def clusters_held(cluster: int, n_sm: int) -> int:
+    """Clusters of ``cluster`` one-block-an-SM blocks the card holds at
+    once: ``GPC_SMS // cluster`` in each of ``n_sm // GPC_SMS`` graphics
+    processing clusters, less one (an H100 held one fewer at each size
+    from 4 to 16 but 6, where it held two more)."""
+    return max(1, (n_sm // GPC_SMS) * (GPC_SMS // cluster) - 1)
+
+
+def _mma_tile(batch: int, heads: int, d: int, hidden: int, outs: int,
+              noise: bool, held: int, optin: int):
+    """(cost, tile) of a bf16 resident block of ``heads`` heads of ``outs``
+    readout columns (``noise``: K1's block, else K2's), or None when no
+    tile fits ``optin`` bytes: the tile of ``MMA_TILES`` with the least
+    rounds of tiles over the ``held`` blocks or clusters the card holds at
+    once times ``mma_step_cost``, the narrower on a tie."""
+    def cost(bt):
+        tiles = -(-batch // bt)
+        return -(-tiles // held) * mma_step_cost(bt, heads, d, hidden, outs,
+                                                 batch, noise)
+
+    fitting = [bt for bt in reversed(MMA_TILES)
+               if mma_smem_bytes(heads, bt, d, hidden, outs, noise) <= optin]
+    return min(((cost(bt), bt) for bt in fitting), default=None)
+
+
+def _mma_cluster(batch: int, heads: int, hidden: int, limits):
+    """(cluster, heads a block, tile) of K1's bf16 resident kernel, or None
+    when no block fits: over every cluster size up to the largest, with
+    the fewest heads a block it needs, and each tile, the least
+    ``_mma_tile`` cost on ``clusters_held`` clusters; the fewer heads a
+    block on a tie."""
+    optin, n_sm, largest = limits[0], limits[2], limits[5]
+    best = None
+    for hpb in range(1, heads + 1):
+        cluster = -(-heads // hpb)
+        if cluster > largest or cluster * (hpb - 1) >= heads:
+            continue                  # too large, or fewer heads suffice
+        got = _mma_tile(batch, hpb, heads, hidden, 1, True,
+                        clusters_held(cluster, n_sm), optin)
+        if got is not None and (best is None or got[0] < best[0]):
+            best = (got[0], cluster, hpb, got[1])
+    return None if best is None else best[1:]
+
+
 def _cluster_tile(batch: int, heads: int, d: int, hidden: int, cluster: int,
-                  limits, elem: int = 4) -> int | None:
-    """Batch tile of K1's resident kernel on clusters of ``cluster`` blocks,
-    or None when no tile fits: the widest tile of ``FWD_TILES`` that fits a
-    block and still gives every cluster the card holds at once a tile (a
-    wider tile feeds each scheduler more warps), else the narrowest that
-    fits.  The card is taken to hold one cluster for every ``cluster`` of
-    its SMs (an SM holds one resident block)."""
+                  limits) -> int | None:
+    """Batch tile of K1's float32 resident kernel on clusters of
+    ``cluster`` blocks, or None when no tile fits: the widest tile of
+    ``FWD_TILES`` that fits a block and still gives every cluster the card
+    holds at once a tile (a wider tile feeds each scheduler more warps),
+    else the narrowest that fits.  The card is taken to hold one cluster
+    for every ``cluster`` of its SMs (an SM holds one resident block)."""
     optin, n_sm = limits[0], limits[2]
     hpb = -(-heads // cluster)
     fitting = [bt for bt in FWD_TILES
-               if resident_smem_bytes(hpb, bt, d, hidden, 1, True, elem)
-               <= optin
+               if resident_smem_bytes(hpb, bt, d, hidden, 1, True) <= optin
                and resident_split(hpb, bt, hidden) is not None]
     for bt in fitting:
         if -(-batch // bt) >= n_sm // cluster:
@@ -314,46 +431,60 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
 
     ``kind``: ``"crvae"`` (K1, ``heads`` heads over an input of d = heads
     columns, one output each) or ``"errvae"`` (K2, one head, d outputs).
-    ``"resident"`` where every weight of a block fits its shared memory:
-    K1 on a cluster of the fewest heads per block that a portable cluster
-    holds (else a larger, non-portable one), the heads spread evenly over
-    as few blocks as that needs; K2 on one block a tile, its tile by B1's
-    cost model (``fwd_step_cost``), a tie to the narrower tile.  The k
-    split of a resident block by ``resident_split``.  Else ``"streamed"``,
+    ``"resident"`` where every weight of a block fits its shared memory.
+    float32: K1 on a cluster of the fewest heads per block that a portable
+    cluster holds (else a larger, non-portable one), the heads spread
+    evenly over as few blocks as that needs; K2 on one block a tile, its
+    tile by B1's cost model (``fwd_step_cost``), a tie to the narrower
+    tile; the k split of a block by ``resident_split``.  bf16: the
+    tensor-core body, K1's cluster, heads a block and tile by
+    ``_mma_cluster``, K2's tile by ``_mma_tile``.  Else ``"streamed"``,
     one head a block, at ``stream_tile``'s tile.  Raises ValueError when
     neither route fits.
     """
     optin, _, n_sm, _, portable, largest = limits
+    threads = RESIDENT_THREADS if elem == 4 else MMA_THREADS
     if kind == "crvae":
         if d != heads:
             raise ValueError(f"crvae rollout: input width {d} != heads {heads}")
-        for cap in (portable, largest):
-            hpb = -(-heads // min(cap, heads))
-            cluster = -(-heads // hpb)      # as few blocks as hpb a block needs
-            bt = _cluster_tile(batch, heads, d, hidden, cluster, limits,
-                               elem)
-            if bt is not None:
+        if elem == 2:
+            picked = _mma_cluster(batch, heads, hidden, limits)
+            if picked is not None:
+                cluster, hpb, bt = picked
                 return RolloutPlan(
-                    "resident", cluster, hpb, bt,
-                    resident_split(hpb, bt, hidden), RESIDENT_THREADS,
-                    resident_smem_bytes(hpb, bt, d, hidden, 1, True, elem))
+                    "resident", cluster, hpb, bt, 0, threads,
+                    mma_smem_bytes(hpb, bt, d, hidden, 1, True))
+        else:
+            for cap in (portable, largest):
+                hpb = -(-heads // min(cap, heads))
+                cluster = -(-heads // hpb)  # as few blocks as hpb a block needs
+                bt = _cluster_tile(batch, heads, d, hidden, cluster, limits)
+                if bt is not None:
+                    return RolloutPlan(
+                        "resident", cluster, hpb, bt,
+                        resident_split(hpb, bt, hidden), threads,
+                        resident_smem_bytes(hpb, bt, d, hidden, 1, True))
     elif kind == "errvae":
         if heads != 1:
             raise ValueError(f"errvae rollout: {heads} heads, expected 1")
-        # Narrowest first: a tie goes to the narrower tile, whose step (the
-        # chain a small batch waits on) is shorter.
-        tiles = [n for n in sorted(FWD_TILES)
-                 if resident_split(1, n, hidden) is not None]
-        bt = fit_tile(
-            batch, 1, hidden, tiles,
-            lambda n: resident_smem_bytes(1, n, d, hidden, d, False, elem),
-            lambda *_: RESIDENT_THREADS,
-            lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
-            (*limits[:3], RESIDENT_THREADS))    # one block an SM
+        if elem == 2:     # one block an SM
+            got = _mma_tile(batch, 1, d, hidden, d, False, n_sm, optin)
+            bt = None if got is None else got[1]
+        else:
+            # Narrowest first: a tie goes to the narrower tile, whose step
+            # (the chain a small batch waits on) is shorter.
+            tiles = [n for n in sorted(FWD_TILES)
+                     if resident_split(1, n, hidden) is not None]
+            bt = fit_tile(
+                batch, 1, hidden, tiles,
+                lambda n: resident_smem_bytes(1, n, d, hidden, d, False),
+                lambda *_: RESIDENT_THREADS,
+                lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
+                (*limits[:3], RESIDENT_THREADS))    # one block an SM
         if bt is not None:
             return RolloutPlan(
-                "resident", 1, 1, bt, resident_split(1, bt, hidden),
-                RESIDENT_THREADS,
+                "resident", 1, 1, bt,
+                resident_split(1, bt, hidden) if elem == 4 else 0, threads,
                 resident_smem_bytes(1, bt, d, hidden, d, False, elem))
     else:
         raise ValueError(f"unknown rollout kind {kind!r}")
@@ -361,12 +492,12 @@ def rollout_route(kind: str, heads: int, batch: int, d: int, hidden: int,
     try:
         m = stream_tile(batch, heads, d, hidden, outs, optin, n_sm)
     except ValueError as e:
+        least = resident_smem_bytes(1, 4 if elem == 4 else MMA_ROWS, d,
+                                    hidden, 1, False, elem)
         raise ValueError(
             f"{kind} rollout: at {heads} heads, D={d}, H={hidden} neither "
             f"route fits the device's {optin} bytes of shared memory a "
-            f"block: one head's weights need "
-            f"{resident_smem_bytes(1, 4, d, hidden, 1, False, elem)} "
-            f"resident; {e}") from None
+            f"block: one head's weights need {least} resident; {e}") from None
     return RolloutPlan("streamed", 1, 1, m, 0, stream_threads(m, hidden),
                        stream_smem_bytes(m, d, hidden, outs),
                        heads * -(-batch // m),
@@ -589,9 +720,6 @@ def crvae_free_run_fused(heads: GRUParams, readout: Dense, x0: torch.Tensor,
     half = dtype == torch.bfloat16
     plan, launch = _plan("crvae", p, b, p, hidden, dev, 2 if half else 4)
     out = torch.empty((b, t_len, p), device=dev, dtype=torch.float32)
-    if plan.route == "resident":    # the streamed kernel rounds as it reads
-        rnd = _carries(dtype)
-        x0, h0_shared, noise = rnd(x0), rnd(h0_shared), rnd(noise)
     inputs = (x0.contiguous(), h0_shared.contiguous(), noise.contiguous())
     biases = (heads.b_ih.contiguous(), heads.b_hh.contiguous(),
               readout.w.contiguous(), readout.b.contiguous())
@@ -650,8 +778,6 @@ def errvae_sample_fused(dec: GRUParams, out: Dense, h0: torch.Tensor,
     half = dtype == torch.bfloat16
     plan, _ = _plan("errvae", 1, b, d, hidden, dev, 2 if half else 4)
     res = torch.empty((b, t_len, d), device=dev, dtype=torch.float32)
-    if plan.route == "resident":    # the streamed kernel rounds as it reads
-        h0 = _carries(dtype)(h0)
     biases = (dec.b_ih.contiguous(), dec.b_hh.contiguous(),
               out.w.contiguous(), out.b.contiguous())
     if plan.route == "resident":

@@ -46,18 +46,24 @@ def adam_update(grads, state: AdamState, params, lr: float, b1: float = 0.9,
                 eps_root: float = 0.0):
     """One Adam step; ``grads`` is a tree shaped like ``params``.  Returns
     (new params, new state)."""
-    count = state.count + 1
-    c = count.to(torch.float32)
+    mu, nu = [], []
+    for gi, m, v in zip(tree_leaves(grads), tree_leaves(state.mu),
+                        tree_leaves(state.nu)):
+        mu.append((1 - b1) * gi + b1 * m)
+        nu.append((1 - b2) * (gi * gi) + b2 * v)
+    new = AdamState(count=state.count + 1, mu=tree_unflatten(params, mu),
+                    nu=tree_unflatten(params, nu))
+    return adam_apply(params, new, lr, b1, b2, eps, eps_root), new
+
+
+def adam_apply(params, state: AdamState, lr: float, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0):
+    """``params`` moved by Adam's step from ``state``, whose moments and
+    count already hold this step's gradient (``adam_update``'s second
+    half)."""
+    c = state.count.to(torch.float32)
     bc1, bc2 = 1 - torch.pow(b1, c), 1 - torch.pow(b2, c)
-    mu, nu, new = [], [], []
-    for p, gi, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                           tree_leaves(state.mu), tree_leaves(state.nu)):
-        m = (1 - b1) * gi + b1 * m
-        v = (1 - b2) * (gi * gi) + b2 * v
-        upd = (m / bc1) / (torch.sqrt(v / bc2 + eps_root) + eps)
-        mu.append(m)
-        nu.append(v)
-        new.append(p + (-lr) * upd)
-    return (tree_unflatten(params, new),
-            AdamState(count=count, mu=tree_unflatten(params, mu),
-                      nu=tree_unflatten(params, nu)))
+    new = [p + (-lr) * ((m / bc1) / (torch.sqrt(v / bc2 + eps_root) + eps))
+           for p, m, v in zip(tree_leaves(params), tree_leaves(state.mu),
+                              tree_leaves(state.nu))]
+    return tree_unflatten(params, new)
