@@ -31,9 +31,12 @@
      and tolerance: the chain's gate gradients gh and dh0, the
      weight-gradient kernel's dx, dW and db from the plain gh; and two B2
      calls on the same inputs must give bitwise-equal gradients.  The same
-     checks of the wide variants (W_ih^T read from global memory) at
+     checks of the wide variants (B1 reading W_ih^T from global memory;
+     B2's chain as the input projection, held against x W_ih^T + b_ih at
+     ``XPROJ_TOL``, and the walk on clusters, its plan printed) at
      ``lorenz96_scaled``'s decoder (P=40, B=512, T=30, D=40, H=128, a
-     random parents mask) and encoder (P=1, T=10) shapes; and on the
+     random parents mask) and encoder (P=1, T=10) shapes and
+     ``lorenz96_xl``'s decoder (P=128, B=64, T=30, D=128); and on the
      kernel route at the W_in family's shapes: henon6d_win's decoder (6
      heads, B=256, T=10, a per-head x of width 64, dx on), the 8-seed fold
      of it (48 heads), its ErrorVAE (1 head, D=6, H=32) and var_crvae's
@@ -214,7 +217,9 @@
    B=1 and B=3072 on both routes (resident at p=20, H=64; streamed at
    p=40 and p=128, H=128), and phase-1
    steps/s through ``make_phase1_step`` (B1/B2) and ``fused_phase1_step``
-   (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes;
+   (B3); the wide variants the same way at ``lorenz96_scaled``'s shapes
+   and B2 at ``lorenz96_xl``'s heads, with the wide chain's plan, its
+   time beside its share of the bound and the projection's;
    the sweep's steps/s and seed-steps/s at p=10 and p=20 for 1, 8 and 32
    seeds beside ``fit_phase1``'s, its device busy share, kernels and draw
    kernels a step, and B1/B2 at S * p heads beside their bound; the W_in
@@ -261,6 +266,17 @@ CHECK_BATCHES = (1, 8, 37, SERVE_B)
 CTX, ENC, TRAIN_B, SERIES_T = 20, 10, 256, 2048
 OUT_TOL = 1e-5                              # B1 outputs, absolute
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)       # B2 gradients
+# The wide chain's input projection against x W_ih^T + b_ih: sums of D <=
+# 128 float32 products in another order.
+XPROJ_TOL = dict(rtol=1e-5, atol=1e-5)
+# The wide chain's gh and dh0 against the plain chain, besides GRAD_TOL:
+# its products run as three TF32 passes each, which keep a float32
+# product's accuracy, and this limit holds them to it.  A build whose
+# products take one TF32 pass (tools/torch_gru_wide_probe.py --control)
+# must fail it: on an H100 at the three wide cases the chain read 0.09-0.14
+# of this limit (max abs 4.1-4.5e-6), the one-pass build 55-74x it (max
+# abs 2.2-2.6e-3).
+WIDE_CHAIN_TOL = dict(rtol=1e-5, atol=2e-5)
 # B2's weight gradients at lorenz96_scaled's shapes sum B*T = 15,360 rows
 # of values up to ~470: there the float32 plain version itself departs from
 # a float64 one by more than GRAD_TOL (5.3e-4 on dW_ih), so each gradient
@@ -366,8 +382,11 @@ BF16_SHAPES = ((P, H, SERVE_B), (P, H, 1), (SCALED_P, SCALED_H, SERVE_B),
 # windows of 20 would take 16 GB), OOC_RATE_STEPS steps a fit.
 OOC_STEPS, OOC_ROWS, OOC_SIM, OOC_RATE_STEPS = 300, 10_000_000, 20_000, 400
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, bf16 in them, and HBM3 bandwidth.
-F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
+# cores, bf16 and TF32 in them, and HBM3 bandwidth.
+F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 67e12, 989e12, 495e12
+HBM_BYTES_S = 3.35e12
+# A float32 product as three TF32 passes (the wide chain's products).
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 
 def log(*a):
@@ -416,6 +435,38 @@ def gru_cost(p, b, t, d, hidden, backward: bool, per_head: bool = False):
     flops = fwd + 2 * p * b * t * g * (2 * hidden + d)
     return flops, 4 * (x + 2 * weights + p * b * hidden + b * hidden
                        + 2 * states)
+
+
+def chain_cost(p, b, t, d, hidden):
+    """(flops, bytes) of B2's chain alone (the wide route's projection and
+    walk): the rematerialised gates (the forward's products) and d h_prev;
+    x, the weights, h0, outs and douts read once, gh and dh0 written
+    once."""
+    g = 3 * hidden
+    flops = 2 * p * b * t * g * (d + hidden) + 2 * p * b * t * g * hidden
+    states = p * b * t * hidden
+    return flops, 4 * (b * t * d + p * (g * d + g * hidden + 2 * g)
+                       + b * hidden + 2 * states + 4 * states + p * b * hidden)
+
+
+def b2_wide_bound(p, b, t, d, hidden):
+    """(ms, by) bound of one wide B2 launch: the chain's products at
+    ``TF32X3_FLOPS`` (they run as three TF32 passes on the tensor cores),
+    then the weight gradients' at ``F32_FLOPS`` (another kernel, after
+    it), against gru_cost's bytes."""
+    flops, nbytes = gru_cost(p, b, t, d, hidden, backward=True)
+    chain = chain_cost(p, b, t, d, hidden)[0]
+    t_ops = (chain / TF32X3_FLOPS + (flops - chain) / F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def xproj_cost(p, b, t, d, hidden):
+    """(flops, bytes) of the wide chain's input projection: x W_ih^T for
+    every head, x and the weights read once, (P, B, T, 3H) written."""
+    g = 3 * hidden
+    return (2 * p * b * t * g * d,
+            4 * (b * t * d + p * (g * d + g) + p * b * t * g))
 
 
 def step_cost(p, b, t, e, hidden):
@@ -948,26 +999,58 @@ def _flat(tensors):
     return torch.cat([t.reshape(-1) for t in tensors])
 
 
+def wide_training_cases():
+    """The wide route's cases of ``check_training_kernels`` (name, heads,
+    batch, steps, D, H, per-head input, h0 shape, mask)."""
+    sd, sh, sb = SCALED_P, SCALED_H, SCALED_B
+    return [
+        # lorenz96_scaled's decoder heads and encoder.
+        ("scaled decoder", sd, sb, SCALED_CTX - ENC, sd, sh, False,
+         (1, sb, sh), True),
+        ("scaled encoder", 1, sb, ENC, sd, sh, False, (1, sb, sh), False),
+        # lorenz96_xl's decoder heads (p=128, batch 64, context 40).
+        ("xl decoder", XL_P, XL_B, XL_CTX - ENC, XL_P, XL_H, False,
+         (1, XL_B, XL_H), True),
+    ]
+
+
+def training_inputs(dev, heads, b, td, d, hid, per_head, h0_shape, masked):
+    """(params, x, h0, douts) of a ``check_training_kernels`` case, drawn
+    from a generator seeded by batch + heads; a random parents mask on
+    W_ih when ``masked``."""
+    import torch
+
+    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+
+    g = torch.Generator().manual_seed(b + heads)
+    params = init_stacked_gru(g, heads, d, hid, device=dev)
+    if masked:
+        mask = (torch.rand((heads, d), generator=g) > 0.3).float().to(dev)
+        params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
+                           params.b_ih, params.b_hh)
+    x = torch.randn((heads, b, td, d) if per_head else (b, td, d),
+                    generator=g).to(dev)
+    h0 = torch.randn(h0_shape, generator=g).to(dev)
+    douts = torch.randn((heads, b, td, hid), generator=g).to(dev)
+    return params, x, h0, douts
+
+
 def check_training_kernels(dev, errors):
     """Phase 3b: B1/B2 and B3 against their plain versions, on the card."""
     import torch
 
     from vae_connexe_torch.models import CRVAE
     from vae_connexe_torch.ops import cuda_gru, cuda_step
-    from vae_connexe_torch.ops.gru import GRUParams, init_stacked_gru
+    from vae_connexe_torch.ops.gru import GRUParams
     from vae_connexe_torch.train import Phase1Config
     from vae_connexe_torch.utils.tree import tree_leaves
 
     td = CTX - ENC
-    sd, sh, sb = SCALED_P, SCALED_H, SCALED_B
     cases = [  # (name, heads, batch, steps, D, H, per-head input, h0, mask)
         ("decoder", P, TRAIN_B, td, P, H, False, (1, TRAIN_B, H), False),
         ("encoder", 1, TRAIN_B, td, P, H, False, (1, TRAIN_B, H), False),
         ("ragged per-head", P, 37, td, P, H, True, (P, 37, H), True),
-        # lorenz96_scaled's decoder heads and encoder: the wide variants.
-        ("scaled decoder", sd, sb, SCALED_CTX - ENC, sd, sh, False,
-         (1, sb, sh), True),
-        ("scaled encoder", 1, sb, ENC, sd, sh, False, (1, sb, sh), False),
+        *wide_training_cases(),
         # The W_in family: henon6d_win's decoder (its per-head x_sel of
         # width H, dx on), the 8-seed fold of it, its ErrorVAE (H // 2),
         # and var_crvae's decoder (d=5, batch 16).
@@ -988,22 +1071,14 @@ def check_training_kernels(dev, errors):
         ("vrae encoder", 1, 32, 20, CRVAE_P, H, False, (1, 32, H), False),
     ]
     limits = cuda_gru.device_limits(dev)
-    for what, heads, b, td, d, hid, per_head, h0_shape, masked in cases:
+    for case in cases:
+        what, heads, b, td, d, hid = case[:6]
         wide = cuda_gru.recurrence_route(heads, b, d, hid, limits) == "wide"
-        if wide != what.startswith("scaled"):
+        if wide != what.startswith(("scaled", "xl")):
             raise AssertionError(f"{what}: route {'wide' if wide else 'kernel'}")
         fwd, bwd = (("gru_forward_wide", "gru_backward_wide") if wide else
                     ("gru_forward", "gru_backward"))
-        g = torch.Generator().manual_seed(b + heads)
-        params = init_stacked_gru(g, heads, d, hid, device=dev)
-        if masked:
-            mask = (torch.rand((heads, d), generator=g) > 0.3).float().to(dev)
-            params = GRUParams(params.w_ih * mask[:, None, :], params.w_hh,
-                               params.b_ih, params.b_hh)
-        x = torch.randn((heads, b, td, d) if per_head else (b, td, d),
-                        generator=g).to(dev)
-        h0 = torch.randn(h0_shape, generator=g).to(dev)
-        douts = torch.randn((heads, b, td, hid), generator=g).to(dev)
+        params, x, h0, douts = training_inputs(dev, *case[1:])
         res = []
         for fn in (cuda_gru.gru_scan_heads_fused,
                    cuda_gru.gru_scan_heads_fused_plain):
@@ -1168,6 +1243,10 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
     torch.cuda.synchronize()
     _assert_close(name, _flat([k_gh, k_dh0]), _flat([r_gh, r_dh0]),
                   errors, **GRAD_TOL, what=f"{what} chain kernel: gh dh0")
+    if long_sums:
+        _assert_close(name, _flat([k_gh, k_dh0]), _flat([r_gh, r_dh0]),
+                      errors, **WIDE_CHAIN_TOL,
+                      what=f"{what} wide chain, float32 accuracy: gh dh0")
     _assert_grads(name, k_w, r_w, errors, long_sums,
                   f"{what} weight-gradient kernel: dx dW_ih db_ih dW_hh "
                   f"db_hh{' (float64 plain)' if f64_ref else ''}")
@@ -1175,6 +1254,39 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
     log(f"check {name} {what}: two calls bitwise equal: {same}")
     if not same:
         raise AssertionError(f"{name} is not deterministic")
+    if long_sums:
+        # The wide chain: its plan, and its input projection (the first
+        # kernel of the chain's call) against x W_ih^T + b_ih.
+        plan = wide_chain_line(outs.shape, x.shape[-1], outs.device)
+        log(f"plan {name} {what}: {plan}")
+        _assert_close(name, cuda_gru.bwd_xproj(params.w_ih, params.b_ih, x),
+                      cuda_gru.xproj_plain(params.w_ih, params.b_ih, x),
+                      errors, **XPROJ_TOL,
+                      what=f"{what} input projection (gru_xproj_kernel)")
+
+
+def wide_chain_line(outs_shape, d, dev) -> str:
+    """The wide chain's plan at outs (P, B, T, H) and input width d:
+    cluster, tile, threads, shared memory and grid, the block's shared
+    memory, threads and cluster also read from the library (they must
+    agree with ``cuda_gru``'s)."""
+    import ctypes
+
+    from vae_connexe_torch.ops import _build, cuda_gru
+
+    p, b, _, hidden = outs_shape
+    bt = cuda_gru.wide_chain_plan(b, p, hidden, cuda_gru.device_limits(dev))
+    cluster = cuda_gru.WIDE_CLUSTER
+    smem = cuda_gru.wide_chain_smem_bytes(bt, hidden)
+    threads = cuda_gru.wide_chain_threads(bt, hidden)
+    got = (ctypes.c_longlong * 3)()
+    _build.gru_library().vcx_wide_chain_block(bt, hidden, got)
+    if tuple(got) != (smem, threads, cluster):
+        raise AssertionError(f"wide chain block: library {tuple(got)}, "
+                             f"cuda_gru {(smem, threads, cluster)}")
+    return (f"cluster {cluster}, tile {bt} rows, {threads} threads, "
+            f"{smem} B shared, grid "
+            f"({-(-b // bt) * cluster}, {p}), d={d}")
 
 
 def lorenz_windows(dev, p, seed, ctx=CTX, t=SERIES_T):
@@ -1786,8 +1898,33 @@ def time_recurrence(dev, card, g, heads, b, td, d, hid):
         *w, x, h0b, outs, douts, need_dx=False), 50)
     row["bwd_device_ms"] = sum(dev_ms.values())
     for key, name in (("chain_device_ms", "gru_chain"),
-                      ("wgrad_device_ms", "gru_wgrad_kernel")):
+                      ("wgrad_device_ms", "gru_wgrad_kernel"),
+                      ("xproj_device_ms", "gru_xproj_kernel")):
         row[key] = sum(v for k, v in dev_ms.items() if name in k)
+    if cuda_gru.recurrence_route(heads, b, d, hid,
+                                 cuda_gru.device_limits(dev)) == "wide":
+        # The wide chain: its plan, its time beside its share of the bound
+        # (the chain's own work, chain_cost: at the f32 rate, and at the
+        # rate of three TF32 passes a product, which its products run at),
+        # the projection's, and B2's.
+        row["chain_plan"] = wide_chain_line(outs.shape, d, dev)
+        row["chain_bound_ms"] = bound(*chain_cost(heads, b, td, d, hid))[0]
+        row["chain_bound_tf32x3_ms"] = bound(
+            *chain_cost(heads, b, td, d, hid), TF32X3_FLOPS)[0]
+        row["xproj_ms"] = time_ms(lambda: cuda_gru.bwd_xproj(
+            params.w_ih, params.b_ih, x), 100)
+        row["xproj_bound_ms"] = bound(*xproj_cost(heads, b, td, d, hid))[0]
+        log(f"time wide chain P={heads} B={b} T={td} D={d} H={hid}: "
+            f"{row['chain_plan']}; chain {row['chain_ms']:.4f} ms (device "
+            f"{row['chain_device_ms']:.4f} walk + {row['xproj_device_ms']:.4f}"
+            f" projection) against its bound {row['chain_bound_ms']:.4f} ms "
+            f"at f32 ({row['chain_bound_ms'] / row['chain_ms']:.1%}), "
+            f"{row['chain_bound_tf32x3_ms']:.4f} ms at 3xTF32 "
+            f"({row['chain_bound_tf32x3_ms'] / row['chain_ms']:.1%}); "
+            f"projection "
+            f"alone {row['xproj_ms']:.4f} ms (bound "
+            f"{row['xproj_bound_ms']:.4f}); whole B2 {row['bwd_ms']:.4f} ms "
+            f"[{card}]")
     if heads == 1:
         gru = torch.nn.GRU(d, hid, batch_first=True).to(dev)
         with torch.no_grad():
@@ -1807,7 +1944,8 @@ def time_recurrence(dev, card, g, heads, b, td, d, hid):
         log(f"cuDNN nn.GRU vs B1 at B={b} T={td} D={d} H={hid}: "
             f"max_abs_err {e:.3e}")
     log(f"time recurrence P={heads} B={b} T={td} D={d} H={hid}: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" [{card}]")
+        + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                    if isinstance(v, float)) + f" [{card}]")
     return row
 
 
@@ -1832,7 +1970,10 @@ def recurrence_rows(fwd, bwd, enc, heads, heads_shape):
                   **{f"{pre}{k}": r[k] for pre, r in
                      (("", enc), ("heads_", heads))
                      for k in ("chain_ms", "wgrad_ms", "bwd_device_ms",
-                               "chain_device_ms", "wgrad_device_ms")}}},
+                               "chain_device_ms", "wgrad_device_ms",
+                               "xproj_device_ms", "chain_plan",
+                               "chain_bound_ms", "chain_bound_tf32x3_ms",
+                               "xproj_ms", "xproj_bound_ms") if k in r}}},
     }
 
 
@@ -1860,6 +2001,22 @@ def time_training(dev, card, windows):
         time_recurrence(dev, card, g, SCALED_P, SCALED_B, std, SCALED_P,
                         SCALED_H),
         (SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)))
+    # Wide B2's bound with its chain's products at the 3xTF32 rate.
+    res["gru_backward_wide"]["extra"]["heads_bound_tf32x3_ms"] = (
+        b2_wide_bound(SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)[0])
+    # lorenz96_xl's decoder heads on the wide route.
+    xd = XL_CTX - ENC
+    xl = time_recurrence(dev, card, g, XL_P, XL_B, xd, XL_P, XL_H)
+    res["gru_backward_wide"]["extra"]["xl_heads"] = {
+        **{k: xl[k] for k in ("bwd_ms", "bwd_plain_ms", "chain_ms",
+                              "wgrad_ms", "chain_device_ms",
+                              "xproj_device_ms", "wgrad_device_ms",
+                              "chain_plan", "chain_bound_ms",
+                              "chain_bound_tf32x3_ms", "xproj_ms",
+                              "xproj_bound_ms")},
+        "bound_ms": bound(*gru_cost(XL_P, XL_B, xd, XL_P, XL_H,
+                                    backward=True))[0],
+        "bound_tf32x3_ms": b2_wide_bound(XL_P, XL_B, xd, XL_P, XL_H)[0]}
 
     model = CRVAE(P, H, ENC)
     params = model.init(torch.Generator().manual_seed(8), dev)
@@ -4463,6 +4620,11 @@ def main() -> int:
     for name, ((flops, nbytes), source, replaces) in costs.items():
         bound_ms, bound_by = bound(flops, nbytes)
         row = times[name]
+        if name == "gru_backward_wide":
+            # Its chain's products run as three TF32 passes: bound at that
+            # rate, the f32 bound beside it.
+            row["extra"]["bound_f32_ms"] = bound_ms
+            bound_ms, bound_by = b2_wide_bound(*wide_enc)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

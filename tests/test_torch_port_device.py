@@ -254,12 +254,12 @@ def test_gru_forward_matches_plain_on_card(cuda_device, per_head, hidden):
 @pytest.mark.parametrize("d", [40, 128])
 @pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
 def test_gru_wide_matches_plain_on_card(cuda_device, per_head, d):
-    """The wide variants of B1 and B2's chain (W_ih^T read from global
-    memory) at hidden 128 with lorenz96_scaled's D=40 and lorenz96_xl's
-    D=128, where the two weights do not fit a block together: outputs
-    1e-5 absolute, gradients rtol 1e-3, atol 1e-4, the chain's gate
-    gradients against its plain phase, two calls bitwise equal, and only
-    the wide kernels launched."""
+    """The wide variants of B1 (W_ih^T read from global memory) and B2's
+    chain (the input projection, then the walk on clusters) at hidden 128
+    with lorenz96_scaled's D=40 and lorenz96_xl's D=128, where the two
+    weights do not fit a block together: outputs 1e-5 absolute, gradients
+    rtol 1e-3, atol 1e-4, the chain's gate gradients against its plain
+    phase, two calls bitwise equal, and only the wide kernels launched."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(8)
     p, b, t, hidden = 3, 37, 5, 128
@@ -298,6 +298,45 @@ def test_gru_wide_matches_plain_on_card(cuda_device, per_head, d):
     torch.testing.assert_close(k_gh, r_gh, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(k_dh0, r_dh0, rtol=1e-3, atol=1e-4)
     assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_wide_chain_variants_match_plain_on_card(cuda_device):
+    """Every tile of the wide chain (``cuda_gru.wide_blocks_per_sm`` > 0),
+    launched directly on a ragged batch of 37 with a per-head input,
+    against the plain chain (rtol 1e-3, atol 1e-4, and rtol 1e-5, atol
+    2e-5 as ``chip_smoke.py``'s ``WIDE_CHAIN_TOL``: its products keep
+    float32's accuracy), and the input projection against ``xproj_plain``
+    (rtol 1e-5, atol 1e-5)."""
+    g = torch.Generator().manual_seed(12)
+    p, b, t, d, hidden = 2, 37, 4, 40, 128
+    params = _params_on(p, d, hidden, 13, cuda_device)
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    x = torch.randn((p, b, t, d), generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden), generator=g).to(cuda_device)
+    douts = torch.randn((p, b, t, hidden), generator=g).to(cuda_device)
+    outs = cuda_gru._forward_launch(*w, x, h0)
+    rgh, rdh0 = cuda_gru.bwd_chain_plain(*w, x, h0, outs, douts)
+    xp = cuda_gru.bwd_xproj(params.w_ih, params.b_ih, x)
+    torch.testing.assert_close(
+        xp, cuda_gru.xproj_plain(params.w_ih, params.b_ih, x), rtol=1e-5,
+        atol=1e-5)
+    ops, outs_c, douts_c = cuda_gru._bwd_operands(*w, x, h0, outs, douts,
+                                                  "douts")
+    limits = cuda_gru.device_limits(cuda_device)
+    ran = 0
+    for bt in cuda_gru.WIDE_TILES:
+        if cuda_gru.wide_blocks_per_sm(bt, hidden, limits) < 1:
+            continue
+        gh, dh0 = cuda_gru._chain_buffers(ops)
+        cuda_gru._chain_kernel(ops, w, outs_c, douts_c, gh, dh0, bt, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(gh, rgh, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(dh0, rdh0, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(gh, rgh, rtol=1e-5, atol=2e-5)
+        torch.testing.assert_close(dh0, rdh0, rtol=1e-5, atol=2e-5)
+        ran += 1
+    assert ran >= 2
 
 
 @pytest.mark.cuda

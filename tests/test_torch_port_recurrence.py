@@ -142,22 +142,52 @@ def _phases(params, x, h0, douts):
     return [v.numpy() for v in (outs, h_t, dwih, dwhh, dbih, dbhh, dx, dh0)]
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# (P, B, T, D, H, x shape, h0 shape): CASES at the small shape, and hidden
+# 128 (the wide route's width; its chain is held against this plain phase
+# on the card).
+PHASE_CASES = {**{k: (P, B, T, D, H, *v) for k, v in CASES.items()},
+               "wide_h128": (2, 8, 4, 40, 128, (8, 4, 40), (2, 8, 128))}
+
+
+@pytest.mark.parametrize("case", list(PHASE_CASES))
 def test_backward_phases_match_autograd_and_pallas(interpret, case):
     """B2's plain phases together (the chain: gh and dh0 from outs, x, h0,
     douts; the weight gradients: dW, db, dx from gh, outs, x, h0), as the
     CPU wrappers ``bwd_chain`` / ``bwd_wgrad`` run them, against autograd
     through ``gru_scan_heads`` and against ``pallas_gru.gru_scan_heads_fused``
     in interpret mode: shared and per-head inputs, a broadcast (P, 1, H) h0,
-    dx.  Tolerance: rtol 1e-3, atol 1e-4 (float32, other summation order)."""
-    x_shape, h0_shape = CASES[case]
-    params = jgru.init_stacked_gru(jax.random.key(5), P, D, H)
-    x, h0, douts = _draws(5, x_shape, h0_shape, (P, B, T, H))
+    dx, and hidden 128.  Tolerance: rtol 1e-3, atol 1e-4 (float32, other
+    summation order)."""
+    p, b, t, d, hid, x_shape, h0_shape = PHASE_CASES[case]
+    params = jgru.init_stacked_gru(jax.random.key(5), p, d, hid)
+    x, h0, douts = _draws(5, x_shape, h0_shape, (p, b, t, hid))
     got = _phases(_port(params), x, h0, douts)
     _compare(got, _torch_grads(gru.gru_scan_heads, _port(params), x, h0,
                                douts))
     _compare(got, _jax_grads(pallas_gru.gru_scan_heads_fused, params, x, h0,
                              douts))
+
+
+def test_xproj_plain_matches_input_projection():
+    """The wide chain's input projection (``bwd_xproj``; on a CPU tensor its
+    plain version) against W_ih x + b_ih per head in float64 numpy, for a
+    shared (B, T, D) and a per-head (P, B, T, D) input at hidden 128, D=40:
+    rtol 1e-5, atol 1e-5 (sums of 40 float32 products)."""
+    rng = np.random.default_rng(9)
+    p, b, t, d, hid = 2, 5, 3, 40, 128
+    w_ih = rng.normal(size=(p, 3 * hid, d)).astype(np.float32) * 0.1
+    b_ih = rng.normal(size=(p, 3 * hid)).astype(np.float32)
+    for x in (rng.normal(size=(b, t, d)).astype(np.float32),
+              rng.normal(size=(p, b, t, d)).astype(np.float32)):
+        xs = np.broadcast_to(x, (p, b, t, d)).astype(np.float64)
+        want = (np.einsum("pbtd,pgd->pbtg", xs, w_ih.astype(np.float64))
+                + b_ih[:, None, None].astype(np.float64))
+        args = (torch.tensor(w_ih), torch.tensor(b_ih), torch.tensor(x))
+        got = cuda_gru.bwd_xproj(*args)
+        assert got.shape == (p, b, t, 3 * hid)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, cuda_gru.xproj_plain(*args), rtol=0,
+                                   atol=0)
 
 
 def test_wgrad_partials_layout():
@@ -273,9 +303,9 @@ def test_pick_tile(batch, heads, kernel, want):
     (20, 256, 20, 64, "kernel", 20, 20),   # the main path's decoder heads
     (1, 256, 20, 64, "kernel", 8, 4),      # ... and its encoder
     (1, 256, 10, 64, "kernel", 8, 4),      # lorenz96_crvae's ErrorVAE
-    (40, 512, 40, 128, "wide", 16, 8),     # lorenz96_scaled's heads
-    (1, 512, 40, 128, "wide", 4, 4),       # ... and its encoder
-    (128, 64, 128, 128, "wide", 12, 4),    # lorenz96_xl's heads
+    (40, 512, 40, 128, "wide", 16, 32),    # lorenz96_scaled's heads
+    (1, 512, 40, 128, "wide", 4, 16),      # ... and its encoder
+    (128, 64, 128, 128, "wide", 12, 32),   # lorenz96_xl's heads
     (10, 2048, 10, 64, "kernel", 32, 28),  # lorenz96_crcsrae's phase-1 heads
     (1, 2048, 10, 64, "kernel", 16, 8),    # ... its encoder
     (10, 1024, 10, 64, "kernel", 16, 20),  # ... its phase-2 heads
@@ -287,9 +317,9 @@ def test_pick_tile(batch, heads, kernel, want):
 def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     """The kernels' variant is chosen from shapes and the card's limits
     alone: both weights in shared memory where B1's tile and B2's chain
-    tile fit so, else the wide variants, which stage W_hh^T alone (at
-    hidden 128 the two weights need more than an H100 block's 232,448
-    bytes)."""
+    tile fit so, else the wide variants: B1 stages W_hh^T alone, B2's
+    chain walks on clusters that split W_hh (at hidden 128 the two weights
+    need more than an H100 block's 232,448 bytes)."""
     route = cuda_gru.recurrence_route(heads, batch, d, hidden, H100)
     assert route == want
     wide = route == "wide"
@@ -298,8 +328,63 @@ def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     assert cuda_gru.fwd_tile(batch, heads, d, hidden, H100, wide) == fwd_bt
     assert cuda_gru.chain_tile(batch, heads, d, hidden, H100, wide) == chain_bt
     assert cuda_gru.fwd_tile_smem_bytes(fwd_bt, d, hidden, wide) <= H100[0]
-    smem = cuda_gru.chain_wide_smem_bytes if wide else cuda_gru.chain_smem_bytes
-    assert smem(chain_bt, d, hidden) <= H100[0]
+    if wide:
+        assert cuda_gru.wide_chain_plan(batch, heads, hidden, H100) == chain_bt
+        assert cuda_gru.wide_chain_smem_bytes(chain_bt, hidden) <= H100[0]
+    else:
+        assert cuda_gru.chain_smem_bytes(chain_bt, d, hidden) <= H100[0]
+
+
+# (heads, batch) -> the wide chain's tile, threads, shared memory and grid
+# at hidden 128 and the H100's limits.
+@pytest.mark.parametrize("heads,batch,bt,threads,smem,grid", [
+    (40, 512, 32, 256, 195840, (32, 40)),   # lorenz96_scaled's heads
+    (1, 512, 16, 128, 148992, (64, 1)),     # ... encoder, ErrorVAE
+    (128, 64, 32, 256, 195840, (4, 128)),   # lorenz96_xl's heads
+    (1, 64, 16, 128, 148992, (8, 1)),       # ... and its encoder
+    (64, 64, 32, 256, 195840, (4, 64)),     # xl_ep2: a rank's heads
+    (3, 37, 16, 128, 148992, (6, 3)),       # a ragged batch
+], ids=["scaled-heads", "scaled-encoder", "xl-heads", "xl-encoder",
+        "xl-ep2-rank", "ragged"])
+def test_wide_chain_plan(heads, batch, bt, threads, smem, grid):
+    """The wide chain's plan from shapes and limits alone (the cost model
+    fitted to the tile tool's sweep on an H100): clusters of 2 blocks
+    splitting W_hh's 128 units, 32-row tiles on the many-head fits, 16-row
+    tiles where one head leaves SMs idle; every block within the opt-in
+    shared memory and 256 threads, and at least one a SM."""
+    assert cuda_gru.WIDE_CLUSTER == 2
+    assert cuda_gru.wide_chain_plan(batch, heads, 128, H100) == bt
+    assert cuda_gru.wide_chain_threads(bt, 128) == threads
+    assert threads <= cuda_gru.WIDE_MAX_THREADS
+    assert cuda_gru.wide_chain_smem_bytes(bt, 128) == smem
+    assert smem <= H100[0]
+    assert cuda_gru.wide_blocks_per_sm(bt, 128, H100) >= 1
+    assert (-(-batch // bt) * cuda_gru.WIDE_CLUSTER, heads) == grid
+    assert cuda_gru.chain_tile(batch, heads, 40, 128, H100, True) == bt
+
+
+def test_wide_chain_layout():
+    """The wide chain's units and shared memory (gru_wide.cuh
+    ``wide_hpad``, ``wide_smem_floats``): H padded to 32 units a block of
+    the cluster, W_hh rows of H' + 4 floats, two h_prev buffers, the gate
+    gradients at 3U + 4 a row and C slots of U + 4 a row in two buffers;
+    a warp a (16 rows, 16 units) item, at most 256 threads."""
+    assert cuda_gru.wide_hpad(128) == 128 and cuda_gru.wide_units(128) == 64
+    assert cuda_gru.wide_hpad(100) == 128 and cuda_gru.wide_hpad(40) == 64
+    assert cuda_gru.wide_units(40) == 32
+    u, ks = 64, 132
+    want = 4 * (3 * u * ks + 3 * u + 2 * 32 * ks + 32 * (3 * u + 4)
+                + 2 * 2 * 32 * (u + 4))
+    assert cuda_gru.wide_chain_smem_bytes(32, 128) == want == 195840
+    assert cuda_gru.wide_chain_threads(32, 40) == 128
+    assert cuda_gru.wide_chain_threads(64, 40) == 256
+    assert cuda_gru.wide_blocks_per_sm(48, 128, H100) == 0   # 384 threads
+    assert cuda_gru.wide_blocks_per_sm(8, 128, H100) == 0    # under 16 rows
+    assert cuda_gru.wide_blocks_per_sm(64, 128, H100) == 0   # 512 threads
+    # Past hidden 128 the units pad to 192 and no tile fits a block: the
+    # wide route covers hidden <= 128.
+    assert cuda_gru.wide_hpad(130) == 192
+    assert cuda_gru.wide_chain_plan(64, 40, 130, H100) is None
 
 
 def test_recurrence_route_raises_when_nothing_fits():

@@ -17,6 +17,27 @@ its device time by kernel from ``torch.profiler``.  Launches
 alone into buffers allocated once, by CUDA events over back-to-back calls:
 below ~0.05 ms the host's launch rate, not the kernel, sets these.  Needs
 a CUDA device and nvcc.
+
+    python3 tools/torch_gru_bwd_tiles.py --wide [ROOT ...]
+
+The wide chain (hidden 128) at ``WIDE_SHAPES``: lorenz96_scaled's decoder
+heads (P=40, B=512, T=30, D=40), lorenz96_xl's (P=128, B=64, T=30, D=128),
+the one-head encoder (P=1, B=512, T=10, D=40) and a ragged batch (P=3,
+B=37, T=5, D=40), shared input and a broadcast h0, the same seeded inputs
+for every ROOT.  For each ROOT in the order given (default: this
+checkout), a fresh process imports ``vae_connexe_torch`` from ROOT, holds
+its ``cuda_gru.bwd_chain`` (gh, dh0) against ``bwd_chain_plain`` (rtol
+1e-3, atol 1e-4) and checks two calls bitwise equal, then times by CUDA
+events the chain wrapper, the whole B2 wrapper (``_backward_launch``, no
+dx) and their device time by kernel (``torch.profiler``).  A checkout
+with the cluster chain (``cuda_gru.wide_chain_plan``) also prints its
+plan and, at the three large shapes, every tile that fits (``WIDE_TILES``,
+``wide_blocks_per_sm``), each held against the plain phase, beside
+``wide_step_cost``'s figure, and the input projection against
+``xproj_plain`` (1e-5 of its largest magnitude).  List an older checkout
+(a ``git archive`` unpacked under ``build/``) twice around this one
+(parent, change, change, parent) to compare the two on one card.  Each
+process prints one ``WIDE {json}`` line per shape.
 """
 
 from __future__ import annotations
@@ -135,5 +156,112 @@ def main() -> None:
               + "; ".join(f"{n} {k:.4f}" for k, n in kern), flush=True)
 
 
+WIDE_SHAPES = (("scaled_heads", 40, 512, 30, 40),
+               ("xl_heads", 128, 64, 30, 128),
+               ("one_head", 1, 512, 10, 40), ("ragged", 3, 37, 5, 40))
+WIDE_H = 128
+
+
+def wide_one(root: str) -> None:
+    """The wide chain of the checkout at ``root`` (run in a process of its
+    own: the package is imported from there)."""
+    import json
+
+    sys.path.insert(0, os.path.abspath(root))
+    for name in [m for m in sys.modules if m.startswith("vae_connexe_torch")]:
+        del sys.modules[name]
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_connexe_torch.ops import cuda_gru as cg
+    from vae_connexe_torch.ops.gru import init_stacked_gru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    planned = hasattr(cg, "wide_chain_plan")
+    for what, heads, b, t, d in WIDE_SHAPES:
+        g = torch.Generator().manual_seed(heads * 1000 + b)
+        prm = init_stacked_gru(g, heads, d, WIDE_H, device="cpu")
+        w = tuple(v.to(dev) for v in (prm.w_ih, prm.b_ih, prm.w_hh, prm.b_hh))
+        x = torch.randn((b, t, d), generator=g).to(dev)
+        h0 = torch.randn((1, b, WIDE_H), generator=g).to(dev).expand(
+            heads, b, WIDE_H)
+        douts = torch.randn((heads, b, t, WIDE_H), generator=g).to(dev)
+        outs = cg._forward_launch(*w, x, h0)
+        rgh, rdh0 = cg.bwd_chain_plain(*w, x, h0, outs, douts)
+        gh, dh0 = cg.bwd_chain(*w, x, h0, outs, douts)
+        gh2, dh02 = cg.bwd_chain(*w, x, h0, outs, douts)
+        torch.cuda.synchronize()
+        row = {"shape": what, "P": heads, "B": b, "T": t, "D": d, "H": WIDE_H,
+               "root": root, "gh_err": (gh - rgh).abs().max().item(),
+               "dh0_err": (dh0 - rdh0).abs().max().item(),
+               "bitwise": bool(torch.equal(gh, gh2) and torch.equal(dh0, dh02))}
+        torch.testing.assert_close(gh, rgh, **TOL)
+        torch.testing.assert_close(dh0, rdh0, **TOL)
+        assert row["bitwise"], what
+        row["chain_ms"] = time_ms(lambda: cg.bwd_chain(*w, x, h0, outs, douts),
+                                  20)
+        row["b2_ms"] = time_ms(lambda: cg._backward_launch(
+            *w, x, h0, outs, douts, need_dx=False), 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                cg._backward_launch(*w, x, h0, outs, douts, need_dx=False)
+            torch.cuda.synchronize()
+        row["b2_device_ms"] = {
+            e.key[:48]: float(getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0.0))) / 5 / 1e3
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")}
+        if planned:
+            limits = cg.device_limits(dev)
+            row["plan"] = cg.wide_chain_plan(b, heads, WIDE_H, limits)
+            xp = cg.bwd_xproj(w[0], w[1], x)
+            rxp = cg.xproj_plain(w[0], w[1], x)
+            torch.cuda.synchronize()
+            row["xproj_err"] = (xp - rxp).abs().max().item()
+            assert row["xproj_err"] <= 1e-5 * rxp.abs().max().item(), what
+            row["xproj_ms"] = time_ms(lambda: cg.bwd_xproj(w[0], w[1], x), 20)
+            ops, outs_c, douts_c = cg._bwd_operands(*w, x, h0, outs, douts,
+                                                    "douts")
+            sweep = {}
+            for bt in cg.WIDE_TILES if what != "ragged" else ():
+                per_sm = cg.wide_blocks_per_sm(bt, WIDE_H, limits)
+                if per_sm < 1:
+                    continue
+                ms = time_ms(lambda: cg._chain_kernel(
+                    ops, w, outs_c, douts_c, gh, dh0, bt, True), 10)
+                torch.testing.assert_close(gh, rgh, **TOL)
+                torch.testing.assert_close(dh0, rdh0, **TOL)
+                blocks = heads * -(-b // bt) * cg.WIDE_CLUSTER
+                sweep[f"bt{bt}"] = {
+                    "ms": ms, "per_sm": per_sm,
+                    "model": cg.wide_step_cost(bt, WIDE_H, blocks, per_sm,
+                                               limits[2])}
+            row["sweep"] = sweep
+        print("WIDE " + json.dumps(row), flush=True)
+
+
+def wide(roots) -> None:
+    """``--wide``: one process per root, in order."""
+    from vae_connexe_torch.ops import _build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    for line in _build.build("gru")[1].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("ptxas", line.strip(), flush=True)
+    for root in roots or ["."]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--wide-one", root])
+        if r.returncode != 0:
+            sys.exit(f"--wide at {root} failed ({r.returncode})")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--wide"]:
+        wide(sys.argv[2:])
+    elif sys.argv[1:2] == ["--wide-one"]:
+        wide_one(sys.argv[2])
+    else:
+        main()

@@ -2,7 +2,8 @@
 //
 // Replaces the two Pallas TPU kernels of vae_connexe_tpu/ops/pallas_gru.py:
 //   gru_forward_kernel <- _fused_recurrence / _fwd_kernel (pallas_gru.py:243, :199)
-//   gru_chain_kernel, gru_wgrad_kernel, gru_dx_kernel
+//   gru_chain_kernel, gru_wgrad_kernel, gru_dx_kernel (on wide shapes
+//   gru_xproj_kernel and gru_chain_wide_kernel for the chain)
 //                      <- _fused_recurrence_bwd / _bwd_kernel (:426, :320)
 //
 // P independent GRU heads over T steps, input shared (B, T, D) or per head
@@ -27,21 +28,28 @@
 // H runs with one pad unit.
 //
 // Wide shapes.  Where the two weights do not fit a block together (hidden
-// 128 at D = 40 or 128 on an H100), both B1 and B2's chain keep W_hh^T in
-// shared memory and read W_ih^T from a copy in global memory, laid out as
-// the staged rows by gru_wih_t_kernel at the start of the same call (a few
-// MB; it stays in L2).  cuda_gru.recurrence_route picks the variant from
-// the shapes and the card's limits before any launch.
+// 128 at D = 40 or 128 on an H100), B1 keeps W_hh^T in shared memory and
+// reads W_ih^T from a copy in global memory, laid out as the staged rows by
+// gru_wih_t_kernel at the start of the same call (a few MB; it stays in
+// L2).  B2's chain takes another design there (gru_wide.cuh, below).
+// cuda_gru.recurrence_route picks the variant from the shapes and the
+// card's limits before any launch.
 //
 // Backward, in two phases; only what the recurrence needs stays serial.
 // Their bodies live in gru_bwd.cuh, shared with the phase-1 step (step.cu).
-//   1. gru_chain_kernel (gru_chain_wide_kernel on wide shapes), on the
-//      forward's grid, walks time in reverse and
+//   1. gru_chain_kernel, on the forward's grid, walks time in reverse and
 //      keeps only the dh chain serial: it writes each step's gate gradients
 //      [dbr, dz, da*r, da] to a (P, B, T, 4H) scratch and holds no dW sums:
 //      103 KB at the decoder shape's tile of 20 rows, two blocks per SM, so
 //      its 260 blocks run in one wave.  It is bound by the shared-memory
 //      loads and multiply-adds of each step.
+//      On wide shapes, gru_xproj_kernel then gru_chain_wide_kernel
+//      (gru_wide.cuh): the input half of every step's gates is one parallel
+//      product written into gh's first 3H columns before the walk, as the
+//      TPU kernel fills its xp scratch, and the walk runs on clusters of 2
+//      blocks that split W_hh's units, so that each block stages half of
+//      it and holds a tile of 16-64 rows, its products on the tensor cores
+//      (see below).
 //   2. gru_wgrad_kernel, parallel over the B*T rows, forms dW and db as
 //      register-tiled f32 products over fixed chunks of B*T; each block
 //      writes one partial, and the wrapper sums the partials in a fixed
@@ -57,9 +65,29 @@
 // weight-gradient products: ~4.6e9 flops, ~0.07 ms; the gh scratch adds
 // 52 MB written once and read once (~0.03 ms of HBM time, mostly served
 // from the 50 MB L2).
+//
+// The wide chain.  At lorenz96_scaled's decoder heads (P=40, B=512, T=30,
+// D=40, H=128) the chain's work is the rematerialised gates (79.3 GFLOP)
+// and d h_prev (60.4 GFLOP): 2.09 ms at the H100's 67 TFLOP/s of f32; its
+// gh (1.26 GB) is written once, ~0.38 ms at 3.35 TB/s, which the walk
+// overlaps.  The earlier wide chain was the hidden-64 body with W_ih^T
+// moved to global memory: 8-row tiles (W_hh^T's 197 KB left no room for
+// more), a weight load for every 2 rows, and W_ih x_t recomputed at every
+// step from L2 inside the serial loop: 11.0 ms, 20 waves of 2560 blocks
+// (NVIDIA H100 80GB HBM3, 700 W, tools/torch_gru_bwd_tiles.py).  The design
+// here answers each of those: the projection leaves the walk (one parallel
+// product); a cluster of 2 blocks splits W_hh by units, so a block stages
+// 98 KB and holds 32 rows; and the products run on the tensor
+// cores, three TF32 passes a float32 product, fed by ldmatrix, where the
+// CUDA cores sat at ~55% of their rate on the loads that fed them.  The
+// price is one cluster barrier a step and the partials of d h_prev sent
+// through distributed shared memory (bt x U floats a block-step).  What
+// remains (tools/torch_gru_wide_probe.py): the products, the gate math's
+// transcendentals, gh's traffic, the barrier, the projection's stores.
 
 #include "gru_bwd.cuh"
 #include "gru_fwd.cuh"
+#include "gru_wide.cuh"
 
 namespace {
 
@@ -104,119 +132,17 @@ __global__ void __launch_bounds__(vcx::kMaxThreads) gru_chain_kernel(GruArgs a) 
   vcx::gru_chain_body<RPT, false>(a);
 }
 
-// B2's chain for widths whose two weights do not fit a block (hidden 128 on
-// an H100): W_hh^T stays in shared memory, W_ih^T is read from wih_t, a
-// copy in global memory laid out as the staged one ([round4(D)][3H + 1] a
-// head, zero pads; gru_wih_t_kernel), which gru_bwd.cuh's chain_preacts
-// reads through the same pointer.  Otherwise gru_chain_body<RPT, false>
-// step for step, so both give the same gate gradients.
-__host__ __device__ inline i64 chain_wide_smem_floats(int bt, int D, int H) {
-  return vcx::chain_smem_floats(bt, D, H) - (i64)vcx::round4(D) * (3 * H + 1);
+// B2's chain on wide shapes (gru_wide.cuh): the input projection, then the
+// reverse walk on clusters of 2 blocks that split W_hh's units.
+__global__ void __launch_bounds__(vcx::kXpThreads, 2)
+    gru_xproj_kernel(GruArgs a) {
+  vcx::gru_xproj_body(a);
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(vcx::kMaxThreads)
-    gru_chain_wide_kernel(GruArgs a, const float* wih_t) {
-  using namespace vcx;
-  extern __shared__ __align__(16) float smem[];
-  const int i = blockIdx.y, H = a.H, D = a.D, G = 3 * H, bt = a.bt;
-  const int gs = round4(G), hp = round4(H), dp = round4(D), g1 = G + 1;
-  const int tid = threadIdx.x, j = tid % H, r0 = (tid / H) * RPT;
-  const int row0 = blockIdx.x * bt;
-  ChainSmem s;
-  s.w.wih = const_cast<float*>(wih_t) + (i64)i * dp * g1;
-  s.w.whh = smem;
-  s.w.bih = smem + hp * g1;
-  s.w.bhh = s.w.bih + G;
-  s.w.h = s.w.x = nullptr;
-  s.h[0] = smem + ((hp * g1 + 2 * G + 3) & ~3);
-  s.h[1] = s.h[0] + bt * hp;
-  s.x[0] = s.h[1] + bt * hp;
-  s.x[1] = s.x[0] + bt * dp;
-  s.ghid = s.x[1] + bt * dp;
-  s.dout[0] = s.ghid + bt * gs;
-  s.dout[1] = s.dout[0] + bt * H;
-  GruHead w;
-  GruInput in;
-  GruTile tl;
-  head_views<false>(a, i, w, in, tl);
-  prefetch_step<false>(a, i, s, 0, a.T - 1);  // in flight while W_hh stages
-  // stage_chain without W_ih^T: W_hh^T, the biases and every pad a float4
-  // walk reads.
-  stage_transposed(s.w.whh, w.w_hh, G, H, g1, nullptr);
-  for (int e = tid; e < G; e += blockDim.x) {
-    s.w.bih[e] = w.b_ih[e];
-    s.w.bhh[e] = w.b_hh[e];
-  }
-  for (int e = tid; e < (hp - H) * g1; e += blockDim.x)
-    s.w.whh[H * g1 + e] = 0.0f;
-  for (int k = tid; k < hp; k += blockDim.x) s.w.whh[k * g1 + G] = 0.0f;
-  if (hp > H)
-    for (int e = tid; e < bt * hp; e += blockDim.x)
-      if (e % hp >= H) s.h[0][e] = s.h[1][e] = 0.0f;
-  if (dp > D)
-    for (int e = tid; e < bt * dp; e += blockDim.x)
-      if (e % dp >= D) s.x[0][e] = s.x[1][e] = 0.0f;
-  for (int e = tid; e < bt * gs; e += blockDim.x) s.ghid[e] = 0.0f;
-  cp_async_wait_all();
-  __syncthreads();
-
-  float* gh = a.gh + (i64)i * a.B * a.T * 4 * H;
-  const float* wrow = s.w.whh + j * g1;  // W_hh[g][j] = whh[j * g1 + g]
-  float dh[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) dh[r] = 0.0f;
-
-  for (int t = a.T - 1, k = 0; t >= 0; --t, k ^= 1) {
-    if (t > 0) prefetch_step<false>(a, i, s, k ^ 1, t - 1);
-    float ar[RPT], az[RPT], axn[RPT], ahn[RPT];
-    chain_preacts<RPT>(s, k, w, j, r0, ar, az, axn, ahn);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int b = r0 + r, row = row0 + b;
-      const float d = dh[r] + pick(s.dout, k)[b * H + j];
-      const float rr = sigmoid_f(ar[r]), zz = sigmoid_f(az[r]);
-      const float nn = tanhf(axn[r] + rr * ahn[r]);
-      const float hv = pick(s.h, k)[b * hp + j];
-      const float dz = d * (hv - nn) * zz * (1.0f - zz);
-      const float da = d * (1.0f - zz) * (1.0f - nn * nn);
-      const float dbr = da * ahn[r] * rr * (1.0f - rr);
-      const float dar = da * rr;
-      s.ghid[b * gs + j] = dbr;
-      s.ghid[b * gs + H + j] = dz;
-      s.ghid[b * gs + 2 * H + j] = dar;
-      if (row < a.B) {
-        float* o = gh + ((i64)row * a.T + t) * 4 * H;
-        o[j] = dbr;
-        o[H + j] = dz;
-        o[2 * H + j] = dar;
-        o[3 * H + j] = da;
-      }
-      dh[r] = d * zz;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int g = 0; g < gs; g += 4) {
-      const float w0 = wrow[g], w1 = wrow[g + 1], w2 = wrow[g + 2],
-                  w3 = wrow[g + 3];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 q =
-            *reinterpret_cast<const float4*>(s.ghid + (r0 + r) * gs + g);
-        dh[r] = fmaf(q.x, w0, dh[r]);
-        dh[r] = fmaf(q.y, w1, dh[r]);
-        dh[r] = fmaf(q.z, w2, dh[r]);
-        dh[r] = fmaf(q.w, w3, dh[r]);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r0 + r;
-    if (row < a.B) a.dh0[((i64)i * a.B + row) * H + j] = dh[r];
-  }
+__global__ void __cluster_dims__(vcx::kWideCluster, 1, 1)
+    __launch_bounds__(vcx::kWideMaxThreads, 1)
+    gru_chain_wide_kernel(GruArgs a) {
+  vcx::gru_chain_wide_body(a);
 }
 
 __global__ void __launch_bounds__(vcx::kWThreads) gru_wgrad_kernel(WgradArgs a) {
@@ -280,35 +206,39 @@ cudaError_t launch_forward(const GruArgs& a, float* wih_t, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-typedef void (*ChainWideKernel)(GruArgs, const float*);
+cudaError_t launch_xproj(const GruArgs& a, cudaStream_t st) {
+  const dim3 grid((unsigned)((a.B * a.T + vcx::kXpRows - 1) / vcx::kXpRows),
+                  (unsigned)((3 * a.H + vcx::kXpCols - 1) / vcx::kXpCols),
+                  (unsigned)a.P);
+  gru_xproj_kernel<<<grid, vcx::kXpThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
 
-const ChainWideKernel kChainWideKernels[8] = {
-    &gru_chain_wide_kernel<1>, &gru_chain_wide_kernel<2>,
-    &gru_chain_wide_kernel<3>, &gru_chain_wide_kernel<4>,
-    &gru_chain_wide_kernel<5>, &gru_chain_wide_kernel<6>,
-    &gru_chain_wide_kernel<7>, &gru_chain_wide_kernel<8>};
-
-// The chain on a.bt-row tiles (tiles as vcx::launch_chain).  wih_t: null,
-// or room for (P, round4(D), 3H + 1) floats, which selects the wide chain.
-cudaError_t launch_chain_any(const GruArgs& a, float* wih_t,
-                             cudaStream_t st) {
-  if (wih_t == nullptr) return vcx::launch_chain(kChainKernels, a, st);
-  const int rpt = vcx::rows_per_thread(a.bt);
-  if (a.P < 1 || a.B < 1 || a.T < 1 || a.D < 1 || a.H < 1 || a.bt < 1 ||
-      a.bt > 32 || a.bt % rpt != 0 || a.H * (a.bt / rpt) > vcx::kMaxThreads)
+// The wide chain: the projection into gh, then the walk on clusters of
+// vcx::kWideCluster blocks over a.bt-row tiles (vcx::wide_tile_ok).
+cudaError_t launch_chain_wide(const GruArgs& a, cudaStream_t st) {
+  if (a.P < 1 || a.P > 65535 || a.B < 1 || a.T < 1 || a.D < 1 || a.H < 1 ||
+      !vcx::wide_tile_ok(a.bt) ||
+      vcx::wide_threads(a.bt, a.H) > vcx::kWideMaxThreads)
     return cudaErrorInvalidValue;
-  cudaError_t e =
-      launch_wih_t(a, wih_t, vcx::round4(a.D), 3 * a.H + 1, a.H, st);
+  cudaError_t e = launch_xproj(a, st);
   if (e != cudaSuccess) return e;
-  const ChainWideKernel kern = kChainWideKernels[rpt - 1];
-  const size_t smem = (size_t)chain_wide_smem_floats(a.bt, a.D, a.H) *
-                      sizeof(float);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = (size_t)vcx::wide_smem_floats(a.bt, a.H) * sizeof(float);
+  e = cudaFuncSetAttribute(gru_chain_wide_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((a.B + a.bt - 1) / a.bt), (unsigned)a.P);
-  kern<<<grid, a.H * (a.bt / rpt), smem, st>>>(a, wih_t);
+  const dim3 grid(
+      (unsigned)((a.B + a.bt - 1) / a.bt * vcx::kWideCluster), (unsigned)a.P);
+  gru_chain_wide_kernel<<<grid, vcx::wide_threads(a.bt, a.H), smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The chain on a.bt-row tiles: gru_chain_kernel (tiles as vcx::launch_chain),
+// or if `wide` the wide chain.
+cudaError_t launch_chain_any(const GruArgs& a, int wide, cudaStream_t st) {
+  if (!wide) return vcx::launch_chain(kChainKernels, a, st);
+  return launch_chain_wide(a, st);
 }
 
 }  // namespace
@@ -329,17 +259,35 @@ int vcx_gru_forward(const float* x, i64 sxp, i64 sxb, i64 sxt,
 
 // Backward phase 1: from the forward's inputs, outs and douts (P, B, T, H),
 // writes the gate gradients gh (P, B, T, 4H) and dh0 (P, B, H); batch
-// tiles of bt rows.  wih_t: null, or scratch for the wide chain
+// tiles of bt rows.  wide: 0 for gru_chain_kernel, 1 for the wide chain
 // (launch_chain_any).
 int vcx_gru_bwd_chain(const float* x, i64 sxp, i64 sxb, i64 sxt,
                       const float* w_ih, const float* w_hh, const float* b_ih,
                       const float* b_hh, const float* h0, i64 sh0p, i64 sh0b,
                       const float* outs, const float* douts, float* gh,
-                      float* dh0, float* wih_t, int P, int B, int T, int D,
-                      int H, int bt, void* stream) {
+                      float* dh0, int P, int B, int T, int D, int H, int bt,
+                      int wide, void* stream) {
   GruArgs a{x, sxp, sxb, sxt, w_ih, w_hh, b_ih, b_hh, h0, sh0p, sh0b,
             const_cast<float*>(outs), douts, gh, dh0, P, B, T, D, H, bt};
-  return (int)launch_chain_any(a, wih_t, static_cast<cudaStream_t>(stream));
+  return (int)launch_chain_any(a, wide, static_cast<cudaStream_t>(stream));
+}
+
+// The wide chain's input projection alone: gh[..., :3H] = x W_ih^T + b_ih
+// for every head, row and step (the other columns untouched).
+int vcx_gru_xproj(const float* x, i64 sxp, i64 sxb, i64 sxt,
+                  const float* w_ih, const float* b_ih, float* gh, int P,
+                  int B, int T, int D, int H, void* stream) {
+  GruArgs a{x, sxp, sxb, sxt, w_ih, nullptr, b_ih, nullptr, nullptr, 0, 0,
+            nullptr, nullptr, gh, nullptr, P, B, T, D, H, 0};
+  return (int)launch_xproj(a, static_cast<cudaStream_t>(stream));
+}
+
+// The wide chain's block at a tile of bt rows and hidden H: out[0] =
+// dynamic shared memory (bytes), out[1] = threads, out[2] = cluster size.
+void vcx_wide_chain_block(int bt, int H, long long* out) {
+  out[0] = vcx::wide_smem_floats(bt, H) * (long long)sizeof(float);
+  out[1] = vcx::wide_threads(bt, H);
+  out[2] = vcx::kWideCluster;
 }
 
 // Backward phase 2: from gh, x, h0 and outs, writes the per-(head, split)
@@ -371,12 +319,12 @@ int vcx_gru_backward(const float* x, i64 sxp, i64 sxb, i64 sxt,
                      const float* w_ih, const float* w_hh, const float* b_ih,
                      const float* b_hh, const float* h0, i64 sh0p, i64 sh0b,
                      const float* outs, const float* douts, float* gh,
-                     float* dh0, float* dx, float* part, float* wih_t, int P,
-                     int B, int T, int D, int H, int bt, int splits,
-                     int chunk, void* stream) {
+                     float* dh0, float* dx, float* part, int P, int B, int T,
+                     int D, int H, int bt, int wide, int splits, int chunk,
+                     void* stream) {
   const int e = vcx_gru_bwd_chain(x, sxp, sxb, sxt, w_ih, w_hh, b_ih, b_hh,
-                                  h0, sh0p, sh0b, outs, douts, gh, dh0, wih_t,
-                                  P, B, T, D, H, bt, stream);
+                                  h0, sh0p, sh0b, outs, douts, gh, dh0, P, B,
+                                  T, D, H, bt, wide, stream);
   if (e != 0) return e;
   return vcx_gru_bwd_wgrad(gh, x, sxp, sxb, sxt, h0, sh0p, sh0b, outs, w_ih,
                            dx, part, P, B, T, D, H, splits, chunk, stream);

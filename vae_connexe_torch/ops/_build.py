@@ -50,7 +50,8 @@ def nvcc_path() -> str:
 # unit, the rest are headers it includes.  All of them name the library.
 SOURCES = {
     "rollout": ("rollout.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh"),
-    "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh"),
+    "gru": ("gru.cu", "gru_tile.cuh", "gru_bwd.cuh", "gru_fwd.cuh",
+            "gru_wide.cuh"),
     "step": ("step.cu", "gru_tile.cuh", "gru_bwd.cuh"),
 }
 
@@ -159,12 +160,16 @@ def gru_library() -> ctypes.CDLL:
     head = [_P, _L, _L, _L] + [_P] * 5 + [_L, _L]
     lib.vcx_gru_forward.argtypes = head + [_P] * 2 + [_I] * 6 + [_P]
     lib.vcx_gru_forward.restype = _I
-    lib.vcx_gru_bwd_chain.argtypes = head + [_P] * 5 + [_I] * 6 + [_P]
+    lib.vcx_gru_bwd_chain.argtypes = head + [_P] * 4 + [_I] * 7 + [_P]
     lib.vcx_gru_bwd_chain.restype = _I
+    lib.vcx_gru_xproj.argtypes = [_P, _L, _L, _L, _P, _P, _P] + [_I] * 5 + [_P]
+    lib.vcx_gru_xproj.restype = _I
+    lib.vcx_wide_chain_block.argtypes = [_I] * 2 + [ctypes.POINTER(_L)]
+    lib.vcx_wide_chain_block.restype = None
     lib.vcx_gru_bwd_wgrad.argtypes = ([_P, _P, _L, _L, _L, _P, _L, _L]
                                       + [_P] * 4 + [_I] * 7 + [_P])
     lib.vcx_gru_bwd_wgrad.restype = _I
-    lib.vcx_gru_backward.argtypes = head + [_P] * 7 + [_I] * 8 + [_P]
+    lib.vcx_gru_backward.argtypes = head + [_P] * 6 + [_I] * 9 + [_P]
     lib.vcx_gru_backward.restype = _I
     lib.vcx_device_limits.argtypes = [_I, ctypes.POINTER(_I)]
     lib.vcx_device_limits.restype = _I

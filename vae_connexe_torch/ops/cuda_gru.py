@@ -13,8 +13,10 @@ its count in ``LAUNCHES``.  On a CPU tensor they run their plain versions,
 its plain version: a CUDA input launches or raises.  ``recurrence_route``
 picks, from the shapes and the card's limits before any launch, the kernels
 that stage both weights in shared memory or, where they do not fit a block
-together (hidden 128 on an H100), their wide variants, which stage W_hh^T
-alone and read W_ih^T from global memory; each variant has its own count.
+together (hidden 128 on an H100), their wide variants: B1 stages W_hh^T
+alone and reads W_ih^T from global memory, and B2's chain projects the
+input of every step first and walks time on thread-block clusters that
+split W_hh's units (``wide_chain_plan``); each variant has its own count.
 Shapes that neither fits raise.  Each kernel's plan (variant and batch
 tile) is chosen once per (shapes, device) and cached (``_fwd_plan``,
 ``_bwd_plan``).
@@ -106,11 +108,105 @@ def chain_step_loads(bt: int, d: int, hidden: int) -> float:
             + _round4(3 * hidden) * (1 + rpt / 4))
 
 
-def chain_wide_smem_bytes(bt: int, d: int, hidden: int) -> int:
-    """Shared memory of a wide chain block (gru.cu ``chain_wide_smem_floats``):
-    ``chain_smem_bytes`` without W_ih^T, which the wide chain reads from
-    global memory."""
-    return chain_smem_bytes(bt, d, hidden) - 4 * _round4(d) * (3 * hidden + 1)
+# B2's chain on wide shapes (csrc/gru_wide.cuh): the input projection, then
+# the reverse walk on clusters of WIDE_CLUSTER blocks that split W_hh's
+# units.  Tiles: 16 to 64 rows, a warp a (16 rows, 16 units) item, at most
+# 256 threads a block.
+WIDE_CLUSTER = 2
+WIDE_TILES = (64, 48, 32, 16)
+WIDE_MAX_THREADS = 256
+# Registers a thread of the walk may take (``__launch_bounds__(256, 1)``).
+WIDE_REGS = 255
+# The walk's cost model (``wide_step_cost``), fitted to the sweep of
+# ``tools/torch_gru_bwd_tiles.py --wide`` on an H100 (every tile at
+# lorenz96_scaled's and lorenz96_xl's heads and the one-head encoder; the
+# fit picks the fastest at the first two and one within 2% at the third):
+# the products' multiply-adds (counted as float32 ones; the tensor cores
+# run each as three TF32 passes) an SM retires a cycle, the warps below
+# which it retires them slower, and a step's cycles outside the products
+# (gate math, loads, the cluster barrier).
+WIDE_FMA_PER_CYCLE = 120
+WIDE_SAT_WARPS = 4
+WIDE_STEP_CYCLES = 10500
+
+
+def wide_hpad(hidden: int) -> int:
+    """Units of the wide chain: H rounded up to 32 a block of the cluster
+    (gru_wide.cuh ``wide_hpad``); pad units have zero weights."""
+    q = 32 * WIDE_CLUSTER
+    return -(-hidden // q) * q
+
+
+def wide_units(hidden: int) -> int:
+    """Units each block of a cluster owns (``wide_units``)."""
+    return wide_hpad(hidden) // WIDE_CLUSTER
+
+
+def wide_chain_threads(bt: int, hidden: int) -> int:
+    """Threads of a wide chain block: a warp a (16 rows, 16 units) item
+    (``wide_threads``)."""
+    return 32 * (wide_units(hidden) // 16) * (bt // 16)
+
+
+def wide_chain_smem_bytes(bt: int, hidden: int) -> int:
+    """Shared memory of a wide chain block (``wide_smem_floats``): the
+    block's W_hh rows (3U of H' + 4 floats) and b_hh, two buffers of h_prev
+    rows, the step's gate gradients (3U + 4 a row) and the d h_prev
+    partials (a slot of U + 4 a row for each block of the cluster, two
+    buffers)."""
+    u, ks = wide_units(hidden), wide_hpad(hidden) + 4
+    return 4 * (3 * u * ks + 3 * u + 2 * bt * ks + bt * (3 * u + 4)
+                + 2 * WIDE_CLUSTER * bt * (u + 4))
+
+
+def wide_blocks_per_sm(bt: int, hidden: int, limits) -> int:
+    """Wide chain blocks an SM holds at once, by shared memory, threads and
+    registers (0: the block does not fit)."""
+    optin, smem_sm, _, threads_sm = limits
+    need = wide_chain_smem_bytes(bt, hidden)
+    threads = wide_chain_threads(bt, hidden)
+    if (need > optin or threads > WIDE_MAX_THREADS or bt % 16 or bt > 64
+            or bt < 16):
+        return 0
+    return min(smem_sm // (need + BLOCK_RESERVED), threads_sm // threads,
+               65536 // (threads * WIDE_REGS))
+
+
+def wide_step_cost(bt: int, hidden: int, blocks: int, per_sm: int,
+                   n_sm: int) -> float:
+    """Cycles of one step of the wide walk over the whole grid: rounds of
+    the clusters the card holds at once, each as long as its busiest SM's
+    multiply-adds (the hidden half and d h_prev, 6 U H' a row) at the rate
+    its warps reach, plus the step's fixed cycles."""
+    warps = wide_chain_threads(bt, hidden) // 32
+    busy = min(per_sm, math.ceil(blocks / n_sm))
+    held = max(1, n_sm * per_sm // WIDE_CLUSTER)
+    rounds = math.ceil(blocks // WIDE_CLUSTER / held)
+    fma = bt * 6 * wide_units(hidden) * wide_hpad(hidden)
+    eff = min(1.0, busy * warps / WIDE_SAT_WARPS)
+    return rounds * (busy * fma / (WIDE_FMA_PER_CYCLE * eff)
+                     + WIDE_STEP_CYCLES)
+
+
+def wide_chain_plan(batch: int, heads: int, hidden: int,
+                    limits) -> int | None:
+    """The wide chain's batch tile at these shapes on a card of ``limits``,
+    or None when no block fits (hidden above 128 on an H100): the cheapest
+    by ``wide_step_cost`` over ``WIDE_TILES``, the first on a tie (the
+    wider tile); a tile of twice the batch or more only idles threads and
+    is not taken unless it is the narrowest."""
+    best = None
+    for bt in WIDE_TILES:
+        if bt > min(WIDE_TILES) and bt >= 2 * batch:
+            continue
+        per_sm = wide_blocks_per_sm(bt, hidden, limits)
+        if per_sm < 1:
+            continue
+        blocks = heads * math.ceil(batch / bt) * WIDE_CLUSTER
+        cost = wide_step_cost(bt, hidden, blocks, per_sm, limits[2])
+        if best is None or cost < best[0]:
+            best = (cost, bt)
+    return None if best is None else best[1]
 
 
 def fwd_units(hidden: int) -> int:
@@ -232,11 +328,12 @@ def fwd_tile(batch: int, heads: int, d: int, hidden: int, limits,
 
 def chain_tile(batch: int, heads: int, d: int, hidden: int, limits,
                wide: bool = False) -> int | None:
-    """The batch tile of B2's chain (or of its wide variant), or None when
-    no tile fits."""
-    smem = chain_wide_smem_bytes if wide else chain_smem_bytes
+    """The batch tile of B2's chain (or, if ``wide``, of the wide chain's
+    plan, ``wide_chain_plan``), or None when no tile fits."""
+    if wide:
+        return wide_chain_plan(batch, heads, hidden, limits)
     return fit_tile(batch, heads, hidden, CHAIN_TILES,
-                    lambda n: smem(n, d, hidden), block_threads,
+                    lambda n: chain_smem_bytes(n, d, hidden), block_threads,
                     _waves_cost(lambda n: chain_step_loads(n, d, hidden)),
                     limits)
 
@@ -247,8 +344,9 @@ def recurrence_route(heads: int, batch: int, d: int, hidden: int,
     """The kernels a recurrence of these shapes runs on a card of
     ``limits``, chosen before any launch: ``"kernel"`` when B1's tile and
     B2's chain tile both fit a block with W_ih^T and W_hh^T in shared
-    memory, else ``"wide"`` when they fit with W_hh^T alone (hidden 128 on
-    an H100).  Raises ValueError when neither fits."""
+    memory, else ``"wide"`` when B1 fits with W_hh^T alone and the wide
+    chain (``wide_chain_plan``) fits (hidden 128 on an H100).  Raises
+    ValueError when neither fits."""
     for route, wide in (("kernel", False), ("wide", True)):
         if (fwd_tile(batch, heads, d, hidden, limits, wide) is not None
                 and chain_tile(batch, heads, d, hidden, limits, wide)
@@ -462,22 +560,53 @@ def _bwd_operands(w_ih, b_ih, w_hh, b_hh, x, h0, outs, extra, name):
     return ops, outs.contiguous(), extra.contiguous()
 
 
-def _chain_wih_t(ops, wide: bool):
-    """Scratch for the wide chain's copy of W_ih^T, or None."""
-    d, hidden = ops[0][3], ops[0][4]
-    return _wih_t(ops, _round4(d), 3 * hidden + 1, wide)
-
-
 def _chain_kernel(ops, w, outs, douts, gh, dh0, bt: int, wide: bool) -> None:
-    """Launch ``gru_chain_kernel`` (``gru_chain_wide_kernel`` if ``wide``)
-    into gh and dh0 (validated operands)."""
+    """Launch ``gru_chain_kernel`` or, if ``wide``, the wide chain
+    (``gru_xproj_kernel`` then ``gru_chain_wide_kernel``) into gh and dh0
+    (validated operands)."""
     from vae_connexe_torch.ops._build import gru_library
 
     (p, b, t, d, hidden), x, xs, h0, hs = ops
     w_ih, b_ih, w_hh, b_hh = (v.contiguous() for v in w)
     _launch(gru_library(), "vcx_gru_bwd_chain", x.device,
             (x, *xs, w_ih, w_hh, b_ih, b_hh, h0, *hs, outs, douts, gh, dh0,
-             _chain_wih_t(ops, wide), p, b, t, d, hidden, bt))
+             p, b, t, d, hidden, bt, int(wide)))
+
+
+def xproj_plain(w_ih, b_ih, x):
+    """Plain version of the wide chain's input projection: x W_ih^T + b_ih
+    of every head, (P, B, T, 3H), x shared (B, T, D) or per head."""
+    xs = x if x.ndim == 4 else x.expand(w_ih.shape[0], *x.shape)
+    return torch.einsum("pbtd,pgd->pbtg", xs, w_ih) + b_ih[:, None, None]
+
+
+def bwd_xproj(w_ih, b_ih, x):
+    """The wide chain's input projection, ``gru_xproj_kernel``, alone:
+    (P, B, T, 3H), the first 3H columns of the gh scratch it writes.  A
+    CPU tensor runs ``xproj_plain``."""
+    if x.device.type == "cpu":
+        return xproj_plain(w_ih, b_ih, x)
+    from vae_connexe_torch.ops._build import gru_library
+
+    p, g, d = w_ih.shape
+    hidden = g // 3
+    per_head = x.ndim == 4
+    b, t = x.shape[-3], x.shape[-2]
+    for name, v, shape in (("w_ih", w_ih, (p, g, d)), ("b_ih", b_ih, (p, g)),
+                           ("x", x, (p, b, t, d) if per_head else (b, t, d))):
+        if (tuple(v.shape) != shape or v.device != x.device
+                or v.dtype != torch.float32):
+            raise ValueError(f"GRU kernel: {name} must be float32 {shape} "
+                             f"on {x.device}")
+    x = _inner_stride_one(x)
+    xs = (x.stride(0), x.stride(1), x.stride(2)) if per_head else \
+        (0, x.stride(0), x.stride(1))
+    gh = torch.empty((p, b, t, 4 * hidden), device=x.device,
+                     dtype=torch.float32)
+    _launch(gru_library(), "vcx_gru_xproj", x.device,
+            (x, *xs, w_ih.contiguous(), b_ih.contiguous(), gh, p, b, t, d,
+             hidden))
+    return gh[..., :g]
 
 
 def _wgrad_kernel(ops, w_ih, outs, gh, dx, part, splits: int,
@@ -529,7 +658,8 @@ def _wgrad_sums(ops, dx, part):
 
 
 def bwd_chain(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts):
-    """B2's first phase, ``gru_chain_kernel``: (gh (P, B, T, 4H), dh0
+    """B2's first phase, ``gru_chain_kernel`` (on wide shapes the
+    projection and ``gru_chain_wide_kernel``): (gh (P, B, T, 4H), dh0
     (P, B, H)).  A CPU tensor runs ``bwd_chain_plain``."""
     if x.device.type == "cpu":
         return bwd_chain_plain(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts)
@@ -573,8 +703,8 @@ def _backward_launch(w_ih, b_ih, w_hh, b_hh, x, h0, outs, douts,
     dx, part = _wgrad_buffers(ops, need_dx, splits)
     _launch(gru_library(), "vcx_gru_backward", x.device,
             (xc, *xs, w_ih.contiguous(), w_hh.contiguous(), b_ih.contiguous(),
-             b_hh.contiguous(), h0c, *hs, outs, douts, gh, dh0, dx, part,
-             _chain_wih_t(ops, wide), p, b, t, d, hidden, bt, splits, chunk))
+             b_hh.contiguous(), h0c, *hs, outs, douts, gh, dh0, dx, part, p,
+             b, t, d, hidden, bt, int(wide), splits, chunk))
     LAUNCHES["gru_backward_wide" if wide else "gru_backward"] += 1
     return (*_wgrad_sums(ops, dx, part), dh0)
 
