@@ -31,12 +31,13 @@
      and tolerance: the chain's gate gradients gh and dh0, the
      weight-gradient kernel's dx, dW and db from the plain gh; and two B2
      calls on the same inputs must give bitwise-equal gradients.  The same
-     checks of the wide variants (B1 reading W_ih^T from global memory;
-     B2's chain as the input projection, held against x W_ih^T + b_ih at
-     ``XPROJ_TOL``, and the walk on clusters, its plan printed) at
-     ``lorenz96_scaled``'s decoder (P=40, B=512, T=30, D=40, H=128, a
-     random parents mask) and encoder (P=1, T=10) shapes and
-     ``lorenz96_xl``'s decoder (P=128, B=64, T=30, D=128); and on the
+     checks of the wide variants (B1 as the input projection and the walk
+     on clusters, its plan printed; B2's chain as the input projection,
+     held against x W_ih^T + b_ih at ``XPROJ_TOL``, and the walk on
+     clusters, its plan printed) at ``lorenz96_scaled``'s decoder (P=40,
+     B=512, T=30, D=40, H=128, a random parents mask) and encoder (P=1,
+     T=10) shapes, ``lorenz96_xl``'s decoder (P=128, B=64, T=30, D=128)
+     and hidden 130 (P=6, B=100, T=12, D=40, a per-head input); and on the
      kernel route at the W_in family's shapes: henon6d_win's decoder (6
      heads, B=256, T=10, a per-head x of width 64, dx on), the 8-seed fold
      of it (48 heads), its ErrorVAE (1 head, D=6, H=32) and var_crvae's
@@ -459,6 +460,24 @@ def b2_wide_bound(p, b, t, d, hidden):
     t_ops = (chain / TF32X3_FLOPS + (flops - chain) / F32_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def b1_wide_bound(p, b, t, d, hidden):
+    """(ms, by) bound of one wide B1 launch with its products at
+    ``TF32X3_FLOPS`` (the projection and the walk run as three TF32 passes
+    on the tensor cores), against gru_cost's bytes; ``bound(*gru_cost(...,
+    backward=False))`` is the f32 one."""
+    return bound(*gru_cost(p, b, t, d, hidden, backward=False), TF32X3_FLOPS)
+
+
+def wgrad_cost(p, b, t, d, hidden):
+    """(flops, bytes) of B2's weight-gradient kernel (no dx): the dW_hh and
+    dW_ih outer products over B*T rows; gh, x, h0 and outs read once, the
+    weight gradients and bias sums written once."""
+    g, k = 3 * hidden, b * t
+    return (2 * p * k * g * (hidden + d),
+            4 * (p * k * 4 * hidden + b * t * d + p * b * hidden
+                 + p * k * hidden + p * g * (hidden + d + 2)))
 
 
 def xproj_cost(p, b, t, d, hidden):
@@ -1011,6 +1030,9 @@ def wide_training_cases():
         # lorenz96_xl's decoder heads (p=128, batch 64, context 40).
         ("xl decoder", XL_P, XL_B, XL_CTX - ENC, XL_P, XL_H, False,
          (1, XL_B, XL_H), True),
+        # Hidden 130: 160 units on the wide route, a ragged batch, a
+        # per-head input and h0.
+        ("wide h130", 6, 100, 12, SCALED_P, 130, True, (6, 100, 130), True),
     ]
 
 
@@ -1074,7 +1096,7 @@ def check_training_kernels(dev, errors):
     for case in cases:
         what, heads, b, td, d, hid = case[:6]
         wide = cuda_gru.recurrence_route(heads, b, d, hid, limits) == "wide"
-        if wide != what.startswith(("scaled", "xl")):
+        if wide != what.startswith(("scaled", "xl", "wide")):
             raise AssertionError(f"{what}: route {'wide' if wide else 'kernel'}")
         fwd, bwd = (("gru_forward_wide", "gru_backward_wide") if wide else
                     ("gru_forward", "gru_backward"))
@@ -1093,6 +1115,9 @@ def check_training_kernels(dev, errors):
         shape = f"P={heads} B={b} T={td} D={d} H={hid}"
         _assert_close(fwd, k_outs, r_outs, errors, 0.0, OUT_TOL,
                       f"{what} {shape} outs")
+        if wide:
+            log(f"plan {fwd} {what} {shape}: "
+                f"{wide_fwd_line(k_outs.shape, d, dev)}")
         same = torch.equal(k_outs, again)
         log(f"check {fwd} {what} {shape}: two calls bitwise equal: {same}")
         if not same:
@@ -1263,6 +1288,30 @@ def check_backward_phases(params, x, h0, outs, douts, errors, what, name,
                       cuda_gru.xproj_plain(params.w_ih, params.b_ih, x),
                       errors, **XPROJ_TOL,
                       what=f"{what} input projection (gru_xproj_kernel)")
+
+
+def wide_fwd_line(outs_shape, d, dev) -> str:
+    """The wide forward's plan at outs (P, B, T, H) and input width d:
+    cluster, tile, threads, shared memory and grid, the block's shared
+    memory, threads and cluster also read from the library (they must
+    agree with ``cuda_gru``'s)."""
+    import ctypes
+
+    from vae_connexe_torch.ops import _build, cuda_gru
+
+    p, b, _, hidden = outs_shape
+    bt = cuda_gru.wide_fwd_plan(b, p, hidden, cuda_gru.device_limits(dev))
+    cluster = cuda_gru.WIDE_CLUSTER
+    smem = cuda_gru.wide_fwd_smem_bytes(bt, hidden)
+    threads = cuda_gru.wide_chain_threads(bt, hidden)
+    got = (ctypes.c_longlong * 3)()
+    _build.gru_library().vcx_wide_fwd_block(bt, hidden, got)
+    if tuple(got) != (smem, threads, cluster):
+        raise AssertionError(f"wide forward block: library {tuple(got)}, "
+                             f"cuda_gru {(smem, threads, cluster)}")
+    return (f"cluster {cluster}, tile {bt} rows, {threads} threads, "
+            f"{smem} B shared, grid "
+            f"({-(-b // bt) * cluster}, {p}), d={d}")
 
 
 def wide_chain_line(outs_shape, d, dev) -> str:
@@ -1901,8 +1950,41 @@ def time_recurrence(dev, card, g, heads, b, td, d, hid):
                       ("wgrad_device_ms", "gru_wgrad_kernel"),
                       ("xproj_device_ms", "gru_xproj_kernel")):
         row[key] = sum(v for k, v in dev_ms.items() if name in k)
+    # The one torch call that computes the weight-gradient kernel's
+    # products: gh^T [x | h_prev] per head by torch.bmm (TF32 off; all 4H
+    # gate-gradient columns against both, of which the kernel's dW_ih and
+    # dW_hh are blocks), its operands made before the timing; beside the
+    # kernel's own bound.
+    a_t = gh.reshape(heads, b * td, 4 * hid).transpose(1, 2)
+    xh = torch.cat([x.expand(heads, b, td, d),
+                    cuda_gru._h_prev(h0b, outs)], dim=-1).reshape(
+                        heads, b * td, d + hid)
+    row["wgrad_library_ms"] = time_ms(lambda: torch.bmm(a_t, xh), 100)
+    row["wgrad_bound_ms"] = bound(*wgrad_cost(heads, b, td, d, hid))[0]
+    del a_t, xh
     if cuda_gru.recurrence_route(heads, b, d, hid,
                                  cuda_gru.device_limits(dev)) == "wide":
+        # The wide forward: its plan, its time beside its bound at the f32
+        # rate and at the 3xTF32 rate its products run at, its device time
+        # by kernel (the projection, the walk).
+        row["fwd_plan"] = wide_fwd_line(outs.shape, d, dev)
+        row["fwd_bound_ms"] = bound(*gru_cost(heads, b, td, d, hid,
+                                              backward=False))[0]
+        row["fwd_bound_tf32x3_ms"] = b1_wide_bound(heads, b, td, d, hid)[0]
+        f_ms = device_ms(lambda: cuda_gru.fused_gru_scan_heads(
+            params, x, h0), 20)
+        row["fwd_xproj_device_ms"] = sum(
+            v for k, v in f_ms.items() if "gru_xproj_kernel" in k)
+        row["fwd_walk_device_ms"] = sum(
+            v for k, v in f_ms.items() if "gru_forward_wide_kernel" in k)
+        log(f"time wide forward P={heads} B={b} T={td} D={d} H={hid}: "
+            f"{row['fwd_plan']}; {row['ms']:.4f} ms (device "
+            f"{row['fwd_walk_device_ms']:.4f} walk + "
+            f"{row['fwd_xproj_device_ms']:.4f} projection) against its bound "
+            f"{row['fwd_bound_ms']:.4f} ms at f32 "
+            f"({row['fwd_bound_ms'] / row['ms']:.1%}), "
+            f"{row['fwd_bound_tf32x3_ms']:.4f} ms at 3xTF32 "
+            f"({row['fwd_bound_tf32x3_ms'] / row['ms']:.1%}) [{card}]")
         # The wide chain: its plan, its time beside its share of the bound
         # (the chain's own work, chain_cost: at the f32 rate, and at the
         # rate of three TF32 passes a product, which its products run at),
@@ -1961,7 +2043,12 @@ def recurrence_rows(fwd, bwd, enc, heads, heads_shape):
                   "heads_device_ms": heads["fwd_device_ms"],
                   "heads_ms": heads["ms"],
                   "heads_plain_ms": heads["plain_ms"],
-                  "heads_bound_ms": fwd_bound}},
+                  "heads_bound_ms": fwd_bound,
+                  **{f"{pre}{k}": r[k] for pre, r in
+                     (("", enc), ("heads_", heads))
+                     for k in ("fwd_plan", "fwd_bound_ms",
+                               "fwd_bound_tf32x3_ms", "fwd_xproj_device_ms",
+                               "fwd_walk_device_ms") if k in r}}},
         bwd: {"ms": enc["bwd_ms"], "plain_ms": enc["bwd_plain_ms"],
               "library_ms": enc["bwd_library_ms"], "extra": {
                   "heads_ms": heads["bwd_ms"],
@@ -1973,7 +2060,9 @@ def recurrence_rows(fwd, bwd, enc, heads, heads_shape):
                                "chain_device_ms", "wgrad_device_ms",
                                "xproj_device_ms", "chain_plan",
                                "chain_bound_ms", "chain_bound_tf32x3_ms",
-                               "xproj_ms", "xproj_bound_ms") if k in r}}},
+                               "xproj_ms", "xproj_bound_ms",
+                               "wgrad_library_ms", "wgrad_bound_ms")
+                     if k in r}}},
     }
 
 
@@ -2001,19 +2090,26 @@ def time_training(dev, card, windows):
         time_recurrence(dev, card, g, SCALED_P, SCALED_B, std, SCALED_P,
                         SCALED_H),
         (SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)))
-    # Wide B2's bound with its chain's products at the 3xTF32 rate.
+    # Wide B1's and B2's bounds with their products at the 3xTF32 rate.
+    res["gru_forward_wide"]["extra"]["heads_bound_tf32x3_ms"] = (
+        b1_wide_bound(SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)[0])
     res["gru_backward_wide"]["extra"]["heads_bound_tf32x3_ms"] = (
         b2_wide_bound(SCALED_P, SCALED_B, std, SCALED_P, SCALED_H)[0])
     # lorenz96_xl's decoder heads on the wide route.
     xd = XL_CTX - ENC
     xl = time_recurrence(dev, card, g, XL_P, XL_B, xd, XL_P, XL_H)
+    res["gru_forward_wide"]["extra"]["xl_heads"] = {
+        **{k: xl[k] for k in ("ms", "fwd_device_ms", "plain_ms", "fwd_plan",
+                              "fwd_xproj_device_ms", "fwd_walk_device_ms",
+                              "fwd_bound_ms", "fwd_bound_tf32x3_ms")}}
     res["gru_backward_wide"]["extra"]["xl_heads"] = {
         **{k: xl[k] for k in ("bwd_ms", "bwd_plain_ms", "chain_ms",
                               "wgrad_ms", "chain_device_ms",
                               "xproj_device_ms", "wgrad_device_ms",
                               "chain_plan", "chain_bound_ms",
                               "chain_bound_tf32x3_ms", "xproj_ms",
-                              "xproj_bound_ms")},
+                              "xproj_bound_ms", "wgrad_library_ms",
+                              "wgrad_bound_ms")},
         "bound_ms": bound(*gru_cost(XL_P, XL_B, xd, XL_P, XL_H,
                                     backward=True))[0],
         "bound_tf32x3_ms": b2_wide_bound(XL_P, XL_B, xd, XL_P, XL_H)[0]}
@@ -4620,11 +4716,12 @@ def main() -> int:
     for name, ((flops, nbytes), source, replaces) in costs.items():
         bound_ms, bound_by = bound(flops, nbytes)
         row = times[name]
-        if name == "gru_backward_wide":
-            # Its chain's products run as three TF32 passes: bound at that
-            # rate, the f32 bound beside it.
+        if name in ("gru_forward_wide", "gru_backward_wide"):
+            # Their walks' (and the forward's projection's) products run as
+            # three TF32 passes: bound at that rate, the f32 bound beside it.
             row["extra"]["bound_f32_ms"] = bound_ms
-            bound_ms, bound_by = b2_wide_bound(*wide_enc)
+            bound_ms, bound_by = (b1_wide_bound if name == "gru_forward_wide"
+                                  else b2_wide_bound)(*wide_enc)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

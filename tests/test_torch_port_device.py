@@ -254,8 +254,8 @@ def test_gru_forward_matches_plain_on_card(cuda_device, per_head, hidden):
 @pytest.mark.parametrize("d", [40, 128])
 @pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
 def test_gru_wide_matches_plain_on_card(cuda_device, per_head, d):
-    """The wide variants of B1 (W_ih^T read from global memory) and B2's
-    chain (the input projection, then the walk on clusters) at hidden 128
+    """The wide variants of B1 and B2's chain (each the input projection,
+    then the walk on clusters) at hidden 128
     with lorenz96_scaled's D=40 and lorenz96_xl's D=128, where the two
     weights do not fit a block together: outputs 1e-5 absolute, gradients
     rtol 1e-3, atol 1e-4, the chain's gate gradients against its plain
@@ -337,6 +337,45 @@ def test_wide_chain_variants_match_plain_on_card(cuda_device):
         torch.testing.assert_close(dh0, rdh0, rtol=1e-5, atol=2e-5)
         ran += 1
     assert ran >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [128, 130])
+def test_wide_forward_variants_match_plain_on_card(cuda_device, hidden):
+    """Every tile of the wide forward (``cuda_gru.wide_fwd_blocks_per_sm``
+    > 0), launched directly on a ragged batch of 37 with a per-head input,
+    against the plain forward (1e-5 absolute), bitwise repeatable; and at
+    hidden 130 (160 units) the wide chain's gate gradients against its
+    plain phase (rtol 1e-5, atol 2e-5)."""
+    g = torch.Generator().manual_seed(14)
+    p, b, t, d = 2, 37, 6, 40
+    params = _params_on(p, d, hidden, 15, cuda_device)
+    w = (params.w_ih, params.b_ih, params.w_hh, params.b_hh)
+    x = torch.randn((p, b, t, d), generator=g).to(cuda_device)
+    h0 = torch.randn((p, b, hidden), generator=g).to(cuda_device)
+    douts = torch.randn((p, b, t, hidden), generator=g).to(cuda_device)
+    ref, _ = cuda_gru.fused_gru_scan_heads_plain(params, x, h0)
+    ops = cuda_gru._operands(*w, x, h0)
+    limits = cuda_gru.device_limits(cuda_device)
+    ran = 0
+    for bt in cuda_gru.WIDE_TILES:
+        if cuda_gru.wide_fwd_blocks_per_sm(bt, hidden, limits) < 1:
+            continue
+        outs = torch.empty_like(ref)
+        again = torch.empty_like(ref)
+        cuda_gru._forward_kernel(ops, w, outs, bt, True)
+        cuda_gru._forward_kernel(ops, w, again, bt, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs, ref, rtol=0, atol=1e-5)
+        assert torch.equal(outs, again)
+        ran += 1
+    assert ran >= 2
+    assert cuda_gru.recurrence_route(p, b, d, hidden, limits) == "wide"
+    outs = cuda_gru._forward_launch(*w, x, h0)
+    gh, dh0 = cuda_gru.bwd_chain(*w, x, h0, outs, douts)
+    rgh, rdh0 = cuda_gru.bwd_chain_plain(*w, x, h0, outs, douts)
+    torch.testing.assert_close(gh, rgh, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(dh0, rdh0, rtol=1e-5, atol=2e-5)
 
 
 @pytest.mark.cuda

@@ -168,6 +168,37 @@ def test_backward_phases_match_autograd_and_pallas(interpret, case):
                              douts))
 
 
+# (P, B, T, D, H): the wide_h128 phase case's shape, and hidden 130, a
+# width whose units pad to 160 on the wide route.
+WIDE_FWD_CASES = {"wide_h128": (2, 8, 4, 40, 128), "wide_h130": (2, 8, 4, 40, 130)}
+
+
+@pytest.mark.parametrize("case", list(WIDE_FWD_CASES))
+@pytest.mark.parametrize("per_head", [False, True], ids=["shared", "per_head"])
+def test_wide_forward_decomposition_matches_jax(interpret, case, per_head):
+    """The wide forward's decomposition (``fwd_wide_plain``: every step's
+    input projection first, then a walk over h W_hh^T alone), the plain
+    version of what ``gru_forward_wide_kernel`` computes, against
+    ``pallas_gru.fused_gru_scan_heads`` in interpret mode and against
+    ``gru.gru_scan_heads``: rtol 1e-5, atol 1e-5 (float32 sums in another
+    order)."""
+    p, b, t, d, hid = WIDE_FWD_CASES[case]
+    params = jgru.init_stacked_gru(jax.random.key(7), p, d, hid)
+    x_shape = (p, b, t, d) if per_head else (b, t, d)
+    x, h0, _ = _draws(7, x_shape, (p, b, hid), (1,))
+    outs, h_t = pallas_gru.fused_gru_scan_heads(params, jnp.asarray(x),
+                                                jnp.asarray(h0),
+                                                interpret=True)
+    prm = _port(params)
+    got = cuda_gru.fwd_wide_plain(prm.w_ih, prm.b_ih, prm.w_hh, prm.b_hh,
+                                  torch.tensor(x), torch.tensor(h0))
+    assert got.shape == (p, b, t, hid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(outs), **FWD)
+    np.testing.assert_allclose(got[:, :, -1].numpy(), np.asarray(h_t), **FWD)
+    ref, _ = gru.gru_scan_heads(prm, torch.tensor(x), torch.tensor(h0))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **FWD)
+
+
 def test_xproj_plain_matches_input_projection():
     """The wide chain's input projection (``bwd_xproj``; on a CPU tensor its
     plain version) against W_ih x + b_ih per head in float64 numpy, for a
@@ -303,9 +334,9 @@ def test_pick_tile(batch, heads, kernel, want):
     (20, 256, 20, 64, "kernel", 20, 20),   # the main path's decoder heads
     (1, 256, 20, 64, "kernel", 8, 4),      # ... and its encoder
     (1, 256, 10, 64, "kernel", 8, 4),      # lorenz96_crvae's ErrorVAE
-    (40, 512, 40, 128, "wide", 16, 32),    # lorenz96_scaled's heads
-    (1, 512, 40, 128, "wide", 4, 16),      # ... and its encoder
-    (128, 64, 128, 128, "wide", 12, 32),   # lorenz96_xl's heads
+    (40, 512, 40, 128, "wide", 64, 32),    # lorenz96_scaled's heads
+    (1, 512, 40, 128, "wide", 16, 16),     # ... and its encoder
+    (128, 64, 128, 128, "wide", 64, 32),   # lorenz96_xl's heads
     (10, 2048, 10, 64, "kernel", 32, 28),  # lorenz96_crcsrae's phase-1 heads
     (1, 2048, 10, 64, "kernel", 16, 8),    # ... its encoder
     (10, 1024, 10, 64, "kernel", 16, 20),  # ... its phase-2 heads
@@ -317,9 +348,9 @@ def test_pick_tile(batch, heads, kernel, want):
 def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     """The kernels' variant is chosen from shapes and the card's limits
     alone: both weights in shared memory where B1's tile and B2's chain
-    tile fit so, else the wide variants: B1 stages W_hh^T alone, B2's
-    chain walks on clusters that split W_hh (at hidden 128 the two weights
-    need more than an H100 block's 232,448 bytes)."""
+    tile fit so, else the wide variants: B1 and B2's chain walk on
+    clusters that split W_hh (at hidden 128 the two weights need more than
+    an H100 block's 232,448 bytes)."""
     route = cuda_gru.recurrence_route(heads, batch, d, hidden, H100)
     assert route == want
     wide = route == "wide"
@@ -327,12 +358,38 @@ def test_recurrence_route(heads, batch, d, hidden, want, fwd_bt, chain_bt):
     assert (cuda_gru.chain_tile(batch, heads, d, hidden, H100) is None) == wide
     assert cuda_gru.fwd_tile(batch, heads, d, hidden, H100, wide) == fwd_bt
     assert cuda_gru.chain_tile(batch, heads, d, hidden, H100, wide) == chain_bt
-    assert cuda_gru.fwd_tile_smem_bytes(fwd_bt, d, hidden, wide) <= H100[0]
     if wide:
+        assert cuda_gru.wide_fwd_plan(batch, heads, hidden, H100) == fwd_bt
+        assert cuda_gru.wide_fwd_smem_bytes(fwd_bt, hidden) <= H100[0]
         assert cuda_gru.wide_chain_plan(batch, heads, hidden, H100) == chain_bt
         assert cuda_gru.wide_chain_smem_bytes(chain_bt, hidden) <= H100[0]
     else:
+        assert cuda_gru.fwd_tile_smem_bytes(fwd_bt, d, hidden) <= H100[0]
         assert cuda_gru.chain_smem_bytes(chain_bt, d, hidden) <= H100[0]
+
+
+# The shapes at which every hidden width from 1 to 132 must route:
+# lorenz96_scaled's heads and encoder, lorenz96_xl's heads, and the
+# phase-1 decoder heads of bench.py's width.
+ROUTE_SHAPES = [(40, 512, 40), (1, 512, 40), (128, 64, 128), (20, 256, 20)]
+
+
+@pytest.mark.parametrize("heads,batch,d", ROUTE_SHAPES,
+                         ids=["scaled-heads", "scaled-encoder", "xl-heads",
+                              "main-heads"])
+def test_recurrence_route_covers_hidden_1_to_132(heads, batch, d):
+    """Every hidden width from 1 to 132 takes a route at the H100's limits
+    (no width between the two routes raises): the units of the wide walks
+    pad to 16 a block (H' = 160 at H = 129-132) and the wide chain's d
+    h_prev items to 16 units where 32 do not divide a block's units, so B1
+    and B2's chain both fit there; on each route both kernels have a
+    tile."""
+    for hidden in range(1, 133):
+        route = cuda_gru.recurrence_route(heads, batch, d, hidden, H100)
+        wide = route == "wide"
+        assert cuda_gru.fwd_tile(batch, heads, d, hidden, H100, wide), hidden
+        assert cuda_gru.chain_tile(batch, heads, d, hidden, H100, wide), hidden
+    assert cuda_gru.recurrence_route(heads, batch, d, 132, H100) == "wide"
 
 
 # (heads, batch) -> the wide chain's tile, threads, shared memory and grid
@@ -365,7 +422,7 @@ def test_wide_chain_plan(heads, batch, bt, threads, smem, grid):
 
 def test_wide_chain_layout():
     """The wide chain's units and shared memory (gru_wide.cuh
-    ``wide_hpad``, ``wide_smem_floats``): H padded to 32 units a block of
+    ``wide_hpad``, ``wide_smem_floats``): H padded to 16 units a block of
     the cluster, W_hh rows of H' + 4 floats, two h_prev buffers, the gate
     gradients at 3U + 4 a row and C slots of U + 4 a row in two buffers;
     a warp a (16 rows, 16 units) item, at most 256 threads."""
@@ -381,15 +438,53 @@ def test_wide_chain_layout():
     assert cuda_gru.wide_blocks_per_sm(48, 128, H100) == 0   # 384 threads
     assert cuda_gru.wide_blocks_per_sm(8, 128, H100) == 0    # under 16 rows
     assert cuda_gru.wide_blocks_per_sm(64, 128, H100) == 0   # 512 threads
-    # Past hidden 128 the units pad to 192 and no tile fits a block: the
-    # wide route covers hidden <= 128.
-    assert cuda_gru.wide_hpad(130) == 192
-    assert cuda_gru.wide_chain_plan(64, 40, 130, H100) is None
+    # Past hidden 128 the units pad to 160 (80 a block): 16-row tiles fit,
+    # and the d h_prev items take 16 units so that none straddles the two
+    # blocks; past 160 units nothing fits.
+    assert cuda_gru.wide_hpad(130) == cuda_gru.wide_hpad(160) == 160
+    assert cuda_gru.wide_units(132) == 80 and cuda_gru.wide_hpad(96) == 96
+    assert cuda_gru.wide_chain_plan(64, 40, 130, H100) == 16
+    assert cuda_gru.wide_chain_smem_bytes(16, 130) == 216512 <= H100[0]
+    assert cuda_gru.wide_chain_threads(16, 130) == 160
+    assert cuda_gru.wide_chain_plan(64, 40, 161, H100) is None
+
+
+# (heads, batch, hidden) -> the wide forward's tile, threads, shared memory
+# and grid at the H100's limits.
+@pytest.mark.parametrize("heads,batch,hidden,bt,threads,smem,grid", [
+    (40, 512, 128, 64, 512, 169728, (16, 40)),   # lorenz96_scaled's heads
+    (1, 512, 128, 16, 128, 119040, (64, 1)),     # ... encoder, ErrorVAE
+    (128, 64, 128, 64, 512, 169728, (2, 128)),   # lorenz96_xl's heads
+    (1, 64, 128, 16, 128, 119040, (8, 1)),       # ... and its encoder
+    (3, 37, 128, 16, 128, 119040, (6, 3)),       # a ragged batch
+    (40, 512, 130, 48, 480, 221376, (22, 40)),   # hidden 130: 160 units
+    (128, 64, 132, 32, 320, 200384, (4, 128)),
+], ids=["scaled-heads", "scaled-encoder", "xl-heads", "xl-encoder", "ragged",
+        "h130-heads", "h132-xl-heads"])
+def test_wide_fwd_plan(heads, batch, hidden, bt, threads, smem, grid):
+    """The wide forward's plan from shapes and limits alone (gru_wide.cuh
+    ``gru_fwd_wide_body``): clusters of 2 blocks splitting W_hh's units, a
+    block's W_hh rows (3U of H' + 4 floats), b_hh and two h buffers of bt
+    rows; a warp a (16 rows, 16 units) item, at most 512 threads, one block
+    an SM; the tile the cost model ``wide_fwd_step_cost`` picks."""
+    assert cuda_gru.wide_fwd_plan(batch, heads, hidden, H100) == bt
+    assert cuda_gru.fwd_tile(batch, heads, 40, hidden, H100, True) == bt
+    assert cuda_gru.wide_chain_threads(bt, hidden) == threads
+    assert threads <= cuda_gru.WIDE_FWD_MAX_THREADS
+    u, ks = cuda_gru.wide_units(hidden), cuda_gru.wide_hpad(hidden) + 4
+    assert cuda_gru.wide_fwd_smem_bytes(bt, hidden) == smem == 4 * (
+        3 * u * ks + 3 * u + 2 * bt * ks)
+    assert smem <= H100[0]
+    assert cuda_gru.wide_fwd_blocks_per_sm(bt, hidden, H100) == 1
+    assert (-(-batch // bt) * cuda_gru.WIDE_CLUSTER, heads) == grid
+    # No tile past the limits: 64 rows at 160 units needs 242,368 bytes.
+    assert cuda_gru.wide_fwd_blocks_per_sm(64, 130, H100) == 0
+    assert cuda_gru.wide_fwd_blocks_per_sm(8, 128, H100) == 0
 
 
 def test_recurrence_route_raises_when_nothing_fits():
-    """At hidden 256 not even W_hh^T alone fits a block: the wrappers raise
-    before any launch, as they did before the wide variants."""
+    """At hidden 256 not even half of W_hh fits a block of the wide route's
+    clusters: the wrappers raise before any launch."""
     with pytest.raises(ValueError, match="shared memory"):
         cuda_gru.recurrence_route(1, 256, 20, 256, H100)
 

@@ -29,15 +29,19 @@ lorenz96_scaled's decoder heads (P=40, B=512, T=30, D=40) and lorenz96_xl's
 - ``one_pass``: every product one TF32 pass (the lo halves of the split
   set to zero), the precision a chain on plain TF32 would have.
 
-A variant's outputs are wrong by design.  ``--control`` builds ``base``
-and ``one_pass`` alone and holds each build's gh and dh0, at the plan, on
-``chip_smoke.py``'s wide cases (``wide_training_cases``, the same seeded
-inputs), against ``cuda_gru.bwd_chain_plain`` at ``chip_smoke.py``'s
-``WIDE_CHAIN_TOL``: it prints each build's largest error and its worst
-share of that limit (1 or below: within), and exits 1 unless ``base`` is
-within the limit at every case and ``one_pass`` outside it at every case,
-so that the limit tells the chain's three-pass accuracy from one pass.
-Needs a CUDA device and nvcc.
+(``no_hidden`` also takes the hidden half out of B1's wide forward, which
+shares its product; the forward is not timed here.)  A variant's outputs
+are wrong by design.  ``--control`` builds ``base`` and ``one_pass`` alone
+and holds each build's gh and dh0, at the plan, on ``chip_smoke.py``'s
+wide cases (``wide_training_cases``, the same seeded inputs), against
+``cuda_gru.bwd_chain_plain`` at ``chip_smoke.py``'s ``WIDE_CHAIN_TOL``,
+and each build's wide forward (``vcx_gru_forward`` at
+``cuda_gru.wide_fwd_plan``'s tile) against the plain forward at
+``chip_smoke.py``'s ``OUT_TOL`` (B1's 1e-5 absolute): it prints each
+build's largest errors and their worst share of the limits (1 or below:
+within), and exits 1 unless ``base`` is within both limits at every case
+and ``one_pass`` outside both at every case, so that the limits tell the
+walks' three-pass accuracy from one pass.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -78,17 +82,17 @@ PATCHES = [
      "#ifndef NO_DSMEM\n"
      "      if (owner != rank) dst = cl.map_shared_rank(dst, owner);\n"
      "#endif"),
-    ('    asm volatile("barrier.cluster.arrive.release;\\n" ::: "memory");',
-     "#ifdef NO_BARRIER\n    __syncthreads();\n#else\n"
-     '    asm volatile("barrier.cluster.arrive.release;\\n" ::: "memory");\n'
+    ('  asm volatile("barrier.cluster.arrive.release;\\n" ::: "memory");',
+     "#ifdef NO_BARRIER\n  __syncthreads();\n#else\n"
+     '  asm volatile("barrier.cluster.arrive.release;\\n" ::: "memory");\n'
      "#endif"),
-    ('    asm volatile("barrier.cluster.wait.acquire;\\n" ::: "memory");',
+    ('  asm volatile("barrier.cluster.wait.acquire;\\n" ::: "memory");',
      "#ifndef NO_BARRIER\n"
-     '    asm volatile("barrier.cluster.wait.acquire;\\n" ::: "memory");\n'
+     '  asm volatile("barrier.cluster.wait.acquire;\\n" ::: "memory");\n'
      "#endif"),
-    ("    for (int k = 0; k < HP; k += 8) {",
-     "#ifdef NO_HIDDEN\n    for (int k = 0; k < 0; k += 8) {\n#else\n"
-     "    for (int k = 0; k < HP; k += 8) {\n#endif"),
+    ("  for (int k = k0; k < k1; k += 8) {",
+     "#ifdef NO_HIDDEN\n  for (int k = k0; k < k0; k += 8) {\n#else\n"
+     "  for (int k = k0; k < k1; k += 8) {\n#endif"),
     ("      for (int c = 0; c < 3 * U; c += 8) {",
      "#ifdef NO_DH\n      for (int c = 0; c < 0; c += 8) {\n#else\n"
      "      for (int c = 0; c < 3 * U; c += 8) {\n#endif"),
@@ -177,7 +181,8 @@ def load(out_dir: str, names):
     libs = {}
     for name in names:
         lib = ctypes.CDLL(os.path.join(out_dir, f"lib_{name}.so"))
-        for fn in ("vcx_gru_bwd_chain", "vcx_gru_xproj", "vcx_error_string"):
+        for fn in ("vcx_gru_bwd_chain", "vcx_gru_xproj", "vcx_gru_forward",
+                   "vcx_error_string"):
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = getattr(ref, fn).restype
         libs[name] = lib
@@ -186,7 +191,8 @@ def load(out_dir: str, names):
 
 def control(out_dir: str) -> bool:
     """``--control``: the three-pass chain within ``WIDE_CHAIN_TOL`` of the
-    plain chain and a one-pass build outside it, at every wide case of
+    plain chain, and the three-pass forward within ``OUT_TOL`` of the plain
+    forward, and a one-pass build outside both, at every wide case of
     ``chip_smoke.py``."""
     import torch
 
@@ -212,7 +218,24 @@ def control(out_dir: str) -> bool:
                                                       "douts")
         (_, xc, xs, h0c, hs) = ops
         bt = cuda_gru.wide_chain_plan(b, heads, hid, limits)
+        bt_f = cuda_gru.wide_fwd_plan(b, heads, hid, limits)
+        ref_out = cuda_gru.fused_gru_scan_heads_plain(params, x, h0)[0]
         for name, lib in libs.items():
+            k_out = torch.empty_like(ref_out)
+            xp = torch.empty((heads, b, t, 3 * hid), device=dev)
+            cuda_gru._launch(lib, "vcx_gru_forward", dev, (
+                xc, *xs, *(v.contiguous() for v in (w[0], w[2], w[1], w[3])),
+                h0c, *hs, k_out, xp, heads, b, t, d, hid, bt_f))
+            torch.cuda.synchronize()
+            err = (k_out - ref_out).abs().max().item()
+            f_within = (bool(torch.isfinite(k_out).all())
+                        and err <= chip_smoke.OUT_TOL)
+            print(f"control {what} P={heads} B={b} T={t} D={d} H={hid} "
+                  f"bt={bt_f}: {name} forward outs max_abs_err {err:.3e}, "
+                  f"{err / chip_smoke.OUT_TOL:.4f} of OUT_TOL "
+                  f"{chip_smoke.OUT_TOL} "
+                  f"({'within' if f_within else 'outside'})", flush=True)
+            sound &= f_within == (name == "base")
             gh, dh0 = cuda_gru._chain_buffers(ops)
             cuda_gru._launch(lib, "vcx_gru_bwd_chain", dev, (
                 xc, *xs, *(v.contiguous() for v in (w[0], w[2], w[1], w[3])),
@@ -232,7 +255,7 @@ def control(out_dir: str) -> bool:
                   f"({'within' if within else 'outside'}); within GRAD_TOL "
                   f"{grad}", flush=True)
             sound &= within == (name == "base")
-    print("control: " + ("the limit tells three passes from one" if sound
+    print("control: " + ("the limits tell three passes from one" if sound
                          else "FAIL"), flush=True)
     return sound
 

@@ -1,9 +1,11 @@
 // Stacked-head GRU recurrence for Hopper (sm_90a), plain C interface.
 //
 // Replaces the two Pallas TPU kernels of vae_connexe_tpu/ops/pallas_gru.py:
-//   gru_forward_kernel <- _fused_recurrence / _fwd_kernel (pallas_gru.py:243, :199)
+//   gru_forward_kernel (on wide shapes gru_xproj_kernel<3> and
+//   gru_forward_wide_kernel)
+//                      <- _fused_recurrence / _fwd_kernel (pallas_gru.py:243, :199)
 //   gru_chain_kernel, gru_wgrad_kernel, gru_dx_kernel (on wide shapes
-//   gru_xproj_kernel and gru_chain_wide_kernel for the chain)
+//   gru_xproj_kernel<4> and gru_chain_wide_kernel for the chain)
 //                      <- _fused_recurrence_bwd / _bwd_kernel (:426, :320)
 //
 // P independent GRU heads over T steps, input shared (B, T, D) or per head
@@ -28,10 +30,18 @@
 // H runs with one pad unit.
 //
 // Wide shapes.  Where the two weights do not fit a block together (hidden
-// 128 at D = 40 or 128 on an H100), B1 keeps W_hh^T in shared memory and
-// reads W_ih^T from a copy in global memory, laid out as the staged rows by
-// gru_wih_t_kernel at the start of the same call (a few MB; it stays in
-// L2).  B2's chain takes another design there (gru_wide.cuh, below).
+// 128 at D = 40 or 128 on an H100), B1 and B2's chain run gru_wide.cuh's
+// design: the input projection of every step as one product on the
+// tensor cores first (B1: into a (P, B, T, 3H) scratch, as the TPU kernel
+// fills its xp scratch), then the walk on clusters of 2 blocks that split
+// W_hh's units, its products on the tensor cores in three TF32 passes.
+// At lorenz96_scaled's decoder heads (P=40, B=512, T=30, D=40, H=128) the
+// forward is 79.3 GFLOP (1.18 ms at the H100's 67 TFLOP/s of f32, 0.48 at
+// the 165 TFLOP/s of a 3xTF32 product); the scratch adds 0.94 GB written
+// once and read once (~0.56 ms at 3.35 TB/s), where the earlier design
+// read W_ih^T from L2 at every step.  Measured there (NVIDIA H100 80GB
+// HBM3, 700 W, tools/torch_gru_fwd_tiles.py --wide): 2.15 ms, the walk
+// 1.60 and the projection 0.52, against the earlier design's 3.06.
 // cuda_gru.recurrence_route picks the variant from the shapes and the
 // card's limits before any launch.
 //
@@ -95,36 +105,18 @@ using vcx::GruArgs;
 using vcx::i64;
 using vcx::WgradArgs;
 
-template <bool WIDE>
 __global__ void __launch_bounds__(vcx::kFwdMaxThreads)
-    gru_forward_kernel(GruArgs a, const float* wih_t) {
-  vcx::gru_fwd_body<WIDE>(a, wih_t);
+    gru_forward_kernel(GruArgs a) {
+  vcx::gru_fwd_body(a);
 }
 
-// W_ih^T for the wide kernels, which read it from global memory instead of
-// staging it: dst[i][c][col] (rows x ld floats a head) = w_ih[i][g][c] for
-// c < D and col = (g / H) * gs + g % H, zero everywhere else.
-__global__ void gru_wih_t_kernel(const float* w_ih, float* dst, int P, int D,
-                                 int H, int rows, int ld, int gs) {
-  const i64 n = (i64)P * rows * ld;
-  for (i64 e = blockIdx.x * (i64)blockDim.x + threadIdx.x; e < n;
-       e += (i64)gridDim.x * blockDim.x) {
-    const int col = (int)(e % ld), c = (int)(e / ld % rows);
-    const i64 i = e / ((i64)ld * rows);
-    const int gate = col / gs, u = col % gs;
-    dst[e] = c < D && gate < 3 && u < H
-                 ? w_ih[(i * 3 * H + gate * H + u) * D + c]
-                 : 0.0f;
-  }
-}
-
-cudaError_t launch_wih_t(const GruArgs& a, float* dst, int rows, int ld,
-                         int gs, cudaStream_t st) {
-  const i64 n = (i64)a.P * rows * ld;
-  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  gru_wih_t_kernel<<<blocks, 256, 0, st>>>(a.w_ih, dst, a.P, a.D, a.H, rows,
-                                           ld, gs);
-  return cudaGetLastError();
+// B1 on wide shapes (gru_wide.cuh): after the projection into xp, the walk
+// on clusters of 2 blocks that split W_hh's units.  MAXT: the threads a
+// block may have, which sets the registers a thread may take.
+template <int MAXT>
+__global__ void __cluster_dims__(vcx::kWideCluster, 1, 1)
+    __launch_bounds__(MAXT, 1) gru_forward_wide_kernel(GruArgs a) {
+  vcx::gru_fwd_wide_body(a);
 }
 
 template <int RPT>
@@ -132,17 +124,22 @@ __global__ void __launch_bounds__(vcx::kMaxThreads) gru_chain_kernel(GruArgs a) 
   vcx::gru_chain_body<RPT, false>(a);
 }
 
-// B2's chain on wide shapes (gru_wide.cuh): the input projection, then the
-// reverse walk on clusters of 2 blocks that split W_hh's units.
+// The input projection (gru_wide.cuh) into rows of GW * H floats: B2's gh
+// (GW = 4) or B1's xp (GW = 3).
+template <int GW>
 __global__ void __launch_bounds__(vcx::kXpThreads, 2)
     gru_xproj_kernel(GruArgs a) {
-  vcx::gru_xproj_body(a);
+  vcx::gru_xproj_body<GW>(a);
 }
 
+// B2's chain on wide shapes (gru_wide.cuh): after the projection into gh,
+// the reverse walk on clusters of 2 blocks that split W_hh's units; NJ =
+// vcx::wide_dh_tiles(H).
+template <int NJ>
 __global__ void __cluster_dims__(vcx::kWideCluster, 1, 1)
     __launch_bounds__(vcx::kWideMaxThreads, 1)
     gru_chain_wide_kernel(GruArgs a) {
-  vcx::gru_chain_wide_body(a);
+  vcx::gru_chain_wide_body<NJ>(a);
 }
 
 __global__ void __launch_bounds__(vcx::kWThreads) gru_wgrad_kernel(WgradArgs a) {
@@ -181,36 +178,61 @@ const vcx::ChainKernel kChainKernels[8] = {
     &gru_chain_kernel<4>, &gru_chain_kernel<5>, &gru_chain_kernel<6>,
     &gru_chain_kernel<7>, &gru_chain_kernel<8>};
 
-// Tiles: any multiple of 4 rows up to 32; threads vcx::fwd_tile_threads(bt,
-// H).  wih_t: null, or room for (P, D, fwd_weight_stride(H)) floats, which
-// selects the wide kernel (W_ih^T read from there, written first).
-cudaError_t launch_forward(const GruArgs& a, float* wih_t, cudaStream_t st) {
-  const int threads = vcx::fwd_tile_threads(a.bt, a.H);
-  if (a.P < 1 || a.B < 1 || a.T < 1 || a.D < 1 || a.H < 1 || a.bt < 4 ||
-      a.bt > 32 || a.bt % 4 != 0 || threads > vcx::kFwdMaxThreads)
-    return cudaErrorInvalidValue;
-  const bool wide = wih_t != nullptr;
-  const int ld = vcx::fwd_weight_stride(a.H);
-  if (wide) {
-    cudaError_t e = launch_wih_t(a, wih_t, a.D, ld, vcx::fwd_units(a.H), st);
-    if (e != cudaSuccess) return e;
-  }
-  auto kern = wide ? &gru_forward_kernel<true> : &gru_forward_kernel<false>;
-  const size_t smem =
-      (size_t)vcx::fwd_tile_smem_floats(a.bt, a.D, a.H, wide) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((a.B + a.bt - 1) / a.bt), (unsigned)a.P);
-  kern<<<grid, threads, smem, st>>>(a, wih_t);
-  return cudaGetLastError();
-}
-
+template <int GW>
 cudaError_t launch_xproj(const GruArgs& a, cudaStream_t st) {
   const dim3 grid((unsigned)((a.B * a.T + vcx::kXpRows - 1) / vcx::kXpRows),
                   (unsigned)((3 * a.H + vcx::kXpCols - 1) / vcx::kXpCols),
                   (unsigned)a.P);
-  gru_xproj_kernel<<<grid, vcx::kXpThreads, 0, st>>>(a);
+  gru_xproj_kernel<GW><<<grid, vcx::kXpThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The wide forward: the projection into xp = a.gh ((P, B, T, 3H) floats),
+// then the walk on clusters of vcx::kWideCluster blocks over a.bt-row
+// tiles (vcx::wide_tile_ok), at most vcx::kWideFwdMaxThreads threads.
+cudaError_t launch_forward_wide(const GruArgs& a, cudaStream_t st) {
+  const int threads = vcx::wide_threads(a.bt, a.H);
+  if (a.P > 65535 || !vcx::wide_tile_ok(a.bt) ||
+      threads > vcx::kWideFwdMaxThreads)
+    return cudaErrorInvalidValue;
+  cudaError_t e = launch_xproj<3>(a, st);
+  if (e != cudaSuccess) return e;
+  auto kern = threads <= vcx::kWideMaxThreads
+                  ? &gru_forward_wide_kernel<vcx::kWideMaxThreads>
+                  : &gru_forward_wide_kernel<vcx::kWideFwdMaxThreads>;
+  const size_t smem =
+      (size_t)vcx::wide_fwd_smem_floats(a.bt, a.H) * sizeof(float);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(
+      (unsigned)((a.B + a.bt - 1) / a.bt * vcx::kWideCluster), (unsigned)a.P);
+  kern<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// B1 on tiles of a.bt rows: gru_forward_kernel (any multiple of 4 rows up
+// to 32; threads vcx::fwd_tile_threads(bt, H)), or, when xp is not null,
+// the wide forward with xp as its (P, B, T, 3H) scratch.
+cudaError_t launch_forward(GruArgs a, float* xp, cudaStream_t st) {
+  if (a.P < 1 || a.B < 1 || a.T < 1 || a.D < 1 || a.H < 1)
+    return cudaErrorInvalidValue;
+  if (xp != nullptr) {
+    a.gh = xp;
+    return launch_forward_wide(a, st);
+  }
+  const int threads = vcx::fwd_tile_threads(a.bt, a.H);
+  if (a.bt < 4 || a.bt > 32 || a.bt % 4 != 0 ||
+      threads > vcx::kFwdMaxThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)vcx::fwd_tile_smem_floats(a.bt, a.D, a.H) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((a.B + a.bt - 1) / a.bt), (unsigned)a.P);
+  gru_forward_kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -221,16 +243,17 @@ cudaError_t launch_chain_wide(const GruArgs& a, cudaStream_t st) {
       !vcx::wide_tile_ok(a.bt) ||
       vcx::wide_threads(a.bt, a.H) > vcx::kWideMaxThreads)
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_xproj(a, st);
+  cudaError_t e = launch_xproj<4>(a, st);
   if (e != cudaSuccess) return e;
+  auto kern = vcx::wide_dh_tiles(a.H) == 4 ? &gru_chain_wide_kernel<4>
+                                           : &gru_chain_wide_kernel<2>;
   const size_t smem = (size_t)vcx::wide_smem_floats(a.bt, a.H) * sizeof(float);
-  e = cudaFuncSetAttribute(gru_chain_wide_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(
       (unsigned)((a.B + a.bt - 1) / a.bt * vcx::kWideCluster), (unsigned)a.P);
-  gru_chain_wide_kernel<<<grid, vcx::wide_threads(a.bt, a.H), smem, st>>>(a);
+  kern<<<grid, vcx::wide_threads(a.bt, a.H), smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -245,16 +268,16 @@ cudaError_t launch_chain_any(const GruArgs& a, int wide, cudaStream_t st) {
 
 extern "C" {
 
-// Forward: outs (P, B, T, H) from x, the stacked weights and h0.  wih_t:
-// null, or scratch for the wide kernel (launch_forward).
+// Forward: outs (P, B, T, H) from x, the stacked weights and h0.  xp:
+// null, or the (P, B, T, 3H) scratch of the wide forward (launch_forward).
 int vcx_gru_forward(const float* x, i64 sxp, i64 sxb, i64 sxt,
                     const float* w_ih, const float* w_hh, const float* b_ih,
                     const float* b_hh, const float* h0, i64 sh0p, i64 sh0b,
-                    float* outs, float* wih_t, int P, int B, int T, int D,
+                    float* outs, float* xp, int P, int B, int T, int D,
                     int H, int bt, void* stream) {
   GruArgs a{x, sxp, sxb, sxt, w_ih, w_hh, b_ih, b_hh, h0, sh0p, sh0b, outs,
             nullptr, nullptr, nullptr, P, B, T, D, H, bt};
-  return (int)launch_forward(a, wih_t, static_cast<cudaStream_t>(stream));
+  return (int)launch_forward(a, xp, static_cast<cudaStream_t>(stream));
 }
 
 // Backward phase 1: from the forward's inputs, outs and douts (P, B, T, H),
@@ -279,13 +302,21 @@ int vcx_gru_xproj(const float* x, i64 sxp, i64 sxb, i64 sxt,
                   int B, int T, int D, int H, void* stream) {
   GruArgs a{x, sxp, sxb, sxt, w_ih, nullptr, b_ih, nullptr, nullptr, 0, 0,
             nullptr, nullptr, gh, nullptr, P, B, T, D, H, 0};
-  return (int)launch_xproj(a, static_cast<cudaStream_t>(stream));
+  return (int)launch_xproj<4>(a, static_cast<cudaStream_t>(stream));
 }
 
 // The wide chain's block at a tile of bt rows and hidden H: out[0] =
 // dynamic shared memory (bytes), out[1] = threads, out[2] = cluster size.
 void vcx_wide_chain_block(int bt, int H, long long* out) {
   out[0] = vcx::wide_smem_floats(bt, H) * (long long)sizeof(float);
+  out[1] = vcx::wide_threads(bt, H);
+  out[2] = vcx::kWideCluster;
+}
+
+// The wide forward's block at a tile of bt rows and hidden H: out[0] =
+// dynamic shared memory (bytes), out[1] = threads, out[2] = cluster size.
+void vcx_wide_fwd_block(int bt, int H, long long* out) {
+  out[0] = vcx::wide_fwd_smem_floats(bt, H) * (long long)sizeof(float);
   out[1] = vcx::wide_threads(bt, H);
   out[2] = vcx::kWideCluster;
 }

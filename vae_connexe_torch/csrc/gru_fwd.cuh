@@ -34,11 +34,8 @@
 // so a step needs one barrier.  The weights are staged once per block with
 // 16-byte global loads where a row's length allows it.
 //
-// Wide variant, for widths whose two weights do not fit a block together
-// (hidden 128 with D = 40 or 128 on an H100: 269-410 KB): only W_hh^T is
-// staged (205 KB at H = 128), and the x part of a step reads W_ih^T from a
-// copy in global memory laid out as the staged rows, through the read-only
-// cache (L2 holds every head's copy: 2.5 MB at P = 40, D = 40).
+// Widths whose two weights do not fit a block together (hidden 128 with D
+// = 40 or 128 on an H100: 269-410 KB) run gru_wide.cuh's forward instead.
 //
 // Gate math is torch nn.GRU's (r, z, n; the hidden bias of n inside the
 // reset product), as gru_tile.cuh.
@@ -66,16 +63,14 @@ __host__ __device__ inline int fwd_weight_stride(int H) {
   return g + (48 - g % 32) % 32;
 }
 
-// Floats of the staged weights: W_ih^T and W_hh^T, or W_hh^T alone when
-// the block reads W_ih^T from global memory (wide).
-__host__ __device__ inline i64 fwd_weights_floats(int D, int H, bool wide) {
-  return ((i64)((wide ? 0 : D) + H) * fwd_weight_stride(H) + 3) & ~3LL;
+// Floats of the staged weights: W_ih^T and W_hh^T.
+__host__ __device__ inline i64 fwd_weights_floats(int D, int H) {
+  return ((i64)(D + H) * fwd_weight_stride(H) + 3) & ~3LL;
 }
 
 // Floats of shared memory of a block of bt rows (bt a multiple of 4).
-__host__ __device__ inline i64 fwd_tile_smem_floats(int bt, int D, int H,
-                                                    bool wide) {
-  return fwd_weights_floats(D, H, wide) + 2LL * bt * (D + fwd_units(H));
+__host__ __device__ inline i64 fwd_tile_smem_floats(int bt, int D, int H) {
+  return fwd_weights_floats(D, H) + 2LL * bt * (D + fwd_units(H));
 }
 
 __host__ __device__ inline int fwd_tile_threads(int bt, int H) {
@@ -128,15 +123,6 @@ __device__ inline void fwd_prefetch_x(float* xs, const GruArgs& a,
   cp_async_commit();
 }
 
-// A float2 of weights: from shared memory, or through the read-only cache.
-template <bool GLOBAL>
-__device__ __forceinline__ float2 fwd_w2(const float* p) {
-  if constexpr (GLOBAL)
-    return __ldg(reinterpret_cast<const float2*>(p));
-  else
-    return *reinterpret_cast<const float2*>(p);
-}
-
 // The thread's half of the k split (ks, the lane's low bit), first unit j
 // (even) and first row r0 (a multiple of 4).  Where the unit pairs come in
 // eights, the 16 (pair, row group) tiles of a warp are 8 pairs x 2 row
@@ -168,24 +154,20 @@ __device__ __forceinline__ float fwd_pair_sum(unsigned mask, int ks,
 }
 
 // Grid (batch tiles, heads), fwd_tile_threads(a.bt, a.H) threads, dynamic
-// shared memory fwd_tile_smem_floats(a.bt, a.D, a.H, WIDE); bt a multiple
-// of 4.  WIDE: W_ih^T is read from wih_t, (P, D, fwd_weight_stride(H)) in
-// global memory laid out as the staged rows (gru.cu's gru_wih_t_kernel),
-// and only W_hh^T is staged; else wih_t is unused.
-template <bool WIDE>
-__device__ void gru_fwd_body(const GruArgs& a, const float* wih_t) {
+// shared memory fwd_tile_smem_floats(a.bt, a.D, a.H); bt a multiple of 4.
+__device__ inline void gru_fwd_body(const GruArgs& a) {
   extern __shared__ __align__(16) float smem[];
   const unsigned mask = __activemask();
   const int i = blockIdx.y, H = a.H, D = a.D, G = 3 * H, T = a.T, bt = a.bt;
   const int U = fwd_units(H), ld = fwd_weight_stride(H), row0 = blockIdx.x * bt;
-  float* whh = smem + (WIDE ? 0 : D * ld);
-  const float* wx = WIDE ? wih_t + (i64)i * D * ld : smem;
-  float* xs = smem + fwd_weights_floats(D, H, WIDE);
+  float* whh = smem + D * ld;
+  const float* wx = smem;
+  float* xs = smem + fwd_weights_floats(D, H);
   float* hs = xs + 2 * bt * D;
   const float* x = a.x + (i64)i * a.sxp;
   fwd_prefetch_x(xs, a, x, row0, 0);   // in flight while the weights stage
 
-  if (!WIDE) fwd_stage_transposed(smem, a.w_ih + (i64)i * G * D, H, D, ld);
+  fwd_stage_transposed(smem, a.w_ih + (i64)i * G * D, H, D, ld);
   fwd_stage_transposed(whh, a.w_hh + (i64)i * G * H, H, H, ld);
   const float* h0 = a.h0 + (i64)i * a.sh0p;
   for (int e = threadIdx.x; e < bt * U; e += blockDim.x) {
@@ -231,9 +213,9 @@ __device__ void gru_fwd_body(const GruArgs& a, const float* wih_t) {
     for (int c = ks; c < D; c += kFwdSplit) {
       const float4 v = *reinterpret_cast<const float4*>(xk + c * bt);
       const float* wp = wx + c * ld + j;
-      const float2 wr = fwd_w2<WIDE>(wp);
-      const float2 wz = fwd_w2<WIDE>(wp + U);
-      const float2 wn = fwd_w2<WIDE>(wp + 2 * U);
+      const float2 wr = *reinterpret_cast<const float2*>(wp);
+      const float2 wz = *reinterpret_cast<const float2*>(wp + U);
+      const float2 wn = *reinterpret_cast<const float2*>(wp + 2 * U);
       const float vr[kFwdRows] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int r = 0; r < kFwdRows; ++r) {

@@ -787,7 +787,7 @@ __host__ __device__ inline int res_weight_stride(int H, bool half) {
 
 // Floats of one head's staged W_ih^T and W_hh^T (bf16 weights take half).
 __host__ __device__ inline i64 res_weights_floats(int D, int H, bool half) {
-  if (!half) return vcx::fwd_weights_floats(D, H, false);
+  if (!half) return vcx::fwd_weights_floats(D, H);
   return ((i64)(D + H) * res_weight_stride(H, true) / 2 + 3) & ~3LL;
 }
 

@@ -166,6 +166,8 @@ def gru_library() -> ctypes.CDLL:
     lib.vcx_gru_xproj.restype = _I
     lib.vcx_wide_chain_block.argtypes = [_I] * 2 + [ctypes.POINTER(_L)]
     lib.vcx_wide_chain_block.restype = None
+    lib.vcx_wide_fwd_block.argtypes = [_I] * 2 + [ctypes.POINTER(_L)]
+    lib.vcx_wide_fwd_block.restype = None
     lib.vcx_gru_bwd_wgrad.argtypes = ([_P, _P, _L, _L, _L, _P, _L, _L]
                                       + [_P] * 4 + [_I] * 7 + [_P])
     lib.vcx_gru_bwd_wgrad.restype = _I

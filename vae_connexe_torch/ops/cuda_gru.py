@@ -13,10 +13,10 @@ its count in ``LAUNCHES``.  On a CPU tensor they run their plain versions,
 its plain version: a CUDA input launches or raises.  ``recurrence_route``
 picks, from the shapes and the card's limits before any launch, the kernels
 that stage both weights in shared memory or, where they do not fit a block
-together (hidden 128 on an H100), their wide variants: B1 stages W_hh^T
-alone and reads W_ih^T from global memory, and B2's chain projects the
-input of every step first and walks time on thread-block clusters that
-split W_hh's units (``wide_chain_plan``); each variant has its own count.
+together (hidden 128 on an H100), their wide variants: B1 and B2's chain
+project the input of every step first and walk time on thread-block
+clusters that split W_hh's units (``wide_fwd_plan``, ``wide_chain_plan``);
+each variant has its own count.
 Shapes that neither fits raise.  Each kernel's plan (variant and batch
 tile) is chosen once per (shapes, device) and cached (``_fwd_plan``,
 ``_bwd_plan``).
@@ -108,10 +108,10 @@ def chain_step_loads(bt: int, d: int, hidden: int) -> float:
             + _round4(3 * hidden) * (1 + rpt / 4))
 
 
-# B2's chain on wide shapes (csrc/gru_wide.cuh): the input projection, then
-# the reverse walk on clusters of WIDE_CLUSTER blocks that split W_hh's
-# units.  Tiles: 16 to 64 rows, a warp a (16 rows, 16 units) item, at most
-# 256 threads a block.
+# B1 and B2's chain on wide shapes (csrc/gru_wide.cuh): the input
+# projection, then the walk on clusters of WIDE_CLUSTER blocks that split
+# W_hh's units.  Tiles: 16 to 64 rows, a warp a (16 rows, 16 units) item,
+# at most 256 threads a chain block, 512 a forward block.
 WIDE_CLUSTER = 2
 WIDE_TILES = (64, 48, 32, 16)
 WIDE_MAX_THREADS = 256
@@ -131,9 +131,9 @@ WIDE_STEP_CYCLES = 10500
 
 
 def wide_hpad(hidden: int) -> int:
-    """Units of the wide chain: H rounded up to 32 a block of the cluster
+    """Units of the wide walks: H rounded up to 16 a block of the cluster
     (gru_wide.cuh ``wide_hpad``); pad units have zero weights."""
-    q = 32 * WIDE_CLUSTER
+    q = 16 * WIDE_CLUSTER
     return -(-hidden // q) * q
 
 
@@ -172,41 +172,110 @@ def wide_blocks_per_sm(bt: int, hidden: int, limits) -> int:
                65536 // (threads * WIDE_REGS))
 
 
-def wide_step_cost(bt: int, hidden: int, blocks: int, per_sm: int,
-                   n_sm: int) -> float:
-    """Cycles of one step of the wide walk over the whole grid: rounds of
-    the clusters the card holds at once, each as long as its busiest SM's
-    multiply-adds (the hidden half and d h_prev, 6 U H' a row) at the rate
-    its warps reach, plus the step's fixed cycles."""
+def _cluster_step_cost(bt: int, hidden: int, blocks: int, per_sm: int,
+                       n_sm: int, fma_row: int, fixed: float) -> float:
+    """Cycles of one step of a wide walk over the whole grid: rounds of the
+    clusters the card holds at once, each as long as its busiest SM's
+    multiply-adds (``fma_row`` a row) at the rate its warps reach, plus the
+    step's ``fixed`` cycles."""
     warps = wide_chain_threads(bt, hidden) // 32
     busy = min(per_sm, math.ceil(blocks / n_sm))
     held = max(1, n_sm * per_sm // WIDE_CLUSTER)
     rounds = math.ceil(blocks // WIDE_CLUSTER / held)
-    fma = bt * 6 * wide_units(hidden) * wide_hpad(hidden)
     eff = min(1.0, busy * warps / WIDE_SAT_WARPS)
-    return rounds * (busy * fma / (WIDE_FMA_PER_CYCLE * eff)
-                     + WIDE_STEP_CYCLES)
+    return rounds * (busy * bt * fma_row / (WIDE_FMA_PER_CYCLE * eff)
+                     + fixed)
 
 
-def wide_chain_plan(batch: int, heads: int, hidden: int,
-                    limits) -> int | None:
-    """The wide chain's batch tile at these shapes on a card of ``limits``,
-    or None when no block fits (hidden above 128 on an H100): the cheapest
-    by ``wide_step_cost`` over ``WIDE_TILES``, the first on a tie (the
-    wider tile); a tile of twice the batch or more only idles threads and
-    is not taken unless it is the narrowest."""
+def wide_step_cost(bt: int, hidden: int, blocks: int, per_sm: int,
+                   n_sm: int) -> float:
+    """Cycles of one step of the wide chain (``_cluster_step_cost``): the
+    hidden half and d h_prev, 6 U H' multiply-adds a row."""
+    return _cluster_step_cost(
+        bt, hidden, blocks, per_sm, n_sm,
+        6 * wide_units(hidden) * wide_hpad(hidden), WIDE_STEP_CYCLES)
+
+
+def _cluster_plan(batch: int, heads: int, per_sm_fn, cost_fn,
+                  limits) -> int | None:
+    """The cheapest batch tile of ``WIDE_TILES`` by ``cost_fn(bt, blocks,
+    per_sm, SMs)`` among those ``per_sm_fn(bt)`` fits, the first on a tie
+    (the wider tile), or None; a tile of twice the batch or more only idles
+    threads and is not taken unless it is the narrowest."""
     best = None
     for bt in WIDE_TILES:
         if bt > min(WIDE_TILES) and bt >= 2 * batch:
             continue
-        per_sm = wide_blocks_per_sm(bt, hidden, limits)
+        per_sm = per_sm_fn(bt)
         if per_sm < 1:
             continue
         blocks = heads * math.ceil(batch / bt) * WIDE_CLUSTER
-        cost = wide_step_cost(bt, hidden, blocks, per_sm, limits[2])
+        cost = cost_fn(bt, blocks, per_sm, limits[2])
         if best is None or cost < best[0]:
             best = (cost, bt)
     return None if best is None else best[1]
+
+
+def wide_chain_plan(batch: int, heads: int, hidden: int,
+                    limits) -> int | None:
+    """The wide chain's batch tile at these shapes on a card of ``limits``
+    (by ``wide_step_cost``), or None when no block fits (hidden above 132
+    on an H100)."""
+    return _cluster_plan(
+        batch, heads, lambda bt: wide_blocks_per_sm(bt, hidden, limits),
+        lambda bt, *rest: wide_step_cost(bt, hidden, *rest), limits)
+
+
+# B1's wide forward (csrc/gru_wide.cuh ``gru_fwd_wide_body``): the chain's
+# clusters, staged W_hh rows and warp items (``wide_chain_threads``), one
+# product a step; tiles of up to 512 threads (``__launch_bounds__(512,
+# 1)``: 128 registers a thread above 256 threads).  The cost model's fixed
+# cycles a step, with the chain's rate: the sweep of
+# ``tools/torch_gru_fwd_tiles.py --wide`` on an H100 put the walk within 2%
+# of the model at lorenz96_scaled's and lorenz96_xl's heads and the
+# one-head encoder, and the model's tile was the fastest at every shape.
+WIDE_FWD_MAX_THREADS = 512
+WIDE_FWD_STEP_CYCLES = 6000
+
+
+def wide_fwd_smem_bytes(bt: int, hidden: int) -> int:
+    """Shared memory of a wide forward block (``wide_fwd_smem_floats``): the
+    block's W_hh rows (3U of H' + 4 floats), b_hh and two buffers of h
+    rows."""
+    u, ks = wide_units(hidden), wide_hpad(hidden) + 4
+    return 4 * (3 * u * ks + 3 * u + 2 * bt * ks)
+
+
+def wide_fwd_blocks_per_sm(bt: int, hidden: int, limits) -> int:
+    """Wide forward blocks an SM holds at once, by shared memory, threads
+    and registers (0: the block does not fit)."""
+    optin, smem_sm, _, threads_sm = limits
+    need = wide_fwd_smem_bytes(bt, hidden)
+    threads = wide_chain_threads(bt, hidden)
+    if (need > optin or threads > WIDE_FWD_MAX_THREADS or bt % 16 or bt > 64
+            or bt < 16):
+        return 0
+    regs = WIDE_REGS if threads <= WIDE_MAX_THREADS else 128
+    return min(smem_sm // (need + BLOCK_RESERVED), threads_sm // threads,
+               65536 // (threads * regs))
+
+
+def wide_fwd_step_cost(bt: int, hidden: int, blocks: int, per_sm: int,
+                       n_sm: int) -> float:
+    """Cycles of one step of the wide forward (``_cluster_step_cost``): the
+    hidden half alone, 3 U H' multiply-adds a row."""
+    return _cluster_step_cost(
+        bt, hidden, blocks, per_sm, n_sm,
+        3 * wide_units(hidden) * wide_hpad(hidden), WIDE_FWD_STEP_CYCLES)
+
+
+def wide_fwd_plan(batch: int, heads: int, hidden: int,
+                  limits) -> int | None:
+    """The wide forward's batch tile at these shapes on a card of
+    ``limits`` (by ``wide_fwd_step_cost``), or None when no block fits."""
+    return _cluster_plan(
+        batch, heads, lambda bt: wide_fwd_blocks_per_sm(bt, hidden, limits),
+        lambda bt, *rest: wide_fwd_step_cost(bt, hidden, *rest), limits)
 
 
 def fwd_units(hidden: int) -> int:
@@ -223,13 +292,11 @@ def fwd_weight_stride(hidden: int) -> int:
     return g + (48 - g % 32) % 32
 
 
-def fwd_tile_smem_bytes(bt: int, d: int, hidden: int,
-                        wide: bool = False) -> int:
+def fwd_tile_smem_bytes(bt: int, d: int, hidden: int) -> int:
     """Shared memory of a B1 block (gru_fwd.cuh ``fwd_tile_smem_floats``):
-    W_ih^T (unless wide) and W_hh^T at ``fwd_weight_stride``, then two
-    buffers each of the step's input and state rows."""
-    rows = hidden + (0 if wide else d)
-    return 4 * (_round4(rows * fwd_weight_stride(hidden))
+    W_ih^T and W_hh^T at ``fwd_weight_stride``, then two buffers each of
+    the step's input and state rows."""
+    return 4 * (_round4((d + hidden) * fwd_weight_stride(hidden))
                 + 2 * bt * (d + fwd_units(hidden)))
 
 
@@ -317,10 +384,13 @@ def pick_tile(batch: int, heads: int, hidden: int, smem_fn, limits,
 
 def fwd_tile(batch: int, heads: int, d: int, hidden: int, limits,
              wide: bool = False) -> int | None:
-    """B1's batch tile (``fwd_step_cost`` over ``FWD_TILES``), or None when
-    no tile fits; ``wide``: the variant that stages W_hh^T alone."""
+    """B1's batch tile (``fwd_step_cost`` over ``FWD_TILES``; or, if
+    ``wide``, the wide forward's plan, ``wide_fwd_plan``), or None when no
+    tile fits."""
+    if wide:
+        return wide_fwd_plan(batch, heads, hidden, limits)
     return fit_tile(batch, heads, hidden, FWD_TILES,
-                    lambda n: fwd_tile_smem_bytes(n, d, hidden, wide),
+                    lambda n: fwd_tile_smem_bytes(n, d, hidden),
                     fwd_tile_threads,
                     lambda n, *rest: fwd_step_cost(n, d, hidden, *rest),
                     limits)
@@ -344,9 +414,9 @@ def recurrence_route(heads: int, batch: int, d: int, hidden: int,
     """The kernels a recurrence of these shapes runs on a card of
     ``limits``, chosen before any launch: ``"kernel"`` when B1's tile and
     B2's chain tile both fit a block with W_ih^T and W_hh^T in shared
-    memory, else ``"wide"`` when B1 fits with W_hh^T alone and the wide
-    chain (``wide_chain_plan``) fits (hidden 128 on an H100).  Raises
-    ValueError when neither fits."""
+    memory, else ``"wide"`` when the wide forward (``wide_fwd_plan``) and
+    the wide chain (``wide_chain_plan``) fit (hidden 128 on an H100, and
+    up to 132).  Raises ValueError when neither fits."""
     for route, wide in (("kernel", False), ("wide", True)):
         if (fwd_tile(batch, heads, d, hidden, limits, wide) is not None
                 and chain_tile(batch, heads, d, hidden, limits, wide)
@@ -355,7 +425,7 @@ def recurrence_route(heads: int, batch: int, d: int, hidden: int,
     raise ValueError(
         f"GRU kernel: no tile of B1 or B2's chain fits the device's shared "
         f"memory ({limits[0]} bytes a block) at {heads} heads, batch "
-        f"{batch}, D={d}, H={hidden}, even with W_ih^T in global memory")
+        f"{batch}, D={d}, H={hidden}, even on the wide route's clusters")
 
 
 # gru_bwd.cuh's weight-gradient block tile: 64 gate rows, 32 rows of K a stage;
@@ -451,25 +521,20 @@ def _fwd_plan(shapes, dev: torch.device) -> tuple[int, bool]:
     return fwd_tile(b, p, d, hidden, limits, wide), wide
 
 
-def _wih_t(ops, rows: int, ld: int, wide: bool):
-    """Scratch for the copy of W_ih^T that a wide kernel reads, (P, rows,
-    ld) floats, or None."""
-    (p, *_), x = ops[0], ops[1]
-    return (torch.empty((p, rows, ld), device=x.device, dtype=torch.float32)
-            if wide else None)
-
-
 def _forward_kernel(ops, w, outs, bt: int, wide: bool) -> None:
-    """Launch ``gru_forward_kernel`` (its wide variant if ``wide``) into
-    outs (validated operands) on tiles of ``bt`` rows."""
+    """Launch ``gru_forward_kernel`` or, if ``wide``, the wide forward
+    (``gru_xproj_kernel<3>`` into a (P, B, T, 3H) scratch, then
+    ``gru_forward_wide_kernel``) into outs (validated operands) on tiles of
+    ``bt`` rows."""
     from vae_connexe_torch.ops._build import gru_library
 
     (p, b, t, d, hidden), x, xs, h0, hs = ops
     w_ih, b_ih, w_hh, b_hh = (v.contiguous() for v in w)
-    wih_t = _wih_t(ops, d, fwd_weight_stride(hidden), wide)
+    xp = (torch.empty((p, b, t, 3 * hidden), device=x.device,
+                      dtype=torch.float32) if wide else None)
     _launch(gru_library(), "vcx_gru_forward", x.device,
-            (x, *xs, w_ih, w_hh, b_ih, b_hh, h0, *hs, outs, wih_t, p, b, t,
-             d, hidden, bt))
+            (x, *xs, w_ih, w_hh, b_ih, b_hh, h0, *hs, outs, xp, p, b, t, d,
+             hidden, bt))
 
 
 def _forward_launch(w_ih, b_ih, w_hh, b_hh, x, h0) -> torch.Tensor:
@@ -574,10 +639,29 @@ def _chain_kernel(ops, w, outs, douts, gh, dh0, bt: int, wide: bool) -> None:
 
 
 def xproj_plain(w_ih, b_ih, x):
-    """Plain version of the wide chain's input projection: x W_ih^T + b_ih
+    """Plain version of the wide routes' input projection: x W_ih^T + b_ih
     of every head, (P, B, T, 3H), x shared (B, T, D) or per head."""
     xs = x if x.ndim == 4 else x.expand(w_ih.shape[0], *x.shape)
     return torch.einsum("pbtd,pgd->pbtg", xs, w_ih) + b_ih[:, None, None]
+
+
+def fwd_wide_plain(w_ih, b_ih, w_hh, b_hh, x, h0):
+    """Plain version of the wide forward's decomposition: the projection
+    of every step first (``xproj_plain``), then a walk whose step product
+    is h W_hh^T alone, torch nn.GRU's gate math; outs (P, B, T, H) from h0
+    (P, B, H)."""
+    xp = xproj_plain(w_ih, b_ih, x)
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    h, outs = h0, []
+    for s in range(xp.shape[2]):
+        hr, hz, hn = (torch.einsum("pbk,pgk->pbg", h, w_hh)
+                      + b_hh[:, None]).chunk(3, dim=-1)
+        r = torch.sigmoid(xr[:, :, s] + hr)
+        z = torch.sigmoid(xz[:, :, s] + hz)
+        n = torch.tanh(xn[:, :, s] + r * hn)
+        h = (1 - z) * n + z * h
+        outs.append(h)
+    return torch.stack(outs, dim=2)
 
 
 def bwd_xproj(w_ih, b_ih, x):
